@@ -1,0 +1,125 @@
+"""Card-only tests: each CUDA kernel of the port against its plain PyTorch
+version on the same CUDA tensors, and the smoke-width engine's greedy
+streams on the card against the CPU's.
+
+Marked ``gpu``. Whether a card is present is decided in the ``cuda``
+fixture, never at import, so every test process collects the same tests;
+without a card they skip. Run on a machine with an H100:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+This file imports no JAX: the machine with the card has none.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.core import attn_pattern as ap
+from repro_torch.core import butterfly as bf
+from repro_torch.kernels import ref
+from repro_torch.kernels.bsr_attention import block_sparse_attention_cuda
+from repro_torch.kernels.bsr_matmul import bsr_matmul_cuda
+from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+from repro_torch.models.layers import paged_sparse_schedule
+from repro_torch.serving.engine import Engine, EngineConfig
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the port's kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(a, dtype, dev):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+
+def _err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("m", [1, 8, 37, 300])
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_bsr_matmul_kernel(cuda, m, block, dtype, tol):
+    rng = np.random.default_rng(m + block)
+    pat = bf.make_pattern(4 * block, 8 * block, block=block, max_stride=4)
+    x = _t(rng.standard_normal((m, 8 * block)), dtype, cuda)
+    blocks = _t(rng.standard_normal((pat.nb_out, pat.r, block, block)) / np.sqrt(pat.r * block), dtype, cuda)
+    cols = torch.as_tensor(pat.cols, device=cuda)
+    got = bsr_matmul_cuda(x, blocks, cols)
+    assert _err(got, ref.bsr_matmul_gather(x, blocks, cols)) <= tol
+
+
+def test_bsr_matmul_kernel_refuses_small_blocks(cuda):
+    x = torch.zeros((4, 64), device=cuda)
+    with pytest.raises(ValueError, match="64 and 128"):
+        bsr_matmul_cuda(x, torch.zeros((2, 1, 32, 32), device=cuda),
+                        torch.zeros((2, 1), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_paged_decode_kernel(cuda, g, dtype, tol):
+    rng = np.random.default_rng(g)
+    b, hk, d, page, pps = 5, 2, 64, 16, 8
+    n_pages = b * pps + 1
+    k = rng.standard_normal((n_pages, page, hk, d))
+    v = rng.standard_normal((n_pages, page, hk, d))
+    k[0], v[0] = 1e4, -1e4  # poisoned trash page
+    table = rng.permutation(np.arange(1, n_pages))[: b * pps].reshape(b, pps).astype(np.int32)
+    table[1] = 0  # idle slot
+    table[2, 2:] = 0  # partially allocated row
+    pos = np.array([pps * page - 1, 0, 2 * page - 3, 5 * page + 7, 37], np.int32)
+    q = _t(rng.standard_normal((b, hk, g, d)), dtype, cuda)
+    kp, vp = _t(k, dtype, cuda), _t(v, dtype, cuda)
+    table_t = torch.as_tensor(table, device=cuda)
+    pos_t = torch.as_tensor(pos, device=cuda)
+    logical, phys, keep = paged_sparse_schedule(table_t, pos_t, page, local_blocks=2, global_blocks=1)
+    got = paged_decode_attention_cuda(q, kp, vp, phys, logical, keep, pos_t, sm_scale=d ** -0.5)
+    want = ref.paged_decode_attention_gather(q, kp, vp, phys, logical, keep, pos_t, sm_scale=d ** -0.5)
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) <= tol
+
+
+@pytest.mark.parametrize("d,block", [(64, 64), (128, 128)])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+def test_block_sparse_attention_kernel(cuda, d, block, g, dtype, tol):
+    rng = np.random.default_rng(d + g)
+    b, hk, s = 2, 2, 8 * block
+    mask = ap.pixelfly_attention_block_mask(
+        s, s, ap.AttentionPatternConfig(block=block, local_blocks=2, global_blocks=1), causal=True
+    )
+    sched = ap.block_schedule(mask, block, block)
+    q = _t(rng.standard_normal((b, s, hk * g, d)), dtype, cuda)
+    k = _t(rng.standard_normal((b, s, hk, d)), dtype, cuda)
+    v = _t(rng.standard_normal((b, s, hk, d)), dtype, cuda)
+    kv_index = torch.as_tensor(sched.kv_index, device=cuda)
+    valid = torch.as_tensor(sched.valid, device=cuda)
+    got = block_sparse_attention_cuda(q, k, v, kv_index, valid, block=block, causal=True, sm_scale=d ** -0.5)
+    want = ref.sparse_attention(q.reshape(b, s, hk, g, d), k, v, kv_index, valid,
+                                block=block, causal=True, sm_scale=d ** -0.5)
+    assert _err(got, want.reshape(b, s, hk * g, d)) <= tol
+
+
+def test_engine_streams_equal_cpu(cuda):
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    page = cfg.attn_block
+    rng = np.random.default_rng(0)
+    work = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), g)
+            for n, g in [(40, 6), (5 * page + 9, 8), (2 * page + 1, 5), (7 * page, 4)]]
+
+    def serve(device):
+        eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=2, max_len=8 * page), device=device)
+        uids = {eng.submit(p, n): i for i, (p, n) in enumerate(work)}
+        return {uids[f.uid]: f.tokens.tolist() for f in eng.drain(max_steps=200)}
+
+    assert serve("cuda") == serve("cpu")
