@@ -13,8 +13,10 @@ Phases; any failure raises and the script exits non-zero:
    at the main path's shapes in bfloat16, and at small shapes in float32,
    with the reference tolerances (``assert_allclose`` style, rtol = atol).
    Per kernel: the kernel's time (CUDA events, L2 flushed before every
-   launch, as the decode loop finds weights cold), the plain version's and
-   one PyTorch library call's for the same function, and the bound: the
+   launch, as the decode loop finds weights cold, all launches queued
+   behind a device sleep so host time is not counted), the plain version's and
+   one PyTorch library call's for the same function, the host time of one
+   call (wrapper and launch, not waited on), and the bound: the
    larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s (bf16) or
    67 TFLOP/s (fp32), H100 SXM data-sheet peaks.
 4. Smoke-width parity: the fp32 smoke model, same seeded weights, served
@@ -23,7 +25,9 @@ Phases; any failure raises and the script exits non-zero:
 5. Full width: ``Engine(registry.get("qwen3-1.7b", sparse=True))`` with
    ``EngineConfig(max_slots=8, max_len=2048)`` serves 12 requests (prompt
    lengths 200-1000 from --seed, 32 new tokens each) with every kernel's
-   launch count reset just before; each kernel must have launched.
+   launch count reset just before; each kernel must have launched. Then
+   two profiled windows (device busy share, top kernels): 4 decode steps
+   with 8 slots busy, and one prefill call of 4 prompts of 1024 tokens.
 6. The kernels line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -60,7 +64,10 @@ def log(*a):
 
 class Timer:
     """Kernel time by CUDA events around each launch, after flushing the
-    50 MB L2 with a 256 MB write outside the timed window."""
+    50 MB L2 with a 256 MB write outside the timed window. Every launch is
+    queued behind a ~20 ms device sleep, so the host's time in a wrapper
+    never shows up as a gap between the events: the events time the
+    device alone."""
 
     def __init__(self, iters=20, warmup=3):
         self.iters = iters
@@ -70,6 +77,8 @@ class Timer:
     def ms(self, fn) -> float:
         for _ in range(self.warmup):
             fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40_000_000)  # cycles: ~20 ms at the H100's clocks
         pairs = []
         for _ in range(self.iters):
             self.flush_buf.zero_()
@@ -81,6 +90,18 @@ class Timer:
             pairs.append((a, b))
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+
+
+def host_us(fn, n=200) -> float:
+    """Host time of one call (wrapper checks, launch), from a loop of n
+    calls that is not waited on: what a host-bound step pays per launch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -133,6 +154,7 @@ def bsr_case(timer, lin_spec, m, dtype, seed, tol):
         "max_abs_err": err,
         "tol": tol,
         "ms": timer.ms(lambda: bsr_matmul_cuda(x, blocks, cols)),
+        "host_us": host_us(lambda: bsr_matmul_cuda(x, blocks, cols)),
         "plain_ms": timer.ms(lambda: ref.bsr_matmul_gather(x, blocks, cols)),
         "library_ms": timer.ms(lambda: x @ dense),
         "bound_ms": b_ms,
@@ -187,6 +209,7 @@ def paged_case(timer, *, b, hk, g, d, page, pps, dtype, seed, tol):
         "max_abs_err": err,
         "tol": tol,
         "ms": timer.ms(lambda: paged_decode_attention_cuda(*args, sm_scale=scale)),
+        "host_us": host_us(lambda: paged_decode_attention_cuda(*args, sm_scale=scale)),
         "plain_ms": timer.ms(lambda: ref.paged_decode_attention_gather(*args, sm_scale=scale)),
         "library_ms": timer.ms(lambda: sdpa(q, kg, vg, attn_mask=mask, scale=scale)),
         "bound_ms": b_ms,
@@ -242,6 +265,7 @@ def attention_case(timer, *, b, s, h, hk, d, block, dtype, seed, tol):
         "max_abs_err": err,
         "tol": tol,
         "ms": timer.ms(lambda: block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw)),
+        "host_us": host_us(lambda: block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw)),
         "plain_ms": timer.ms(plain),
         "library_ms": timer.ms(lambda: sdpa(qt, kt, vt, attn_mask=dense_mask, scale=scale)),
         "bound_ms": b_ms,
@@ -325,7 +349,7 @@ def main(argv=None) -> int:
             row["linear"] = label
             bsr_rows.append(row)
             log(f"[3] bsr_matmul {label:7s} {row['shape']}: err {row['max_abs_err']:.2e} (tol {row['tol']:g}) "
-                f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+                f"kernel {row['ms']:.4f} ms (host {row['host_us']:.1f} us) plain {row['plain_ms']:.4f} ms "
                 f"x@dense {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     smoke = registry.get_smoke("qwen3-1.7b", sparse=True)
     small_bsr = bsr_case(timer, L.linear_spec(smoke, 512, 256, False),
@@ -341,16 +365,16 @@ def main(argv=None) -> int:
                              dtype=torch.float32, seed=3, tol=1e-5)
     for row in (paged_main, paged_small):
         log(f"[3] paged_decode_attention {row['dtype']} {row['shape']}: err {row['max_abs_err']:.2e} (tol {row['tol']:g}) "
-            f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms "
-            f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+            f"kernel {row['ms']:.4f} ms (host {row['host_us']:.1f} us) plain {row['plain_ms']:.4f} ms "
+            f"sdpa {row['library_ms']:.4f} ms bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
     attn_main = attention_case(timer, b=1, s=2048, h=16, hk=8, d=128, block=128,
                                dtype=torch.bfloat16, seed=4, tol=2e-2)
     attn_small = attention_case(timer, b=2, s=512, h=4, hk=2, d=64, block=64,
                                 dtype=torch.float32, seed=5, tol=2e-4)
     for row in (attn_main, attn_small):
         log(f"[3] block_sparse_attention {row['dtype']} {row['shape']}: err {row['max_abs_err']:.2e} (tol {row['tol']:g}) "
-            f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"kernel {row['ms']:.4f} ms (host {row['host_us']:.1f} us) plain {row['plain_ms']:.4f} ms "
+            f"sdpa {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     report["bsr_matmul"] = bsr_rows + [small_bsr]
     report["paged_decode_attention"] = [paged_main, paged_small]
     report["block_sparse_attention"] = [attn_main, attn_small]
@@ -444,47 +468,77 @@ def main(argv=None) -> int:
         f"TTFT p50 {serving['ttft_ms_p50']:.1f} ms, peak memory {serving['max_memory_allocated_gb']:.2f} GB")
     log(f"[5] launches on the main path: {launches} over {st['decode_steps']} decode steps")
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    def profiled(label, fn):
+        """Wall time, device busy share and the top device kernels of one
+        window around fn (which ends in a synchronise)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        # device-side events only: an aten op's row repeats its kernels' time
+        rows = sorted(
+            (e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA),
+            key=dev_us, reverse=True,
+        )
+        busy_us = sum(dev_us(e) for e in rows)
+        out = {
+            "window_ms": window * 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / window if busy_us else None,
+            "top": [(e.key[:80], dev_us(e) / 1e3, e.count) for e in rows[:8] if dev_us(e) > 0],
+        }
+        if busy_us:
+            log(f"[5] profiled {label}: {window * 1e3:.1f} ms wall, device busy "
+                f"{busy_us / 1e3:.1f} ms, idle share {out['device_idle_share']:.2f}")
+            for name, ms, n in out["top"]:
+                log(f"[5]   {ms:8.3f} ms  x{n:<5d} {name}")
+        else:
+            log(f"[5] profiler recorded no device time for {label}: device busy share not measured")
+        return out
+
     # where a decode step's time goes: a profiled window of 4 steps with
     # all 8 slots decoding (device busy share and the top kernels)
     for _ in range(8):
         eng.submit(rng.integers(0, full.vocab_size, 128).astype(np.int32), 12)
     eng.step()  # admission + the first decode step
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def four_steps():
         for _ in range(4):
             eng.step()
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t0
+
+    serving["profile"] = {"window_steps": 4, **profiled("4 decode steps", four_steps)}
     eng.drain(max_steps=50)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side events only: an aten op's row repeats its kernels' time
-    from torch.autograd import DeviceType
-
-    rows = sorted(
-        (e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA),
-        key=dev_us, reverse=True,
+    # where a prefill call's time goes: one prefill_paged call, as the
+    # engine makes it, of 4 prompts of 1024 tokens (M = 4096 rows through
+    # every linear, attention at S = 1024), after one unprofiled call
+    n_seq, s_len = 4, 1024
+    per_seq = s_len // full.attn_block
+    pcache = T.init_paged_cache(full, n_seq * per_seq + 1, full.attn_block, device="cuda")
+    pargs = (
+        torch.as_tensor(rng.integers(0, full.vocab_size, (n_seq, s_len)), dtype=torch.int32, device="cuda"),
+        torch.full((n_seq,), s_len, dtype=torch.int32, device="cuda"),
     )
-    busy_us = sum(dev_us(e) for e in rows)
-    serving["profile"] = {
-        "window_steps": 4,
-        "window_ms": window * 1e3,
-        "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1.0 - busy_us / 1e6 / window if busy_us else None,
-        "top": [(e.key[:80], dev_us(e) / 1e3, e.count) for e in rows[:8] if dev_us(e) > 0],
+    prows = torch.arange(1, n_seq * per_seq + 1, dtype=torch.int32, device="cuda").reshape(n_seq, per_seq)
+
+    def one_prefill():
+        nonlocal pcache
+        logits, pcache = T.prefill_paged(full, eng.model, *pargs, pcache, prows)
+        torch.argmax(logits, dim=-1).cpu()  # the engine's one host fetch
+
+    one_prefill()
+    serving["prefill_profile"] = {
+        "shape": f"N={n_seq} S={s_len}", **profiled(f"one prefill call (N={n_seq}, S={s_len})", one_prefill)
     }
-    if busy_us:
-        log(f"[5] profiled 4 decode steps: {window * 1e3:.1f} ms wall, device busy "
-            f"{busy_us / 1e3:.1f} ms, idle share {serving['profile']['device_idle_share']:.2f}")
-        for name, ms, n in serving["profile"]["top"]:
-            log(f"[5]   {ms:8.3f} ms  x{n:<5d} {name}")
-    else:
-        log("[5] profiler recorded no device time: device busy share not measured")
+    del pcache
 
     # ---- 6. report -------------------------------------------------
     def summed(rows, key):

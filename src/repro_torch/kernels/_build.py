@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "CudaKernel", "dtype_code"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "CudaKernel", "check_aligned", "dtype_code"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -91,6 +91,17 @@ def dtype_code(dtype: torch.dtype) -> int:
     if dtype not in codes:
         raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {dtype}")
     return codes[dtype]
+
+
+def check_aligned(fn: str, **tensors: torch.Tensor) -> None:
+    """Raise ValueError unless every tensor's data is 16-byte aligned, as
+    the kernels' 16-byte loads and copies need."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{fn} reads {name} in 16-byte chunks; its data must be "
+                f"16-byte aligned (offset {t.data_ptr() % 16} bytes)"
+            )
 
 
 class CudaKernel:

@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, dtype_code
+from repro_torch.kernels._build import CudaKernel, check_aligned, dtype_code
 
 __all__ = ["KERNEL", "bsr_matmul_cuda"]
 
@@ -29,7 +29,8 @@ def bsr_matmul_cuda(
 
     x (M, n_in) and blocks (nb_out, r, b, b) of one dtype (float32 or
     bfloat16), cols (nb_out, r) int32, all contiguous on one CUDA device;
-    b must be 64 or 128. Returns y (M, nb_out * b) in x's dtype.
+    b must be 64 or 128. bfloat16 x and blocks are read in 16-byte chunks
+    and must be 16-byte aligned. Returns y (M, nb_out * b) in x's dtype.
     """
     if not (x.is_cuda and blocks.device == x.device and cols.device == x.device):
         raise ValueError("bsr_matmul_cuda needs x, blocks, cols on one CUDA device")
@@ -52,6 +53,8 @@ def bsr_matmul_cuda(
         raise ValueError(f"cols must be int32 of shape {(nb_out, r)}")
     if not (x.is_contiguous() and blocks.is_contiguous() and cols.is_contiguous()):
         raise ValueError("bsr_matmul_cuda needs contiguous inputs")
+    if x.dtype == torch.bfloat16:
+        check_aligned("bsr_matmul_cuda", x=x, blocks=blocks)
     y = torch.empty((m, nb_out * b), dtype=x.dtype, device=x.device)
     if m == 0:
         return y

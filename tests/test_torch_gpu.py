@@ -1,6 +1,9 @@
 """Card-only tests: each CUDA kernel of the port against its plain PyTorch
 version on the same CUDA tensors, and the smoke-width engine's greedy
-streams on the card against the CPU's.
+streams on the card against the CPU's. bf16 takes the tensor-core paths
+(and, for bsr at M <= 16, the cluster-reduced decode kernel), float32 the
+SIMT kernels; tolerances: bsr 2e-2 bf16 / 1e-4 fp32, attention 2e-2 /
+2e-4.
 
 Marked ``gpu``. Whether a card is present is decided in the ``cuda``
 fixture, never at import, so every test process collects the same tests;
@@ -22,7 +25,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bsr_attention import block_sparse_attention_cuda
 from repro_torch.kernels.bsr_matmul import bsr_matmul_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
-from repro_torch.models.layers import paged_sparse_schedule
+from repro_torch.models.layers import linear_spec, paged_sparse_schedule
 from repro_torch.serving.engine import Engine, EngineConfig
 
 pytestmark = pytest.mark.gpu
@@ -56,6 +59,46 @@ def test_bsr_matmul_kernel(cuda, m, block, dtype, tol):
     cols = torch.as_tensor(pat.cols, device=cuda)
     got = bsr_matmul_cuda(x, blocks, cols)
     assert _err(got, ref.bsr_matmul_gather(x, blocks, cols)) <= tol
+
+
+def _main_bsr(label, m, dtype, dev, seed=0):
+    """x, blocks, cols of one full-width qwen3-1.7b linear: q (r = 2) or
+    down (r = 7), b = 128."""
+    full = registry.get("qwen3-1.7b", sparse=True)
+    n_in, n_out = {"q": (full.d_model, full.q_dim), "down": (full.d_ff, full.d_model)}[label]
+    pat = linear_spec(full, n_in, n_out, False).pattern()
+    rng = np.random.default_rng(seed + m)
+    x = _t(rng.standard_normal((m, n_in)), dtype, dev)
+    blocks = _t(rng.standard_normal((pat.nb_out, pat.r, pat.block, pat.block)) / np.sqrt(pat.r * pat.block),
+                dtype, dev)
+    return x, blocks, torch.as_tensor(pat.cols, device=dev), pat
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 300, 4095, 4096])
+@pytest.mark.parametrize("label,r", [("q", 2), ("down", 7)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_bsr_matmul_kernel_main_shapes(cuda, m, label, r, dtype, tol):
+    x, blocks, cols, pat = _main_bsr(label, m, dtype, cuda)
+    assert (pat.r, pat.block) == (r, 128)
+    got = bsr_matmul_cuda(x, blocks, cols)
+    assert _err(got, ref.bsr_matmul_gather(x, blocks, cols)) <= tol
+
+
+@pytest.mark.parametrize("m", [8, 16, 4096])
+def test_bsr_matmul_kernel_same_bits_twice(cuda, m):
+    x, blocks, cols, _ = _main_bsr("down", m, torch.bfloat16, cuda)
+    assert torch.equal(bsr_matmul_cuda(x, blocks, cols), bsr_matmul_cuda(x, blocks, cols))
+
+
+def test_bsr_matmul_kernel_refuses_misaligned(cuda):
+    x, blocks, cols, _ = _main_bsr("q", 8, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        bsr_matmul_cuda(x[:, 1:], blocks, cols)  # a view, not contiguous
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted = buf[1:].view(x.shape)  # contiguous, 2 bytes off
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bsr_matmul_cuda(shifted, blocks, cols)
 
 
 def test_bsr_matmul_kernel_refuses_small_blocks(cuda):
@@ -108,6 +151,48 @@ def test_block_sparse_attention_kernel(cuda, d, block, g, dtype, tol):
     want = ref.sparse_attention(q.reshape(b, s, hk, g, d), k, v, kv_index, valid,
                                 block=block, causal=True, sm_scale=d ** -0.5)
     assert _err(got, want.reshape(b, s, hk * g, d)) <= tol
+
+
+def _attention_inputs(b, s, hk, g, d, block, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    mask = ap.pixelfly_attention_block_mask(
+        s, s, ap.AttentionPatternConfig(block=block, local_blocks=2, global_blocks=1), causal=True
+    )
+    sched = ap.block_schedule(mask, block, block)
+    q = _t(rng.standard_normal((b, s, hk * g, d)), dtype, dev)
+    k = _t(rng.standard_normal((b, s, hk, d)), dtype, dev)
+    v = _t(rng.standard_normal((b, s, hk, d)), dtype, dev)
+    kv_index = torch.as_tensor(sched.kv_index, device=dev)
+    valid = torch.as_tensor(sched.valid, device=dev)
+    return q, k, v, kv_index, valid
+
+
+@pytest.mark.parametrize("d,block,s", [(128, 128, 2048), (64, 64, 1024)])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+def test_block_sparse_attention_kernel_main_shapes(cuda, d, block, s, g, dtype, tol):
+    b, hk = 2, 2
+    q, k, v, kv_index, valid = _attention_inputs(b, s, hk, g, d, block, dtype, cuda, seed=g + d)
+    kw = dict(block=block, causal=True, sm_scale=d ** -0.5)
+    got = block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw)
+    want = ref.sparse_attention(q.reshape(b, s, hk, g, d), k, v, kv_index, valid, **kw)
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want.reshape(b, s, hk * g, d)) <= tol
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw))
+
+
+def test_block_sparse_attention_kernel_refuses_misaligned(cuda):
+    q, k, v, kv_index, valid = _attention_inputs(1, 256, 2, 2, 64, 64, torch.bfloat16, cuda, seed=0)
+    kw = dict(block=64, causal=True, sm_scale=0.125)
+    buf = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+    shifted = buf[1:].view(k.shape)
+    shifted.copy_(k)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        block_sparse_attention_cuda(q, shifted, v, kv_index, valid, **kw)
+    q, k, v, kv_index, valid = _attention_inputs(1, 256, 2, 2, 64, 32, torch.bfloat16, cuda, seed=0)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        block_sparse_attention_cuda(q, k, v, kv_index, valid, block=32, causal=True, sm_scale=0.125)
 
 
 def test_engine_streams_equal_cpu(cuda):
