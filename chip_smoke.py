@@ -12,6 +12,9 @@ Phases; any failure raises and the script exits non-zero:
 3. Each kernel against its plain PyTorch version on the same CUDA tensors:
    at the main path's shapes in bfloat16, and at small shapes in float32,
    with the reference tolerances (``assert_allclose`` style, rtol = atol).
+   ``paged_decode_attention`` has two more bf16 rows at the main shape:
+   every scheduled page visible, and the dense schedule (w = 16); its main
+   row must be faster than SDPA on the same inputs.
    Per kernel: the kernel's time (CUDA events, L2 flushed before every
    launch, as the decode loop finds weights cold, all launches queued
    behind a device sleep so host time is not counted), the plain version's and
@@ -26,8 +29,9 @@ Phases; any failure raises and the script exits non-zero:
    ``EngineConfig(max_slots=8, max_len=2048)`` serves 12 requests (prompt
    lengths 200-1000 from --seed, 32 new tokens each) with every kernel's
    launch count reset just before; each kernel must have launched. Then
-   two profiled windows (device busy share, top kernels): 4 decode steps
-   with 8 slots busy, and one prefill call of 4 prompts of 1024 tokens.
+   two profiled windows (device busy share, top kernels, the port's
+   kernels by name): 4 decode steps with 8 slots busy, and one prefill
+   call of 4 prompts of 1024 tokens.
 6. The kernels line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -162,9 +166,13 @@ def bsr_case(timer, lin_spec, m, dtype, seed, tol):
     }
 
 
-def paged_case(timer, *, b, hk, g, d, page, pps, dtype, seed, tol):
-    """Decode read at B slots with ragged positions, an idle slot on the
-    trash page, a partially allocated row, and a poisoned page 0."""
+def paged_case(timer, *, b, hk, g, d, page, pps, dtype, seed, tol, full=False, schedule="sparse"):
+    """Decode read at B slots with a poisoned page 0. By default ragged
+    positions, an idle slot on the trash page and a partially allocated
+    row; with ``full`` every slot sits at the last position of a fully
+    allocated table (every scheduled page visible). ``schedule`` is the
+    pixelfly "sparse" schedule or the "dense" one (every page of the
+    table, w = pps)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
     from repro_torch.models import layers as L
@@ -176,13 +184,19 @@ def paged_case(timer, *, b, hk, g, d, page, pps, dtype, seed, tol):
     k[0], v[0] = 1e4, -1e4
     table = torch.randperm(n_pages - 1, generator=gen)[: b * pps].reshape(b, pps).to(torch.int32) + 1
     pos = torch.randint(0, pps * page, (b,), generator=gen, dtype=torch.int32)
-    table[1], pos[1] = 0, 0  # idle slot
-    table[2, 3:] = 0  # partial row
-    pos[2] = 3 * page - 5
+    if full:
+        pos[:] = pps * page - 1
+    else:
+        table[1], pos[1] = 0, 0  # idle slot
+        table[2, 3:] = 0  # partial row
+        pos[2] = 3 * page - 5
     q = torch.randn((b, hk, g, d), generator=gen)
     q, k, v = (t.to("cuda", dtype) for t in (q, k, v))
     table, pos = table.to("cuda"), pos.to("cuda")
-    logical, phys, keep = L.paged_sparse_schedule(table, pos, page, local_blocks=2, global_blocks=1)
+    if schedule == "sparse":
+        logical, phys, keep = L.paged_sparse_schedule(table, pos, page, local_blocks=2, global_blocks=1)
+    else:
+        logical, phys, keep = L.paged_dense_schedule(table)
     scale = d ** -0.5
     args = (q, k, v, phys, logical, keep, pos)
     got = paged_decode_attention_cuda(*args, sm_scale=scale)
@@ -205,7 +219,9 @@ def paged_case(timer, *, b, hk, g, d, page, pps, dtype, seed, tol):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return {
         "shape": f"B={b} Hk={hk} G={g} D={d} page={page} w={w}",
+        "case": f"{schedule}, " + ("every slot at its last position" if full else "ragged positions"),
         "dtype": str(dtype).split(".")[1],
+        "visible_keys": n_vis,
         "max_abs_err": err,
         "tol": tol,
         "ms": timer.ms(lambda: paged_decode_attention_cuda(*args, sm_scale=scale)),
@@ -359,12 +375,17 @@ def main(argv=None) -> int:
     by_label = {r["linear"]: r for r in bsr_rows if r["shape"].startswith("M=8 ")}
     layer = [by_label[x] for x in ("q", "k/v", "k/v", "o", "gate/up", "gate/up", "down")]
 
-    paged_main = paged_case(timer, b=8, hk=8, g=2, d=128, page=128, pps=16,
-                            dtype=torch.bfloat16, seed=2, tol=1e-2)
+    paged_shape = dict(b=8, hk=8, g=2, d=128, page=128, pps=16, dtype=torch.bfloat16, tol=1e-2)
+    paged_main = paged_case(timer, seed=2, **paged_shape)
+    # where the split matters most: all 7 scheduled pages visible, and the
+    # dense schedule's 16 pages a slot
+    paged_full = paged_case(timer, seed=6, full=True, **paged_shape)
+    paged_dense = paged_case(timer, seed=7, schedule="dense", **paged_shape)
     paged_small = paged_case(timer, b=4, hk=2, g=2, d=64, page=16, pps=6,
                              dtype=torch.float32, seed=3, tol=1e-5)
-    for row in (paged_main, paged_small):
-        log(f"[3] paged_decode_attention {row['dtype']} {row['shape']}: err {row['max_abs_err']:.2e} (tol {row['tol']:g}) "
+    for row in (paged_main, paged_full, paged_dense, paged_small):
+        log(f"[3] paged_decode_attention {row['dtype']} {row['shape']} ({row['case']}): "
+            f"err {row['max_abs_err']:.2e} (tol {row['tol']:g}) "
             f"kernel {row['ms']:.4f} ms (host {row['host_us']:.1f} us) plain {row['plain_ms']:.4f} ms "
             f"sdpa {row['library_ms']:.4f} ms bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
     attn_main = attention_case(timer, b=1, s=2048, h=16, hk=8, d=128, block=128,
@@ -376,7 +397,7 @@ def main(argv=None) -> int:
             f"kernel {row['ms']:.4f} ms (host {row['host_us']:.1f} us) plain {row['plain_ms']:.4f} ms "
             f"sdpa {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     report["bsr_matmul"] = bsr_rows + [small_bsr]
-    report["paged_decode_attention"] = [paged_main, paged_small]
+    report["paged_decode_attention"] = [paged_main, paged_full, paged_dense, paged_small]
     report["block_sparse_attention"] = [attn_main, attn_small]
 
     # ---- 4. smoke-width parity: CPU plain versions == CUDA kernels ---
@@ -489,17 +510,29 @@ def main(argv=None) -> int:
             key=dev_us, reverse=True,
         )
         busy_us = sum(dev_us(e) for e in rows)
+        # the port's kernels by name prefix (a kernel may launch several)
+        ours = {}
+        for name in ("bsr_matmul", "paged_decode", "block_sparse_attention"):
+            hits = [e for e in rows if f"{name}_" in e.key]
+            ours[name] = {"device_ms": sum(dev_us(e) for e in hits) / 1e3,
+                          "launches": sum(e.count for e in hits),
+                          "kernels": sorted({e.key[:60] for e in hits})}
         out = {
             "window_ms": window * 1e3,
             "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / window if busy_us else None,
             "top": [(e.key[:80], dev_us(e) / 1e3, e.count) for e in rows[:8] if dev_us(e) > 0],
+            "ours": ours,
         }
         if busy_us:
             log(f"[5] profiled {label}: {window * 1e3:.1f} ms wall, device busy "
                 f"{busy_us / 1e3:.1f} ms, idle share {out['device_idle_share']:.2f}")
             for name, ms, n in out["top"]:
                 log(f"[5]   {ms:8.3f} ms  x{n:<5d} {name}")
+            for name, o in ours.items():
+                if o["launches"]:
+                    log(f"[5]   port kernel {name}: {o['device_ms']:.3f} ms over {o['launches']} device "
+                        f"launches ({1e3 * o['device_ms'] / o['launches']:.1f} us each) {o['kernels']}")
         else:
             log(f"[5] profiler recorded no device time for {label}: device busy share not measured")
         return out
@@ -592,6 +625,9 @@ def main(argv=None) -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
+    if not paged_main["ms"] < paged_main["library_ms"]:
+        raise AssertionError(f"paged_decode_attention {paged_main['ms']:.4f} ms is not below "
+                             f"SDPA's {paged_main['library_ms']:.4f} ms on the same inputs")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

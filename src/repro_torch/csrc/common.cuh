@@ -85,6 +85,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
       : "memory");
 }
 
+// Transpose an 8x8 b16 matrix held in the ldmatrix fragment layout (lane l
+// holds row l/4, cols 2(l%4), +1): the result holds row l/4, cols 2(l%4),
+// +1 of the transposed matrix.
+__device__ __forceinline__ unsigned movmatrix_trans(unsigned a) {
+  unsigned d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d)
+               : "r"(a));
+  return d;
+}
+
 // d += a @ b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col),
 // d 16x8 fp32. Lane l (g = l/4, c = 2(l%4)) holds a: (g, c..c+1),
 // (g+8, c..), (g, c+8..), (g+8, c+8..); b: (k c..c+1, n g), (k c+8.., n g);

@@ -3,7 +3,7 @@ version on the same CUDA tensors, and the smoke-width engine's greedy
 streams on the card against the CPU's. bf16 takes the tensor-core paths
 (and, for bsr at M <= 16, the cluster-reduced decode kernel), float32 the
 SIMT kernels; tolerances: bsr 2e-2 bf16 / 1e-4 fp32, attention 2e-2 /
-2e-4.
+2e-4, paged decode 1e-2 / 1e-5.
 
 Marked ``gpu``. Whether a card is present is decided in the ``cuda``
 fixture, never at import, so every test process collects the same tests;
@@ -25,7 +25,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bsr_attention import block_sparse_attention_cuda
 from repro_torch.kernels.bsr_matmul import bsr_matmul_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
-from repro_torch.models.layers import linear_spec, paged_sparse_schedule
+from repro_torch.models.layers import linear_spec, paged_dense_schedule, paged_sparse_schedule
 from repro_torch.serving.engine import Engine, EngineConfig
 
 pytestmark = pytest.mark.gpu
@@ -130,6 +130,119 @@ def test_paged_decode_kernel(cuda, g, dtype, tol):
     want = ref.paged_decode_attention_gather(q, kp, vp, phys, logical, keep, pos_t, sm_scale=d ** -0.5)
     assert torch.isfinite(got.float()).all()
     assert _err(got, want) <= tol
+
+
+PAGED_MAIN = dict(b=8, hk=8, d=128, page=128, pps=16)  # qwen3-1.7b, 16 pages a slot
+
+
+def _paged_main(g, dtype, dev, *, schedule, seed=0, table=None, pos=None):
+    """Inputs of the paged decode read at the main shape: a poisoned trash
+    page 0, a random page table with an idle slot (1) and a partially
+    allocated row (2), ragged positions; ``table``/``pos`` override them.
+    ``schedule`` is "sparse" (the pixelfly pages, w = 7) or "dense" (every
+    page of the table, w = 16). Returns the kernel's positional arguments."""
+    b, hk, d, page, pps = (PAGED_MAIN[x] for x in ("b", "hk", "d", "page", "pps"))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = b * pps + 1
+    k = torch.randn((n_pages, page, hk, d), generator=gen, device=dev)
+    v = torch.randn((n_pages, page, hk, d), generator=gen, device=dev)
+    k[0], v[0] = 1e4, -1e4
+    if table is None:
+        table = torch.randperm(n_pages - 1, generator=gen, device=dev).reshape(b, pps) + 1
+        table[1] = 0
+        table[2, 3:] = 0
+    if pos is None:
+        pos = torch.randint(0, pps * page, (b,), generator=gen, device=dev)
+        pos[1] = 0
+        pos[2] = 3 * page - 5
+    table = torch.as_tensor(table, device=dev).to(torch.int32)
+    pos = torch.as_tensor(pos, device=dev).to(torch.int32)
+    if schedule == "sparse":
+        logical, phys, keep = paged_sparse_schedule(table, pos, page, local_blocks=2, global_blocks=1)
+    else:
+        logical, phys, keep = paged_dense_schedule(table)
+    q = torch.randn((b, hk, g, d), generator=gen, device=dev)
+    return tuple(x.to(dtype) for x in (q, k, v)) + (phys, logical, keep, pos)
+
+
+def _paged_check(args, tol):
+    """Kernel against the plain version at the reference tolerance,
+    assert_allclose style (rtol = atol = tol): one bf16 ulp of an output of
+    magnitude 2 or more is 2^-6, so a few visible keys need the rtol."""
+    scale = args[0].shape[-1] ** -0.5
+    got = paged_decode_attention_cuda(*args, sm_scale=scale)
+    want = ref.paged_decode_attention_gather(*args, sm_scale=scale)
+    assert torch.isfinite(got.float()).all()
+    excess = ((got.float() - want.float()).abs() - tol * want.float().abs()).max().item()
+    assert excess <= tol, f"max abs err {_err(got, want):.3e}, beyond tol {tol:g} (rtol = atol)"
+    return got
+
+
+@pytest.mark.parametrize("schedule", ["sparse", "dense"])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_paged_decode_kernel_main_shapes(cuda, schedule, g, dtype, tol):
+    args = _paged_main(g, dtype, cuda, schedule=schedule, seed=g)
+    assert args[3].shape[1] == {"sparse": 7, "dense": 16}[schedule]
+    _paged_check(args, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_paged_decode_kernel_one_schedule_slot(cuda, dtype, tol):
+    b, page = PAGED_MAIN["b"], PAGED_MAIN["page"]
+    table = torch.arange(1, b + 1).reshape(b, 1)
+    pos = torch.tensor([0, 1, 5, 63, 64, 100, 126, 127])
+    args = _paged_main(2, dtype, cuda, schedule="dense", table=table, pos=pos)
+    assert args[3].shape == (b, 1) and int(pos.max()) < page
+    _paged_check(args, tol)
+
+
+@pytest.mark.parametrize("schedule", ["sparse", "dense"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_paged_decode_kernel_every_slot_idle(cuda, schedule, dtype, tol):
+    b, pps = PAGED_MAIN["b"], PAGED_MAIN["pps"]
+    args = _paged_main(2, dtype, cuda, schedule=schedule,
+                       table=torch.zeros((b, pps)), pos=torch.zeros(b))
+    # every slot sees key 0 of the poisoned trash page and nothing else
+    got = _paged_check(args, tol)
+    want = args[2][0, 0].float()[None, :, None, :].expand(got.shape)
+    assert torch.equal(got.float(), want)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_paged_decode_kernel_one_visible_page(cuda, dtype, tol):
+    """Every slot's position lies in its first page, so 15 of the 16 pages
+    of the dense schedule lie beyond it and leave empty partials."""
+    b, page = PAGED_MAIN["b"], PAGED_MAIN["page"]
+    pos = torch.tensor([0, 3, 17, 31, 64, 90, 126, 127])
+    args = _paged_main(4, dtype, cuda, schedule="dense", pos=pos)
+    logical = args[4]
+    assert ((logical * page <= args[6][:, None]).sum(dim=1) == 1).all()
+    _paged_check(args, tol)
+
+
+@pytest.mark.parametrize("schedule", ["sparse", "dense"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_same_bits_twice(cuda, schedule, dtype):
+    args = _paged_main(2, dtype, cuda, schedule=schedule, seed=7)
+    scale = PAGED_MAIN["d"] ** -0.5
+    assert torch.equal(paged_decode_attention_cuda(*args, sm_scale=scale),
+                       paged_decode_attention_cuda(*args, sm_scale=scale))
+
+
+def test_paged_decode_kernel_refuses_misaligned(cuda):
+    q, k, v, *sched = _paged_main(2, torch.bfloat16, cuda, schedule="sparse")
+    buf = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+    shifted = buf[1:].view(k.shape)  # contiguous, 2 bytes off
+    shifted.copy_(k)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention_cuda(q, shifted, v, *sched, sm_scale=0.1)
+    # rows of D + 1 elements: a head stride of 258 bytes
+    n, page, hk, d = k.shape
+    wide_k = torch.zeros((n, page, hk, d + 1), dtype=k.dtype, device=cuda)[..., :d]
+    wide_v = torch.zeros((n, page, hk, d + 1), dtype=k.dtype, device=cuda)[..., :d]
+    with pytest.raises(ValueError, match="16-byte chunks"):
+        paged_decode_attention_cuda(q, wide_k, wide_v, *sched, sm_scale=0.1)
 
 
 @pytest.mark.parametrize("d,block", [(64, 64), (128, 128)])

@@ -6,6 +6,11 @@ The scenario matrix is the JAX suite's: GQA ratios, ragged positions
 (partial last pages), a partially allocated row, an idle slot on the trash
 page, and a trash page poisoned with huge values so any masking divergence
 is loud. Tolerances: 1e-5 in float32, 1e-2 in bfloat16.
+
+The card's kernel splits each slot's schedule into one partial softmax per
+schedule slot and combines them in schedule order; ``_split_combine``
+repeats that algebra here, where the kernel cannot run, and is held against
+the Pallas kernel in interpret mode and the JAX gather path.
 """
 
 import jax.numpy as jnp
@@ -117,3 +122,73 @@ def test_trash_page_slot_is_benign():
     assert torch.isfinite(got).all()
     want = JL.paged_sparse_decode_attention_jnp(jq, jk, jv, jt, jp, **kw)
     _close(got, want, 1e-5)
+
+
+def _split_combine(q, k, v, phys, logical, keep, pos, *, sm_scale, fold=8):
+    """The CUDA kernel's two passes in float32 torch. Split: one partial
+    (m, l, unnormalised acc) per (slot, kv head, schedule slot) over the
+    visible keys of its page; a slot that is dropped (keep == 0) or whose
+    page starts beyond pos leaves an empty partial (m = -inf, l = 0, and an
+    acc of NaN that must never be read). Combine: the partials in schedule
+    order, ``fold`` at a time, the running sums rescaled when a round
+    raises the max; an empty partial weighs exactly 0; output acc / l with
+    l == 0 -> 1. q (B, Hk, G, D); pools (n_pages, page, Hk, D); schedule
+    (B, w)."""
+    b, hk, g, d = q.shape
+    page = k.shape[1]
+    w = phys.shape[1]
+    m = torch.full((b, hk, w, g), float("-inf"))
+    l = torch.zeros((b, hk, w, g))
+    acc = torch.full((b, hk, w, g, d), float("nan"))
+    for bi in range(b):
+        for t in range(w):
+            base = int(logical[bi, t]) * page
+            if int(keep[bi, t]) == 0 or base > int(pos[bi]):
+                continue
+            n_vis = min(page, int(pos[bi]) - base + 1)
+            kp = k[int(phys[bi, t]), :n_vis].float()  # (n_vis, Hk, D)
+            vp = v[int(phys[bi, t]), :n_vis].float()
+            s = torch.einsum("hgd,khd->hgk", q[bi].float(), kp) * sm_scale
+            m[bi, :, t] = s.amax(dim=-1)
+            p = torch.exp(s - m[bi, :, t, :, None])
+            l[bi, :, t] = p.sum(dim=-1)
+            acc[bi, :, t] = torch.einsum("hgk,khd->hgd", p, vp)
+    neg = float("-inf")
+    mx = torch.full((b, hk, g), neg)
+    out = torch.zeros((b, hk, g, d))
+    total = torch.zeros((b, hk, g))
+    for t0 in range(0, w, fold):
+        mn = torch.maximum(mx, m[:, :, t0:t0 + fold].amax(dim=2))
+        seen = (mx != neg) & (mn != neg)
+        r = torch.exp((mx - mn).masked_fill(~seen, 0.0))
+        out, total = out * r[..., None], total * r
+        mx = mn
+        for t in range(t0, min(t0 + fold, w)):
+            live = m[:, :, t] != neg
+            a = torch.exp((m[:, :, t] - mx).masked_fill(~live, 0.0)).masked_fill(~live, 0.0)
+            out = out + torch.where(live[..., None], a[..., None] * acc[:, :, t], 0.0)
+            total = total + a * l[:, :, t]
+    return out / torch.where(total == 0, 1.0, total)[..., None]
+
+
+@pytest.mark.parametrize("schedule", ["sparse", "dense"])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("impl", [None, "interpret"])
+@pytest.mark.parametrize("fold", [8, 2])  # 2: several rounds, rescaled between
+def test_split_combine_equals_reference(schedule, g, impl, fold):
+    (jq, jk, jv, jt, jp), (tq, tk, tv, tt, tp) = _scenario(4, 2, g)
+    if schedule == "sparse":
+        kw = dict(local_blocks=2, global_blocks=1)
+        logical, phys, keep = L.paged_sparse_schedule(tt, tp, PAGE, **kw)
+        want = JL.paged_sparse_decode_attention_jnp(
+            jq, jk, jv, jt, jp, sm_scale=D ** -0.5, impl=impl, **kw)
+        assert (keep == 0).any()  # XOR duplicates dropped: empty partials
+    else:
+        logical, phys, keep = L.paged_dense_schedule(tt)
+        want = JL.paged_decode_attention_jnp(jq, jk, jv, jt, jp, sm_scale=D ** -0.5, impl=impl)
+        assert (logical * PAGE > tp[:, None]).any()  # pages beyond pos: empty partials
+    # the scenario holds an idle slot on the trash page and a partial row
+    assert (tt[1] == 0).all() and (tt[-1, 1:] == 0).all()
+    got = _split_combine(tq[:, 0], tk, tv, phys, logical, keep, tp, sm_scale=D ** -0.5, fold=fold)
+    assert torch.isfinite(got).all()
+    _close(got[:, None], want, 1e-5)
