@@ -24,7 +24,11 @@ Phases; any failure raises and the script exits non-zero:
    67 TFLOP/s (fp32), H100 SXM data-sheet peaks.
 4. Smoke-width parity: the fp32 smoke model, same seeded weights, served
    on the CPU (plain versions) and on the card (kernels): equal greedy
-   streams, with a max_len whose sparse decode schedule skips pages.
+   streams, with a max_len whose sparse decode schedule skips pages; then
+   equal streams for three more workloads: a sampled mix (temperature
+   0.8, top_k 40, top_p 0.95, repetition penalty 1.1, per-request seeds,
+   beside temperature-0 rows), a shared-prefix mix with the prefix cache
+   on, and a full pool that a priority-1 request preempts.
 5. Full width: ``Engine(registry.get("qwen3-1.7b", sparse=True))`` with
    ``EngineConfig(max_slots=8, max_len=2048)`` serves 12 requests (prompt
    lengths 200-1000 from --seed, 32 new tokens each) with every kernel's
@@ -32,7 +36,19 @@ Phases; any failure raises and the script exits non-zero:
    two profiled windows (device busy share, top kernels, the port's
    kernels by name): 4 decode steps with 8 slots busy, and one prefill
    call of 4 prompts of 1024 tokens.
-6. The kernels line, then the last line
+6. Full width with the prefix cache on, on phase 5's weights (passed as
+   its state dict, not drawn again): 8 requests sharing a 1024-token
+   system prompt with 64-256-token suffixes and 8 unrelated 200-1000-token
+   prompts, half sampled, 48 new tokens each, and 2 priority-1 requests
+   submitted after step 6 with all 8 slots busy, with every kernel's
+   launch count reset just before. Every request must finish, >= 7
+   admissions must hit the cache and prefill only their suffixes, a
+   preemption and a resume must happen, and every kernel must launch.
+   Prints decode tok/s, step p50, TTFT p50 of hits and misses, the swap
+   traffic, and the device time of the sampler (4 sampled decode steps)
+   and of the partial-prefill attention (one partial prefill call) from
+   profiled windows and from CUDA events.
+7. The kernels line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -54,6 +70,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
+# record_function ranges of the port's plain-torch serving pieces
+RANGES = ("sampler", "prefix_flash_attention")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
@@ -290,6 +308,300 @@ def attention_case(timer, *, b, s, h, hk, d, block, dtype, seed, tol):
 
 
 # ----------------------------------------------------------------------
+# phase 4: the sampled, prefix-cache and preemption workloads
+# ----------------------------------------------------------------------
+
+KNOBS = dict(temperature=0.8, top_k=40, top_p=0.95, repetition_penalty=1.1)
+
+
+def smoke_workloads(smoke, seed):
+    """Three smoke-width workloads, each ``fn(device) -> {"streams": ...,
+    counters}``; the same seeded weights on every device."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.request import ScheduleParams
+    from repro_torch.serving.sampling import SamplingParams
+
+    page = smoke.attn_block
+    rng = np.random.default_rng(seed + 1)
+    sys_prompt = rng.integers(0, smoke.vocab_size, 2 * page).astype(np.int32)
+    unrelated = [rng.integers(0, smoke.vocab_size, n).astype(np.int32) for n in (40, 3 * page + 7, 9, page)]
+    shared = [np.concatenate([sys_prompt, rng.integers(0, smoke.vocab_size, n).astype(np.int32)])
+              for n in (5, page + 3, 30, 17)]
+
+    def sampling(i):  # half sampled with per-request seeds, half temperature 0
+        return SamplingParams(seed=seed * 1000 + i, **KNOBS) if i % 2 else SamplingParams()
+
+    def run(device, prompts, gen, ecfg, vip_after=None):
+        eng = Engine(smoke, engine_cfg=EngineConfig(max_slots=2, max_len=8 * page, **ecfg),
+                     seed=seed, device=device)
+        uids = {}
+        fins = []
+        for i, p in enumerate(prompts):
+            uids[eng.submit(p, gen, sampling=sampling(i))] = i
+            if ecfg.get("prefix_cache") and i == 0:
+                fins += eng.step()  # index the first prompt before the rest arrive
+        if vip_after is not None:
+            for _ in range(vip_after):
+                fins += eng.step()
+            uids[eng.submit(unrelated[2], 6, schedule=ScheduleParams(priority=1))] = -1
+        fins += eng.drain(max_steps=500)
+        st = eng.stats
+        return {"streams": {uids[f.uid]: f.tokens.tolist() for f in fins},
+                "prefix_hits": st["prefix_hits"], "preemptions": st["preemptions"]}
+
+    def sampled(device):
+        return run(device, unrelated + shared, 8, {})
+
+    def prefix(device):
+        out = run(device, shared + unrelated[:2], 6, {"prefix_cache": True})
+        if out["prefix_hits"] < 3:
+            raise AssertionError(f"prefix workload: {out['prefix_hits']} prefix hits, expected >= 3")
+        return out
+
+    def preemption(device):
+        out = run(device, shared[:2] + unrelated[:2], 24, {"prefix_cache": True, "preempt_min_steps": 2},
+                  vip_after=4)
+        if out["preemptions"] < 1:
+            raise AssertionError("preemption workload: the priority-1 request preempted nothing")
+        return out
+
+    return {"sampled mix": sampled, "shared-prefix mix": prefix, "priority preemption": preemption}
+
+
+# ----------------------------------------------------------------------
+# phase 6: sampling, the prefix cache and preemption at full width
+# ----------------------------------------------------------------------
+
+
+def p50(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def full_width_features(full, state_dict, kernels, rng, seed, smi, profiled, timer):
+    """Serve full-width qwen3-1.7b with the prefix cache on, on phase 5's
+    weights (shared, not drawn again): 8 requests on one 1024-token system
+    prompt (8 pages) with 64-256-token suffixes, 8 unrelated 200-1000-token
+    prompts, half sampled, 48 new tokens each, and 2 priority-1 requests
+    submitted after step 6 with all 8 slots busy. Checks: every request
+    finishes, >= 7 admissions hit and prefilled only their suffixes, a
+    preemption and a resume happened, every kernel launched. Then the
+    sampler's and the partial-prefill attention's device time: profiled
+    windows and CUDA-event times."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import sampling as S
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.request import ScheduleParams
+    from repro_torch.serving.sampling import SamplingParams
+
+    t0 = time.perf_counter()
+    eng = Engine(full, engine_cfg=EngineConfig(max_slots=8, max_len=2048, prefix_cache=True),
+                 params=state_dict, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[6] engine on phase 5's weights in {time.perf_counter() - t0:.1f} s (prefix cache on)")
+    v, page, gen = full.vocab_size, full.attn_block, 48
+
+    def sp(i):
+        return SamplingParams(seed=seed * 1000 + i, **KNOBS) if i % 2 else SamplingParams()
+
+    # warm-up: one sampled request (the sampler's first calls), not counted
+    eng.submit(rng.integers(0, v, 300).astype(np.int32), 4, sampling=sp(1))
+    eng.drain(max_steps=50)
+    eng.reset_stats()
+    sys_prompt = rng.integers(0, v, 8 * page).astype(np.int32)
+    shared = [np.concatenate([sys_prompt, rng.integers(0, v, int(n)).astype(np.int32)])
+              for n in rng.integers(64, 257, 8)]
+    unrelated = [rng.integers(0, v, int(n)).astype(np.int32) for n in rng.integers(200, 1001, 8)]
+    vips = [rng.integers(0, v, int(n)).astype(np.int32) for n in rng.integers(200, 1001, 2)]
+    prompts = shared + unrelated
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    uids = {eng.submit(prompts[0], gen, sampling=sp(0)): 0}
+    fins = eng.step()  # the system prompt is prefilled and indexed
+    for i in range(1, len(prompts)):
+        uids[eng.submit(prompts[i], gen, sampling=sp(i))] = i
+    steps = 1
+    while not eng.scheduler.idle:
+        fins += eng.step()
+        steps += 1
+        if steps == 6:
+            if eng.scheduler.num_active != 8:
+                raise AssertionError(f"{eng.scheduler.num_active} slots busy at step 6, expected 8")
+            for j, p in enumerate(vips):
+                uids[eng.submit(p, gen, sampling=sp(16 + j), schedule=ScheduleParams(priority=1))] = 16 + j
+        if steps > 3000:
+            raise AssertionError("phase 6 did not drain in 3000 steps")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    st, sw = eng.stats, eng.swap.stats
+    by = {uids[f.uid]: f for f in fins}
+    if sorted(by) != list(range(18)) or any(f.finish_reason != "length" or len(f.tokens) != gen
+                                            for f in by.values()):
+        raise AssertionError(f"not every request finished with {gen} tokens: "
+                             f"{[(uids[f.uid], f.finish_reason, len(f.tokens)) for f in fins]}")
+    if any(not (0 <= t < v) for f in fins for t in f.tokens):
+        raise AssertionError("token id out of the vocabulary")
+    hit_ids = [i for i in range(1, 8) if by[i].prefix_hit_tokens >= 8 * page]
+    if st["prefix_hits"] < 7 or len(hit_ids) < 7:
+        raise AssertionError(f"{st['prefix_hits']} admissions hit the prefix cache, expected >= 7")
+    if st["prefill_tokens"] != st["prefix_prompt_tokens"] - st["prefix_hit_tokens"]:
+        raise AssertionError(f"prefilled {st['prefill_tokens']} tokens, not the prompts' "
+                             f"{st['prefix_prompt_tokens']} less the {st['prefix_hit_tokens']} hit")
+    if st["preemptions"] < 1 or st["resumes"] < 1 or sw.swap_ins != sw.swap_outs:
+        raise AssertionError(f"preemptions {st['preemptions']}, resumes {st['resumes']}, "
+                             f"swap outs {sw.swap_outs}, ins {sw.swap_ins}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the phase 6 path")
+    miss_ids = [i for i in range(18) if i not in hit_ids]
+    dsteps = st["decode_step_s"]
+    out = {
+        "requests": len(fins),
+        "steps": steps,
+        "wall_s": wall,
+        "decode_tok_s": st["decode_tokens"] / sum(dsteps),
+        "decode_step_ms_p50": 1e3 * p50(dsteps),
+        "ttft_ms_p50_hit": 1e3 * p50([by[i].ttft_s for i in hit_ids]),
+        "ttft_ms_p50_miss": 1e3 * p50([by[i].ttft_s for i in miss_ids]),
+        "prefix_hits": st["prefix_hits"],
+        "prefix_hit_tokens": st["prefix_hit_tokens"],
+        "prefill_tokens": st["prefill_tokens"],
+        "preemptions": st["preemptions"],
+        "resumes": st["resumes"],
+        "swap": {**sw.snapshot(), "out_mb": sw.out_bytes / 1e6, "in_mb": sw.in_bytes / 1e6,
+                 "out_ms": 1e3 * sw.out_s, "in_ms": 1e3 * sw.in_s},
+        "launches": launches,
+        "card": smi,
+    }
+    log(f"[6] served 18 requests ({len(hit_ids)} prefix hits, {st['preemptions']} preemptions, "
+        f"{st['resumes']} resumes) in {wall:.2f} s, {steps} steps, on {smi}: decode "
+        f"{out['decode_tok_s']:.1f} tok/s, step p50 {out['decode_step_ms_p50']:.2f} ms; TTFT p50 "
+        f"{out['ttft_ms_p50_hit']:.1f} ms for hits, {out['ttft_ms_p50_miss']:.1f} ms for misses; "
+        f"prefilled {st['prefill_tokens']} of {st['prefix_prompt_tokens']} prompt tokens")
+    log(f"[6] swap: {sw.swap_outs} out ({sw.out_pages} pages, {out['swap']['out_mb']:.1f} MB, "
+        f"{out['swap']['out_ms']:.2f} ms host incl. finalize; {sw.pinned_pages} shared pages pinned), "
+        f"{sw.swap_ins} in ({sw.in_pages} pages, {out['swap']['in_mb']:.1f} MB, {out['swap']['in_ms']:.2f} ms)")
+    log(f"[6] launches on this path: {launches}")
+
+    # the sampler's device time per step: 4 decode steps, 8 sampled slots
+    for i in range(8):
+        eng.submit(rng.integers(0, v, 128).astype(np.int32), 12, sampling=sp(2 * i + 1))
+    eng.step()
+
+    def four_steps():
+        for _ in range(4):
+            eng.step()
+
+    out["decode_profile"] = {"window_steps": 4, **profiled("4 sampled decode steps", four_steps)}
+    eng.drain(max_steps=50)
+    # the partial-prefill attention: one prefill_paged call as the engine
+    # makes it for 8 hits on an 8-page prefix with 256-token suffixes
+    n_seq, s_suf, npre = 8, 256, 8
+    per_seq = s_suf // page
+    pcache = T.init_paged_cache(full, npre + n_seq * per_seq + 1, page, device="cuda")
+    pargs = (
+        torch.as_tensor(rng.integers(0, v, (n_seq, s_suf)), dtype=torch.int32, device="cuda"),
+        torch.full((n_seq,), s_suf, dtype=torch.int32, device="cuda"),
+    )
+    prows = torch.arange(npre + 1, npre + 1 + per_seq * n_seq, dtype=torch.int32,
+                         device="cuda").reshape(n_seq, per_seq)
+    pre_rows = torch.arange(1, npre + 1, dtype=torch.int32, device="cuda")[None].expand(n_seq, npre).contiguous()
+    pre_lens = torch.full((n_seq,), npre * page, dtype=torch.int32, device="cuda")
+
+    def one_partial_prefill():
+        nonlocal pcache
+        logits, pcache = T.prefill_paged(full, eng.model, *pargs, pcache, prows,
+                                         prefix_rows=pre_rows, prefix_lens=pre_lens)
+        torch.argmax(logits, dim=-1).cpu()
+
+    one_partial_prefill()
+    out["partial_prefill_profile"] = {
+        "shape": f"N={n_seq} prefix={npre * page} suffix={s_suf}",
+        **profiled(f"one partial prefill call (N={n_seq}, prefix {npre * page}, suffix {s_suf})",
+                   one_partial_prefill),
+    }
+    del pcache
+    # a sampled decode step against a greedy one: the same 8 prompts, 20
+    # decode steps a window, greedy / sampled / sampled / greedy
+    window_prompts = [rng.integers(0, v, 128).astype(np.int32) for _ in range(8)]
+
+    def decode_window(sampled):
+        for i, p in enumerate(window_prompts):
+            eng.submit(p, 21, sampling=sp(2 * i + 1) if sampled else None)
+        eng.reset_stats()
+        eng.drain(max_steps=50)
+        return 1e3 * p50(eng.stats["decode_step_s"])
+
+    pairs = {"greedy": [], "sampled": []}
+    for kind in ("greedy", "sampled", "sampled", "greedy"):
+        pairs[kind].append(decode_window(kind == "sampled"))
+    out["decode_step_ms_p50_pairs"] = pairs
+    log(f"[6] decode step p50 over 20 steps, 8 slots, same prompts (greedy, sampled, sampled, greedy): "
+        f"{pairs['greedy'][0]:.2f} / {pairs['sampled'][0]:.2f} / {pairs['sampled'][1]:.2f} / "
+        f"{pairs['greedy'][1]:.2f} ms")
+    # one page's swap pieces: K and V of (page, Hk, D) in every layer
+    pool = eng.kv.buffers[0]["k"]
+    staging = pool[:, 1:2].contiguous()
+    t0 = time.perf_counter()
+    pinned = [torch.empty(staging.shape, dtype=staging.dtype, pin_memory=True) for _ in range(2)]
+    alloc_ms = 1e3 * (time.perf_counter() - t0) / 2
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for t in pinned:
+        t.copy_(staging, non_blocking=True)
+    b.record()
+    b.synchronize()
+    d2h_ms = a.elapsed_time(b)
+    a.record()
+    for t in pinned:
+        staging.copy_(t, non_blocking=True)
+    b.record()
+    b.synchronize()
+    h2d_ms = a.elapsed_time(b)
+    page_mb = 2 * staging.numel() * staging.element_size() / 1e6
+    out["swap_page"] = {"page_mb": page_mb, "pinned_alloc_ms": 2 * alloc_ms, "d2h_ms": d2h_ms, "h2d_ms": h2d_ms}
+    log(f"[6] one page ({page_mb:.1f} MB, K and V of {staging.shape[0]} layers): pinned allocation {2 * alloc_ms:.2f} ms, "
+        f"device->pinned copy {d2h_ms:.3f} ms ({page_mb / d2h_ms:.1f} GB/s), pinned->device "
+        f"{h2d_ms:.3f} ms ({page_mb / h2d_ms:.1f} GB/s)")
+    # CUDA-event times of one call, on the same shapes
+    gen_ = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn((8, full.padded_vocab), generator=gen_, device="cuda") * 3
+    samp = {k: t for k, t in eng._decode_sampler().items()}
+    samp["idx"] = torch.arange(8, device="cuda")
+    samp["presence"] = torch.zeros((8, full.padded_vocab + 1), dtype=torch.bool, device="cuda")
+    hk, g, d = full.num_kv_heads, full.num_heads // full.num_kv_heads, full.head_dim
+    q = torch.randn((n_seq, s_suf, hk, g, d), generator=gen_, device="cuda").to(full.torch_dtype)
+    ks, vs = (torch.randn((n_seq, s_suf, hk, d), generator=gen_, device="cuda").to(full.torch_dtype)
+              for _ in range(2))
+    kp, vp = (torch.randn((n_seq, npre * page, hk, d), generator=gen_, device="cuda").to(full.torch_dtype)
+              for _ in range(2))
+    blk = (page, full.attn_local_blocks, full.attn_global_blocks, full.attn_max_stride)
+    # the sampler's ~330 launches outrun the timer's queueing sleep, so
+    # its cost is read as host time per call here and as device time in
+    # the profiled window above
+    out["sampler_host_us"] = host_us(lambda: S.sample_decode(
+        logits, samp, valid_vocab=v, candidates=eng.ecfg.sampler_candidates), n=50)
+    out["event_ms"] = {
+        "sort_8x152064_stable": timer.ms(lambda: torch.sort(logits, dim=-1, descending=True, stable=True)),
+        "prefix_flash_attention_one_layer": timer.ms(lambda: L.prefix_flash_attention(
+            q, ks, vs, kp, vp, pre_lens, sm_scale=d ** -0.5, chunk=full.attn_chunk, block_cfg=blk)),
+    }
+    for name, prof in (("sampler", out["decode_profile"]), ("prefix_flash_attention",
+                                                            out["partial_prefill_profile"])):
+        r = prof["ranges"].get(name)
+        per = "not measured" if not r else (
+            f"{r['device_ms'] / 4:.3f} ms per step" if name == "sampler" else f"{r['device_ms']:.3f} ms per call")
+        log(f"[6] {name} device time from the profiled window: {per}")
+    log("[6] CUDA-event times (device only): " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in out["event_ms"].items())
+        + f"; sampler host time {out['sampler_host_us']:.0f} us per call (8 x {full.padded_vocab})")
+    return out
+
+
+# ----------------------------------------------------------------------
 # main
 # ----------------------------------------------------------------------
 
@@ -417,6 +729,12 @@ def main(argv=None) -> int:
         raise AssertionError(f"smoke streams differ: cpu {cpu_streams} cuda {cuda_streams}")
     log(f"[4] smoke-width sparse fp32: CPU and CUDA greedy streams equal over "
         f"{len(work)} requests (max_len {16 * page}, pages skipped by the schedule)")
+    for name, fn in smoke_workloads(smoke, args.seed).items():
+        got = {dev: fn(dev) for dev in ("cpu", "cuda")}
+        if got["cpu"] != got["cuda"]:
+            raise AssertionError(f"smoke {name} streams differ: cpu {got['cpu']} cuda {got['cuda']}")
+        log(f"[4] smoke-width {name}: CPU and CUDA streams equal over {len(got['cpu']['streams'])} "
+            f"requests ({', '.join(f'{k} {v}' for k, v in got['cpu'].items() if k != 'streams')})")
 
     # ---- 5. full-width serving ---------------------------------------
     t0 = time.perf_counter()
@@ -505,8 +823,11 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             window = time.perf_counter() - t0
         # device-side events only: an aten op's row repeats its kernels' time
+        # (the port's record_function ranges are read apart, not summed)
+        averages = prof.key_averages()
         rows = sorted(
-            (e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA),
+            (e for e in averages
+             if getattr(e, "device_type", None) == DeviceType.CUDA and e.key not in RANGES),
             key=dev_us, reverse=True,
         )
         busy_us = sum(dev_us(e) for e in rows)
@@ -517,8 +838,21 @@ def main(argv=None) -> int:
             ours[name] = {"device_ms": sum(dev_us(e) for e in hits) / 1e3,
                           "launches": sum(e.count for e in hits),
                           "kernels": sorted({e.key[:60] for e in hits})}
+        # device time of the kernels launched inside each named range: the
+        # host-side range's total (its children's kernels), else the
+        # device-side annotation's span
+        ranges = {}
+        for name in RANGES:
+            host = [e for e in averages if e.key == name and getattr(e, "device_type", None) != DeviceType.CUDA]
+            span = [e for e in averages if e.key == name and getattr(e, "device_type", None) == DeviceType.CUDA]
+            us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) for e in host)
+            if not us:
+                us = sum(dev_us(e) for e in span)
+            if host or span:
+                ranges[name] = {"device_ms": us / 1e3, "calls": sum(e.count for e in host) or None}
         out = {
             "window_ms": window * 1e3,
+            "ranges": ranges,
             "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / window if busy_us else None,
             "top": [(e.key[:80], dev_us(e) / 1e3, e.count) for e in rows[:8] if dev_us(e) > 0],
@@ -529,6 +863,8 @@ def main(argv=None) -> int:
                 f"{busy_us / 1e3:.1f} ms, idle share {out['device_idle_share']:.2f}")
             for name, ms, n in out["top"]:
                 log(f"[5]   {ms:8.3f} ms  x{n:<5d} {name}")
+            for name, o in ranges.items():
+                log(f"[5]   range {name}: {o['device_ms']:.3f} ms of device time over {o['calls']} calls")
             for name, o in ours.items():
                 if o["launches"]:
                     log(f"[5]   port kernel {name}: {o['device_ms']:.3f} ms over {o['launches']} device "
@@ -573,7 +909,13 @@ def main(argv=None) -> int:
     }
     del pcache
 
-    # ---- 6. report -------------------------------------------------
+    # ---- 6. full width: sampling, prefix cache, preemption ----------
+    report["features"] = full_width_features(
+        full, eng.model.state_dict(), kernels, rng, args.seed, smi, profiled, timer
+    )
+    del eng
+
+    # ---- 7. report -------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -621,6 +963,8 @@ def main(argv=None) -> int:
             "library_ms": attn_main["library_ms"],
         },
     ]}
+    for k in line["kernels"]:  # the launches of phase 6's path, counted apart
+        k["launches_phase6"] = report["features"]["launches"][k["name"]]
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -21,6 +21,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attn_pattern as ap
+from repro_torch.core.butterfly import next_pow2
 from repro_torch.core.pixelfly import Linear, LinearSpec
 from repro_torch.kernels import ops
 
@@ -31,6 +32,7 @@ __all__ = [
     "flash_attention",
     "prefill_schedule",
     "sparse_prefill_attention",
+    "prefix_flash_attention",
     "paged_sparse_schedule",
     "paged_dense_schedule",
     "DecodeIndex",
@@ -153,6 +155,117 @@ def sparse_prefill_attention(
         q, k, v, kv_index, valid,
         block=cfg.attn_block, causal=True, sm_scale=sm_scale,
     )
+
+
+def _pixelfly_visible(
+    qpos: torch.Tensor,
+    kpos: torch.Tensor,
+    *,
+    block: int,
+    local_blocks: int,
+    global_blocks: int,
+    max_stride: int,
+) -> torch.Tensor:
+    """Elementwise causal pixelfly visibility by absolute positions (int64
+    tensors, broadcast against each other).
+
+    Exactly the causal-visible entries of
+    ``attn_pattern.pixelfly_attention_block_mask`` on a power-of-two block
+    grid: local window, global cross, and the butterfly strides (``qb ^
+    kb`` a power of two below the stride cap). Causal-visible entries do
+    not depend on the total block count, so the rule holds for every
+    bucket and a cached prefix sees the mask its donor prefill used."""
+    qb = torch.div(qpos, block, rounding_mode="floor")
+    kb = torch.div(kpos, block, rounding_mode="floor")
+    diff = qb ^ kb
+    stride = (diff > 0) & ((diff & (diff - 1)) == 0)
+    if max_stride:
+        stride = stride & (diff < next_pow2(max_stride))
+    vis = (
+        (kb < global_blocks)
+        | (qb < global_blocks)
+        | ((qb >= kb) & (qb - kb < local_blocks))
+        | stride
+    )
+    return vis & (kpos <= qpos)
+
+
+def prefix_flash_attention(
+    q: torch.Tensor,
+    k_suf: torch.Tensor,
+    v_suf: torch.Tensor,
+    k_pre: torch.Tensor,
+    v_pre: torch.Tensor,
+    prefix_len: torch.Tensor,
+    *,
+    sm_scale: float,
+    chunk: int,
+    block_cfg: tuple[int, int, int, int] | None = None,
+) -> torch.Tensor:
+    """Partial-prefill attention: suffix queries over [prefix ; suffix],
+    the JAX package's ``prefix_flash_attention_jnp``.
+
+    q (B,Sq,Hk,G,D) are the uncached suffix queries, at absolute positions
+    ``prefix_len[b] + i``; k_suf/v_suf (B,Sq,Hk,D) their keys; k_pre/v_pre
+    (B,Lp,Hk,D) the cached prefix K/V gathered through the page table
+    (rows valid where j < prefix_len[b]; the rest is trash-page padding).
+    Online softmax over KV chunks of ``chunk`` keys with per-row masks
+    (prefix validity, causality on absolute positions); ``block_cfg`` =
+    (block, local_blocks, global_blocks, max_stride) adds the elementwise
+    pixelfly mask (``_pixelfly_visible``) so a sparse-attention model's
+    partial prefill matches its full prefill (``prefix_len`` a multiple of
+    the block). None = dense causal. Plain torch ops: the JAX package
+    computes this outside Pallas, so no kernel stands behind it. The scale
+    is folded into q in fp32 and q cast back to the model dtype; scores
+    and P @ V accumulate in fp32, with P rounded to the model dtype."""
+    b, sq, hk, g, d = q.shape
+    lp = k_pre.shape[1]
+    k = torch.cat([k_pre.to(k_suf.dtype), k_suf], dim=1)
+    v = torch.cat([v_pre.to(v_suf.dtype), v_suf], dim=1)
+    sk = lp + sq
+    chunk = min(chunk, sk)
+    pad = (-sk) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    q_in = (q.float() * sm_scale).to(q.dtype).float()
+    plen = prefix_len.long()[:, None]
+    qpos = plen + torch.arange(sq, device=dev)[None, :]  # (B, Sq) absolute
+    m = torch.full((b, hk, g, sq), float("-inf"), device=dev)
+    l = torch.zeros((b, hk, g, sq), device=dev)
+    acc = torch.zeros((b, hk, g, sq, d), device=dev)
+    for c0 in range(0, sk + pad, chunk):
+        kb = k[:, c0 : c0 + chunk].float()
+        vb = v[:, c0 : c0 + chunk]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q_in, kb)
+        j = c0 + torch.arange(chunk, device=dev)[None, :]  # [prefix ; suffix]
+        is_pre = j < lp
+        # absolute key positions: prefix token j sits at j, suffix token
+        # j - lp at prefix_len + (j - lp); padded tails land beyond every
+        # query position and die to the causal mask
+        kpos = torch.where(is_pre, j, plen + (j - lp))  # (B, chunk)
+        valid = torch.where(is_pre, j < plen, j < sk)
+        mask = valid[:, None, :] & (kpos[:, None, :] <= qpos[:, :, None])
+        if block_cfg is not None:
+            blk, loc, glo, stride = block_cfg
+            mask = mask & _pixelfly_visible(
+                qpos[:, :, None], kpos[:, None, :],
+                block=blk, local_blocks=loc, global_blocks=glo,
+                max_stride=stride,
+            )
+        s = s.masked_fill(~mask[:, None, None], float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        masked = torch.isneginf(m_new)
+        alpha = torch.where(masked, 1.0, torch.exp(m - m_new))
+        p = torch.where(masked[..., None], 0.0, torch.exp(s - m_new[..., None]))
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(), vb.float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    out = acc / l[..., None]  # (B, Hk, G, Sq, D)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -376,6 +489,7 @@ def apply_attention(
     cache: dict[str, torch.Tensor] | None = None,
     index: DecodeIndex | None = None,
     pos: torch.Tensor | None = None,
+    prefix_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
     """Returns (y, fresh K/V). x (B, S, d_model); cos/sin from
     ``rope_angles`` of the tokens' positions.
@@ -384,6 +498,15 @@ def apply_attention(
     block-sparse when the model has sparse attention and S is a multiple
     of the attention block, else dense); the fresh (k, v), each
     (B, S, Hk, D), are returned for the caller's page scatter.
+
+    ``mode="prefill_prefix"``: cache-aware partial prefill. x holds each
+    request's uncached suffix (cos/sin at its absolute positions),
+    ``cache`` this layer's slot-shared pools, ``prefix_rows`` (B, P_pre)
+    the cached prefix pages and ``pos`` (B,) the prefix lengths (page
+    multiples; 0 for a miss). The suffix queries attend the gathered
+    prefix keys and their own causal window (``prefix_flash_attention``);
+    the fresh suffix (k, v) are returned for the caller's page scatter and
+    the shared prefix pages are only read.
 
     ``mode="decode_paged"``: one token per slot (S = 1). ``cache`` holds
     this layer's pools ``k``/``v`` (n_pages, page, Hk, D); the token's K/V
@@ -411,6 +534,23 @@ def apply_attention(
             o = sparse_prefill_attention(c, qg, k, v, sm_scale=scale)
         else:
             o = flash_attention(qg, k, v, sm_scale=scale)
+        fresh = (k, v)
+    elif mode == "prefill_prefix":
+        page = cache["k"].shape[1]
+        rows = prefix_rows.long()
+        npre = rows.shape[1]
+        kp = cache["k"][rows].reshape(b, npre * page, hk, d)
+        vp = cache["v"][rows].reshape(b, npre * page, hk, d)
+        block_cfg = (
+            (c.attn_block, c.attn_local_blocks, c.attn_global_blocks, c.attn_max_stride)
+            if c.sparse_attention and s >= c.attn_block and s % c.attn_block == 0
+            else None
+        )
+        with torch.profiler.record_function("prefix_flash_attention"):
+            o = prefix_flash_attention(
+                qg, k, v, kp, vp, pos,
+                sm_scale=scale, chunk=c.attn_chunk, block_cfg=block_cfg,
+            )
         fresh = (k, v)
     elif mode == "decode_paged":
         # write-at-position: each slot's token lands in its own page; idle

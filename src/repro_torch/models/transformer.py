@@ -7,12 +7,17 @@ paged KV pools are one tensor ``(count, n_pages, page, Hk, D)`` of which
 layer i reads and writes ``pool[i]`` in place.
 
 Entry points:
-  init_model(cfg, seed=, device=)                  -> LM
+  init_model(cfg, seed=, device=, params=)         -> LM
   init_paged_cache(cfg, n_pages, page, device=)    -> [{"k", "v"}] per group
-  prefill_paged(cfg, model, tokens, plens, caches, page_rows)
+  prefill_paged(cfg, model, tokens, plens, caches, page_rows,
+                prefix_rows=, prefix_lens=, full_tokens=, full_plens=,
+                sampler=, sampler_candidates=)
                                   -> ((N, V) last-real-token logits, caches)
-  decode_step_paged(cfg, model, caches, tokens, positions, page_table)
+                                     or (tokens (N,), caches, presence)
+  decode_step_paged(cfg, model, caches, tokens, positions, page_table,
+                    sampler=, sampler_candidates=)
                                   -> ((B, V) logits, caches)
+                                     or (tokens (B,), caches, presence)
 Every entry point runs on the card unless the caller passes another device.
 """
 
@@ -22,7 +27,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pixelfly import Linear
 from repro_torch.models import layers as L
+from repro_torch.serving import sampling as sampling_lib
 
 __all__ = [
     "resolve_device",
@@ -86,14 +93,35 @@ class LM(nn.Module):
 
 
 def init_model(
-    cfg: ModelConfig, *, seed: int = 0, device: str | torch.device | None = None
+    cfg: ModelConfig,
+    *,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+    params: dict[str, torch.Tensor] | None = None,
 ) -> LM:
     """Random weights from a CPU ``torch.Generator`` seeded with ``seed``,
     moved to ``device`` tensor by tensor: the same seed gives the same
-    weights on every device."""
+    weights on every device. With ``params`` (a state dict, from
+    ``bridge.params_from_jax`` or another model's ``state_dict()``) nothing
+    is drawn: the modules are built on the meta device and take the given
+    tensors, moved to ``device`` and cast to each parameter's dtype (no
+    copy where both already match, so two models may share weights)."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
-    return LM(cfg, gen=gen, device=dev)
+    if params is None:
+        return LM(cfg, gen=torch.Generator().manual_seed(seed), device=dev)
+    meta = torch.device("meta")
+    with meta:
+        model = LM(cfg, gen=torch.Generator(), device=meta)
+    like = model.state_dict()
+    model.load_state_dict(
+        {k: v.to(dev, like[k].dtype) if k in like else v for k, v in params.items()},
+        strict=True,
+        assign=True,
+    )
+    for m in model.modules():  # the non-persistent BSR tables
+        if isinstance(m, Linear) and m.cols is not None:
+            m.cols = torch.as_tensor(m.spec.pattern().cols, device=dev)
+    return model
 
 
 def init_paged_cache(
@@ -128,6 +156,13 @@ def prefill_paged(
     plens: torch.Tensor,
     caches: list,
     page_rows: torch.Tensor,
+    *,
+    prefix_rows: torch.Tensor | None = None,
+    prefix_lens: torch.Tensor | None = None,
+    full_tokens: torch.Tensor | None = None,
+    full_plens: torch.Tensor | None = None,
+    sampler: dict | None = None,
+    sampler_candidates: int | None = None,
 ):
     """Batched bucketed prefill into the paged cache.
 
@@ -140,17 +175,40 @@ def prefill_paged(
     where the last write wins harmlessly: every read masks it by logical
     position). The tail of each prompt's last page receives the padding
     tokens' K/V; those positions lie beyond the prompt, so every read masks
-    them until decode overwrites them. Returns (logits at each request's
-    last real token (N, V), caches).
+    them until decode overwrites them.
+
+    Cache-aware partial prefill (prefix-cache hits): with ``prefix_lens``
+    (N,), ``tokens``/``plens`` carry only each request's uncached suffix
+    and ``prefix_rows`` (N, P_pre) the physical pages already holding its
+    prefix K/V (trash-padded past the real prefix). Suffix queries run at
+    absolute positions ``prefix_len + i`` and attend the prefix through
+    the pages (``apply_attention`` mode ``prefill_prefix``); only suffix
+    K/V is computed and scattered. Prefix lengths are whole pages, so the
+    suffix starts on a fresh page and the padding tail written above never
+    lands in a shared prefix page. ``full_tokens``/``full_plens`` (the
+    whole prompts) seed the sampler's presence rows, which must cover the
+    cached prefix too.
+
+    Returns (logits at each request's last real token (N, V), caches); or,
+    with ``sampler`` (the engine's packed per-request params, see
+    ``serving.sampling.sample_prefill``), the first tokens sampled on the
+    device: (token ids (N,), caches, presence).
     """
     x = L.embed_tokens(model.embed, tokens.long())
     n, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(n, s)
+    mode = "prefill"
+    if prefix_lens is not None:
+        mode = "prefill_prefix"
+        positions = prefix_lens.long()[:, None] + positions
     cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     rows = page_rows.long()
     for blk, pool in zip(model.layers, _layer_pools(cfg, caches)):
         h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
-        y, (k, v) = L.apply_attention(cfg, blk.attn, h, cos, sin, mode="prefill")
+        y, (k, v) = L.apply_attention(
+            cfg, blk.attn, h, cos, sin, mode=mode,
+            cache=pool, pos=prefix_lens, prefix_rows=prefix_rows,
+        )
         for buf, fresh in ((pool["k"], k), (pool["v"], v)):
             page = buf.shape[1]
             buf[rows] = fresh.reshape(n, s // page, page, *fresh.shape[2:]).to(buf.dtype)
@@ -158,7 +216,19 @@ def prefill_paged(
         x = x + L.apply_mlp(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, x, cfg.norm_eps))
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     last = x[torch.arange(n, device=x.device), plens.long() - 1]  # (N, d)
-    return L.lm_logits(cfg, model.head, model.embed, last), caches
+    logits = L.lm_logits(cfg, model.head, model.embed, last)
+    if sampler is None:
+        return logits, caches
+    with torch.profiler.record_function("sampler"):
+        toks, presence = sampling_lib.sample_prefill(
+            logits,
+            tokens if full_tokens is None else full_tokens,
+            plens if full_plens is None else full_plens,
+            sampler,
+            valid_vocab=cfg.vocab_size,
+            candidates=sampler_candidates,
+        )
+    return toks, caches, presence
 
 
 def decode_step_paged(
@@ -168,12 +238,17 @@ def decode_step_paged(
     tokens: torch.Tensor,
     positions: torch.Tensor,
     page_table: torch.Tensor,
+    *,
+    sampler: dict | None = None,
+    sampler_candidates: int | None = None,
 ):
     """Slot-indexed decode step over the paged cache: tokens (B,) one per
     slot; positions (B,) int32 ragged per-slot write positions; page_table
     (B, P) int32. Idle slots pass position 0 with an all-trash row. The
     step's write targets and read schedule are computed once for all
-    layers. Returns (logits (B, V), caches)."""
+    layers. Returns (logits (B, V), caches); or, with ``sampler``, every
+    slot's next token sampled on the device (``serving.sampling.
+    sample_decode``): (token ids (B,), caches, presence)."""
     x = L.embed_tokens(model.embed, tokens.long()[:, None])
     pos = positions.to(torch.int32).contiguous()
     page = caches[0]["k"].shape[2]
@@ -188,4 +263,11 @@ def decode_step_paged(
         x = x + y
         x = x + L.apply_mlp(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, x, cfg.norm_eps))
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
-    return L.lm_logits(cfg, model.head, model.embed, x[:, 0]), caches
+    logits = L.lm_logits(cfg, model.head, model.embed, x[:, 0])
+    if sampler is None:
+        return logits, caches
+    with torch.profiler.record_function("sampler"):
+        toks, presence = sampling_lib.sample_decode(
+            logits, sampler, valid_vocab=cfg.vocab_size, candidates=sampler_candidates
+        )
+    return toks, caches, presence

@@ -1,28 +1,42 @@
-"""Continuous-batching serving engine over the block-paged KV cache: the
-greedy path of the JAX package's ``serving/engine.py``.
+"""Continuous-batching serving engine over the block-paged KV cache, the
+port of the JAX package's ``serving/engine.py``.
 
 ``Engine.submit()`` enqueues requests; each ``step()`` runs one admission
-pass over the first ``lookahead`` queued requests, grouping them by
-power-of-two page bucket and admitting each same-bucket group (split into
-power-of-two chunks) with ONE batched ``prefill_paged`` call and ONE host
-fetch of its first tokens; then ONE ``decode_step_paged`` over every slot
-(ragged per-slot positions, idle slots on the trash page) and ONE host
-fetch of the next-token row; then finished sequences are evicted so their
-slot and pages are reusable the very next step. ``drain()`` steps until
-the queue and the slots are empty.
+pass over the first ``lookahead`` queued requests (in priority order),
+grouping them by power-of-two suffix bucket and prefix-page bucket and
+admitting each group (split into power-of-two chunks) with ONE batched
+``prefill_paged`` call and ONE host fetch of its first tokens; then ONE
+``decode_step_paged`` over every slot (ragged per-slot positions, idle
+slots on the trash page) and ONE host fetch of the next-token row; then
+finished sequences are evicted so their slot and pages are reusable the
+very next step. ``drain()`` steps until the queue and the slots are empty.
 
-Admission budgets each request's lifetime pages (prompt + decode growth),
-so an oversubscribed pool never runs dry mid-decode; a request skipped
-``max_skips`` times becomes a barrier (aging). Requests that could never
-fit are rejected (``REJECT_TOO_LARGE``), and queue-wait timeouts give
-``REJECT_TIMEOUT``. Tokens are the argmax over the padded vocabulary,
-ties to the lowest id.
+Tokens are picked on the device. Plain greedy requests take the argmax
+over the padded vocabulary (ties to the lowest id); a step with any
+sampled or penalised request runs the sampler (``serving.sampling``) for
+every slot, with per-slot params held on the device between admissions
+and each row's sample index derived on the device as ``pos - plen + 1``.
+The noise depends only on (seed, sample index), so streams do not depend
+on slots, steps or batches.
 
-Not ported yet, and refused with ``NotImplementedError``: sampling other
-than plain greedy, the prefix cache, priorities other than 0 (with every
-request at priority 0 preemption can never fire, so ``preemption=True``
-stays the default), tracing, live monitoring, SLO shedding and the flight
-recorder.
+With ``prefix_cache=True`` admission maps cached prompt-prefix pages
+straight into the new slot's page table (``serving.prefix``) and prefills
+only the uncached suffix; a slot copies a shared page before writing into
+it (copy on write). Admission budgets each request's lifetime pages
+(prompt + decode growth, minus shared pages, plus one copy-on-write
+reserve page for a hit), so an oversubscribed pool never runs dry
+mid-decode; a request skipped ``max_skips`` times becomes a barrier
+(aging). When a higher-priority request is blocked on slots or pages, the
+engine may preempt strictly lower-priority sequences that have run
+``preempt_min_steps`` steps: their private pages go to host memory with
+an asynchronous copy that overlaps the next decode step, shared pages are
+pinned in place (``serving.swap``), and the request re-enters the queue to
+resume with the same stream later. Requests that could never fit are
+rejected (``REJECT_TOO_LARGE``), and queue-wait timeouts give
+``REJECT_TIMEOUT``.
+
+Not ported yet, and refused with ``NotImplementedError``: tracing, live
+monitoring, SLO shedding and the flight recorder.
 """
 
 from __future__ import annotations
@@ -35,7 +49,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving.kv_cache import PagedKVCache
+from repro_torch.serving.prefix import PrefixCache
 from repro_torch.serving.request import (
     REJECT_TIMEOUT,
     REJECT_TOO_LARGE,
@@ -46,6 +62,7 @@ from repro_torch.serving.request import (
 )
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.swap import SwapManager, SwapRecord
 
 __all__ = ["Engine", "EngineConfig"]
 
@@ -57,9 +74,11 @@ class EngineConfig:
     admission pass (default ``2 * max_slots``); ``max_prefill_batch``
     requests per prefill call (0 -> ``max_slots``); ``max_skips`` admission
     passes around a waiting request before it becomes a barrier (0 disables
-    aging); ``n_pages`` pool size (0 -> worst case).
-    ``sampler_candidates``, ``preempt_min_steps`` and ``spike_factor`` are
-    kept for the interface and not used by the greedy path."""
+    aging); ``n_pages`` pool size (0 -> worst case); ``sampler_candidates``
+    the sampler's candidate cap C (0 -> the whole vocabulary; requests may
+    not ask for top_k beyond it); ``prefix_cache`` radix-tree prefix reuse;
+    ``preemption`` and its hysteresis ``preempt_min_steps``.
+    ``spike_factor`` is kept for the interface and not used."""
 
     def __init__(
         self,
@@ -114,13 +133,11 @@ class EngineConfig:
     def unported(self) -> list[str]:
         """The options set here that the port's engine does not serve yet,
         each with the ROADMAP item that brings it."""
-        out = []
-        if self.prefix_cache:
-            out.append("prefix_cache (ROADMAP Queue 1 item 2)")
-        for name in ("trace", "monitor", "slo", "flight_dir"):
-            if getattr(self, name) not in (False, None):
-                out.append(f"{name} (ROADMAP Queue 1 item 4)")
-        return out
+        return [
+            f"{name} (ROADMAP Queue 1 item 4)"
+            for name in ("trace", "monitor", "slo", "flight_dir")
+            if getattr(self, name) not in (False, None)
+        ]
 
     def rounded(self, page: int) -> "EngineConfig":
         """A copy with ``max_len`` rounded up to a whole page."""
@@ -131,6 +148,22 @@ class EngineConfig:
 
 def _next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length() if n > 1 else 1
+
+
+class _Plan:
+    """One admission pass's outcome: prefill ``groups`` keyed by (suffix
+    bucket, prefix-page bucket) holding (request, pinned prefix pages),
+    swapped sequences to ``resume`` ((request, pinned pages) in priority
+    order), the leftover page ``budget`` and ``free_slots``, and the
+    highest-priority request that could not be planned for lack of slots
+    or pages (``blocked``, the preemption trigger)."""
+
+    def __init__(self):
+        self.groups: dict[tuple[int, int], list[tuple[Request, list[int]]]] = {}
+        self.resumes: list[tuple[Request, list[int]]] = []
+        self.blocked: Request | None = None
+        self.budget = 0
+        self.free_slots = 0
 
 
 class Engine:
@@ -144,8 +177,10 @@ class Engine:
         device: str | torch.device | None = None,
     ):
         """``device`` None means the card (raises without one). ``params``
-        is a state dict, e.g. from ``bridge.params_from_jax``; without it
-        the weights are random from ``seed`` (``transformer.init_model``)."""
+        is a state dict, e.g. from ``bridge.params_from_jax`` or another
+        engine's ``model.state_dict()`` (shared, not copied, where device
+        and dtype match); without it the weights are random from ``seed``
+        (``transformer.init_model``)."""
         ecfg = (engine_cfg or EngineConfig()).rounded(cfg.attn_block)
         unported = ecfg.unported()
         if unported:
@@ -155,19 +190,56 @@ class Engine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = T.resolve_device(device)
-        self.model = T.init_model(cfg, seed=seed, device=self.device)
-        if params is not None:
-            self.model.load_state_dict(params, strict=True)
+        self.model = T.init_model(cfg, seed=seed, device=self.device, params=params)
         self.kv = PagedKVCache(
             cfg, ecfg.max_slots, ecfg.max_len, n_pages=ecfg.n_pages,
             device=self.device,
         )
         self.scheduler = Scheduler(ecfg.max_slots)
+        # Slot-indexed sampling state: host rows written at admission,
+        # uploaded once per change (``_samp_dev``) and read by the sampler
+        # on the device; ``presence`` ((slots, V+1) bool, column V absorbs
+        # padding) tracks each slot's prompt + generated tokens for the
+        # repetition penalty and never leaves the device.
+        ms = ecfg.max_slots
+        self._samp = {
+            "temp": np.zeros((ms,), np.float32),
+            "top_k": np.zeros((ms,), np.int64),
+            "top_p": np.ones((ms,), np.float32),
+            "rep": np.ones((ms,), np.float32),
+            "key": np.zeros((ms, 2), np.int64),
+            # prompt length per slot: the decode step derives each row's
+            # sample index on the device as pos - plen + 1
+            "plen": np.ones((ms,), np.int64),
+        }
+        self._samp_dev: dict[str, torch.Tensor] | None = None
+        self._presence = torch.zeros(
+            (ms, cfg.padded_vocab + 1), dtype=torch.bool, device=self.device
+        )
+        # slots whose request needs the sampler (noise or presence); an
+        # empty set keeps the step on the plain argmax
+        self._fancy_slots: set[int] = set()
+        self._prefix = PrefixCache(self.kv) if ecfg.prefix_cache else None
+        self.swap = SwapManager(
+            self.kv,
+            page_in_tree=self._prefix.page_in_tree if self._prefix else None,
+        )
+        # uid -> (state, record) of swapped-out sequences; their requests
+        # wait in the queue and resume (swap in) instead of prefilling
+        self._swapped: dict[int, tuple[SequenceState, SwapRecord]] = {}
+        # swap records whose copy to host is in flight; finalized after
+        # the next decode step
+        self._pending_swaps: list[SwapRecord] = []
         self._rejected: list[FinishedRequest] = []
         # slot -> total pages its sequence may ever need (prompt + decode
-        # growth); only pages_for_len(plen) are allocated at admission, the
-        # rest is a reservation the admission budget must not hand out twice
+        # growth, + the copy-on-write reserve); only pages_for_len(plen)
+        # are allocated at admission, the rest is a reservation the
+        # admission budget must not hand out twice
         self._page_need: dict[int, int] = {}
+        # slot -> unconsumed copy-on-write reserve pages (1 for a prefix
+        # hit): a split of an adopted shared page must never find the pool
+        # dry
+        self._cow_reserve: dict[int, int] = {}
         self._uid = 0
         self._step_idx = 0
         self.stats = self._fresh_stats()
@@ -185,10 +257,35 @@ class Engine:
             "decode_tokens": 0,
             "decode_step_s": [],
             "ttft_s": [],
+            # device-to-host fetches (the one per prefill call and per
+            # decode step)
+            "host_fetches": 0,
+            # sampling kind -> {"requests", "tokens"} of finished requests
+            "by_sampler": {},
+            "pages_reclaimed_early": 0,
+            # prefix cache: admissions looked up and those that hit, the
+            # prompt tokens they held, tokens and pages served from the
+            # cache, decode-written pages indexed at finish, copy-on-write
+            # splits
+            "prefix_lookups": 0,
+            "prefix_hits": 0,
+            "prefix_prompt_tokens": 0,
+            "prefix_hit_tokens": 0,
+            "prefix_hit_pages": 0,
+            "decode_indexed_pages": 0,
+            "cow_copies": 0,
+            "preemptions": 0,
+            "resumes": 0,
         }
 
     def reset_stats(self) -> None:
+        """Zero the per-run counters; the radix tree's contents stay."""
         self.stats = self._fresh_stats()
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """The engine's one way to read the device: a counted fetch."""
+        self.stats["host_fetches"] += 1
+        return t.cpu().numpy()
 
     # ---- request intake ----------------------------------------------
     def submit(
@@ -202,26 +299,28 @@ class Engine:
     ) -> int:
         """Enqueue one request; returns its uid. A request that could never
         fit finishes with ``reject_reason REJECT_TOO_LARGE``, delivered by
-        the next ``step()``."""
-        if sampling is not None and not sampling.is_plain:
-            raise NotImplementedError(
-                "only plain greedy decoding is ported (sampling: ROADMAP "
-                "Queue 1 item 1)"
-            )
-        schedule = schedule or ScheduleParams()
-        if schedule.priority != 0:
-            raise NotImplementedError(
-                "only priority 0 is ported (priorities and preemption: "
-                "ROADMAP Queue 1 item 3)"
-            )
+        the next ``step()``. A sampled request may not ask for top_k beyond
+        the sampler's candidate cap (``ValueError``)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        cap = self.ecfg.sampler_candidates
+        if (
+            sampling is not None
+            and cap
+            and not sampling.is_greedy  # greedy rows never read top_k
+            and sampling.top_k > cap
+        ):
+            raise ValueError(
+                f"top_k {sampling.top_k} exceeds the engine's sampler "
+                f"candidate cap {cap} (EngineConfig(sampler_candidates=...))"
+            )
         self._uid += 1
         req = Request(
             self._uid,
             prompt,
             max_new_tokens,
             eos_id=eos_id,
-            schedule=schedule,
+            sampling=sampling or SamplingParams(),
+            schedule=schedule or ScheduleParams(),
             submit_s=time.perf_counter(),
         )
         if (
@@ -247,18 +346,68 @@ class Engine:
         )
 
     def _expire_waiting(self, finished: list[FinishedRequest]) -> None:
+        """Queue-wait timeouts. Swapped-out sequences are exempt: they
+        have run already and always resume."""
         now = time.perf_counter()
         for req in list(self.scheduler.waiting):
             wait = req.schedule.max_queue_wait_s
-            if wait is not None and now - req.submit_s > wait:
+            if (
+                wait is not None
+                and req.uid not in self._swapped
+                and now - req.submit_s > wait
+            ):
                 self.scheduler.remove(req)
                 finished.append(self._reject(req, REJECT_TIMEOUT))
+
+    # ---- sampler packing ---------------------------------------------
+    def _bind_sampler(self, slot: int, sp: SamplingParams, plen: int) -> None:
+        """Write one request's sampling params into its slot's rows. The
+        base key depends only on the request's seed."""
+        self._samp["temp"][slot] = sp.temperature
+        self._samp["top_k"][slot] = sp.top_k
+        self._samp["top_p"][slot] = sp.top_p
+        self._samp["rep"][slot] = sp.repetition_penalty
+        self._samp["key"][slot] = sampling_lib.base_key_data(sp.seed)
+        self._samp["plen"][slot] = plen
+        self._samp_dev = None  # rows changed: upload at next use
+        if sp.is_plain:
+            self._fancy_slots.discard(slot)
+        else:
+            self._fancy_slots.add(slot)
+
+    def _decode_sampler(self) -> dict[str, torch.Tensor]:
+        """The slot-indexed sampler params on the device, uploaded once
+        per admission and reused by every decode step until the next."""
+        if self._samp_dev is None:
+            self._samp_dev = {
+                k: torch.from_numpy(v).to(self.device) for k, v in self._samp.items()
+            }
+        return self._samp_dev
+
+    def _prefill_sampler(self, states: list[SequenceState]) -> dict[str, torch.Tensor]:
+        """Per-request params of one admission group (sample index 0: the
+        first emitted token) and the slots they landed in."""
+        rows = [st_.slot for st_ in states]
+        samp = {
+            k: torch.from_numpy(v[rows]).to(self.device) for k, v in self._samp.items()
+        }
+        samp["idx"] = torch.zeros((len(rows),), dtype=torch.int64, device=self.device)
+        samp["slots"] = torch.tensor(rows, dtype=torch.int64, device=self.device)
+        samp["presence"] = self._presence
+        return samp
 
     # ---- admission ---------------------------------------------------
     def _bucket(self, plen: int) -> int:
         """Pad prompt lengths to power-of-two page counts."""
         nb = min(_next_pow2(self.kv.pages_for_len(plen)), self.kv.pages_per_seq)
         return nb * self.kv.page
+
+    def _pre_bucket(self, n_pages: int) -> int:
+        """Pad prefix-hit page counts to powers of two (0 = a miss, which
+        takes the plain prefill)."""
+        if n_pages == 0:
+            return 0
+        return min(_next_pow2(n_pages), self.kv.pages_per_seq)
 
     def _lifetime_pages(self, req: Request) -> int:
         """Worst-case pages a request can ever touch (the last generated
@@ -267,63 +416,284 @@ class Engine:
             min(req.prompt.size + req.max_new_tokens - 1, self.ecfg.max_len)
         )
 
+    def _alloc(self, slot: int, pos: int) -> None:
+        """Grow ``slot`` to cover ``pos``, evicting LRU parked prefix pages
+        first if the free list would run dry: parked pages never block a
+        live sequence."""
+        if self._prefix is not None:
+            need = pos // self.kv.page + 1 - self.kv.pages_owned(slot)
+            if need > self.kv.free_pages:
+                self._prefix.ensure_free(need)
+        self.kv.alloc_upto(slot, pos)
+
+    def _ensure_writable(self, slot: int, pos: int) -> None:
+        """Copy on write: a slot must own the page its next token writes
+        into alone. A shared page (mapped into another slot) or an indexed
+        page (its bytes are a tree key's value) is first replaced by a
+        fresh page holding a device copy. The fresh page comes out of the
+        slot's copy-on-write reservation, which keeps ``_reserved_pages``
+        exact. Page-granular hits share only full pages behind the write
+        position, so this fires on outside pins, not on the main path."""
+        if self._prefix is None:
+            return
+        li = pos // self.kv.page
+        if li >= self.kv.pages_owned(slot):
+            return
+        p = int(self.kv.page_table[slot, li])
+        if self.kv.refcount(p) > 1 or self._prefix.page_in_tree(p):
+            self._prefix.ensure_free(1)
+            self.kv.cow_page(slot, li, keep=self._prefix.page_in_tree)
+            if self._cow_reserve.get(slot, 0) > 0:
+                self._cow_reserve[slot] -= 1
+                self._page_need[slot] -= 1
+            self.stats["cow_copies"] += 1
+
     def _reserved_pages(self) -> int:
+        """Pages promised to active sequences but not yet allocated."""
         return sum(
             max(0, need - self.kv.pages_owned(slot))
             for slot, need in self._page_need.items()
         )
 
-    def _plan_admission(self) -> dict[int, list[Request]]:
-        """One bounded-lookahead pass: group the admissible requests by
-        prefill bucket within the slot and lifetime-page budget. A request
-        that does not fit is skipped, unless it has been admitted around
-        ``max_skips`` times, which stops the pass at it."""
-        groups: dict[int, list[Request]] = {}
-        free_slots = self.scheduler.num_free_slots
-        budget = self.kv.free_pages - self._reserved_pages()
+    def _match_and_pin(self, req: Request) -> tuple[list[int], int]:
+        """Walk the radix tree for ``req``'s prompt and pin every hit page
+        (parked pages become live, live pages gain a reference), so
+        nothing the plan relies on is evicted before the admission lands.
+        Returns (pinned pages, admission cost in pages): the fresh pages
+        the request still needs, plus the parked pages the pin took out of
+        the evictable budget, plus one copy-on-write reserve page for a
+        hit. Resumes come through the same walk: their pinned shared
+        prefix is still indexed. A request whose lifetime fills every
+        allocatable page cannot carry the reserve and declines the hit;
+        resumes never decline (their pinned pages were never copied)."""
+        lifetime = self._lifetime_pages(req)
+        if self._prefix is None:
+            return [], lifetime
+        pages = self._prefix.match(req.prompt)
+        if (
+            pages
+            and req.uid not in self._swapped
+            and lifetime + 1 > self.kv.n_pages - 1
+        ):
+            return [], lifetime
+        parked = 0
+        for p in pages:
+            if self.kv.is_cached(p):
+                self.kv.take_cached(p)
+                parked += 1
+            else:
+                self.kv.incref(p)
+        reserve = 1 if pages else 0
+        return pages, lifetime - len(pages) + parked + reserve
+
+    def _unpin(self, pages: list[int]) -> None:
+        for p in pages:
+            self.kv.unpin(p)
+
+    def _plan_admission(self) -> _Plan:
+        """One bounded-lookahead pass over the waiting queue in priority
+        order: group the admissible requests by (suffix bucket, prefix
+        bucket), or list them as resumes, within the slot and lifetime-page
+        budget. The budget counts only uncached pages and counts parked
+        pages as evictable headroom. A request that does not fit is
+        skipped, unless it has been admitted around ``max_skips`` times,
+        which stops the pass at it. The highest-priority request that
+        could not be planned is ``plan.blocked``."""
+        plan = _Plan()
+        plan.free_slots = self.scheduler.num_free_slots
+        plan.budget = self.kv.free_pages - self._reserved_pages()
+        if self._prefix is not None:
+            plan.budget += self._prefix.evictable_pages()
         skipped: list[tuple[int, Request]] = []
         last_planned = -1
         for wi, req in enumerate(self.scheduler.peek_admissible(self.ecfg.lookahead)):
-            if free_slots == 0:
+            if plan.free_slots == 0:
+                if plan.blocked is None:
+                    plan.blocked = req
                 break
-            cost = self._lifetime_pages(req)
-            if cost > budget:
+            pages, cost = self._match_and_pin(req)
+            if cost > plan.budget:
+                self._unpin(pages)
                 skipped.append((wi, req))
+                if plan.blocked is None:
+                    plan.blocked = req
                 if (
                     self.ecfg.max_skips
                     and self.scheduler.skip_count(req) >= self.ecfg.max_skips
                 ):
                     break  # starved request: stop admitting around it
                 continue
-            groups.setdefault(self._bucket(req.prompt.size), []).append(req)
-            free_slots -= 1
-            budget -= cost
+            if req.uid in self._swapped:
+                plan.resumes.append((req, pages))
+            else:
+                suffix = req.prompt.size - len(pages) * self.kv.page
+                key = (self._bucket(suffix), self._pre_bucket(len(pages)))
+                plan.groups.setdefault(key, []).append((req, pages))
+            plan.free_slots -= 1
+            plan.budget -= cost
             last_planned = wi
         self.scheduler.note_skips([r for wi, r in skipped if wi < last_planned])
-        return groups
+        return plan
 
-    def _admit_group(self, reqs: list[Request], s: int) -> list[SequenceState]:
-        """One batched prefill call over tokens (N, S) and one host fetch of
-        the N first tokens. Pages are allocated for the real prompts only;
-        bucket padding scatters to the trash page."""
-        nb = len(reqs)
+    def _unplan(self, plan: _Plan) -> None:
+        """Drop every pin a plan holds (it is recomputed after a
+        preemption changed the resources)."""
+        for plans in plan.groups.values():
+            for _, pages in plans:
+                self._unpin(pages)
+        for _, pages in plan.resumes:
+            self._unpin(pages)
+
+    # ---- preemption --------------------------------------------------
+    def _swap_pin_len(self, state: SequenceState) -> int:
+        """How many of a victim's leading pages swap-out would pin in place
+        (shared with other slots) rather than copy, capped at the radix
+        match limit so a resume's re-match covers them."""
+        owned = self.kv.owned_pages(state.slot)
+        cap = min((state.plen - 1) // self.kv.page, len(owned))
+        n = 0
+        while n < cap and self.kv.refcount(owned[n]) > 1:
+            n += 1
+        return n
+
+    def _maybe_preempt(self, plan: _Plan) -> bool:
+        """Try to unblock ``plan.blocked`` by swapping out running sequences
+        of strictly lower priority (lowest priority first, longest
+        remaining first within a class) that have run ``preempt_min_steps``
+        steps since their last admit or resume. Victims are swapped only
+        if together they unblock the request. Returns True if anything was
+        swapped (the caller re-plans)."""
+        req = plan.blocked
+        if req is None or not self.ecfg.preemption:
+            return False
+        pr = req.schedule.priority
+        cands = [
+            st_
+            for st_ in self.scheduler.active()
+            if st_.request.schedule.priority < pr
+            and self._step_idx - st_.resume_step >= self.ecfg.preempt_min_steps
+        ]
+        if not cands:
+            return False
+        cands.sort(key=lambda st_: (st_.request.schedule.priority, -st_.remaining))
+        pages, cost = self._match_and_pin(req)
+        self._unpin(pages)
+        budget, free_slots = plan.budget, plan.free_slots
+        victims: list[SequenceState] = []
+        for v in cands:
+            if free_slots >= 1 and cost <= budget:
+                break
+            # swapping v frees its private pages (copied or parked) and
+            # its unallocated reservation; only its pinned prefix stays
+            need = self._page_need.get(v.slot, self.kv.pages_owned(v.slot))
+            budget += need - self._swap_pin_len(v)
+            free_slots += 1
+            victims.append(v)
+        if free_slots < 1 or cost > budget:
+            return False
+        for v in victims:
+            self._preempt(v)
+        return True
+
+    def _preempt(self, state: SequenceState) -> None:
+        """Swap one running sequence out to host memory and re-queue its
+        request."""
+        slot = state.slot
+        record = self.swap.swap_out(slot, max_pin=(state.plen - 1) // self.kv.page)
+        self.scheduler.evict(slot)
+        self._page_need.pop(slot, None)
+        self._cow_reserve.pop(slot, None)
+        self._fancy_slots.discard(slot)
+        state.preemptions += 1
+        self._swapped[state.request.uid] = (state, record)
+        self._pending_swaps.append(record)
+        self.scheduler.submit(state.request)
+        self.stats["preemptions"] += 1
+
+    def _resume(self, req: Request, pages: list[int]) -> SequenceState:
+        """Swap a preempted sequence back in: adopt the re-matched resident
+        prefix (``pages``, pinned by the plan), allocate fresh pages for
+        the rest, copy the host pages in, and rebind the slot's sampler
+        rows and presence row. The KV bytes round-trip unchanged and the
+        noise depends only on (seed, sample index), so the stream goes on
+        as if it had never stopped."""
+        state, record = self._swapped.pop(req.uid)
+        if self.scheduler.resume(state, request=req) is None:
+            raise RuntimeError("resume planned without a free slot")
+        slot = state.slot
+        reserve = 1 if pages else 0
+        self._page_need[slot] = self._lifetime_pages(req) + reserve
+        self._cow_reserve[slot] = reserve
+        self._bind_sampler(slot, req.sampling, state.plen)
+        if pages:
+            self.kv.adopt(slot, pages)
+        self._alloc(slot, record.n_logical * self.kv.page - 1)
+        self.swap.swap_in(record, slot, n_resident=len(pages))
+        state.resume_step = self._step_idx
+        state.prefix_hit_tokens = max(
+            state.prefix_hit_tokens, len(pages) * self.kv.page
+        )
+        if not req.sampling.is_plain:
+            seen = np.concatenate([req.prompt, np.asarray(state.generated, np.int32)])
+            self._presence[slot] = False
+            self._presence[slot, torch.from_numpy(seen).long().to(self.device)] = True
+        self.stats["resumes"] += 1
+        return state
+
+    # ---- prefill -----------------------------------------------------
+    def _admit_group(
+        self, plans: list[tuple[Request, list[int]]], s: int, npre: int
+    ) -> list[SequenceState]:
+        """One batched prefill call over tokens (N, S) and one host fetch
+        of the N first tokens. Pages are allocated for the real prompts
+        only; bucket padding scatters to the trash page. Hit pages are
+        adopted into the slot's page table (the plan's pin becomes the
+        slot's reference) and only the uncached suffix is prefilled; the
+        prompt's pages are indexed in the radix tree after the call's
+        host fetch, so a duplicate prompt in the same call never reads
+        pages the call is still writing."""
+        nb = len(plans)
         n_pages = s // self.kv.page
         tokens = np.zeros((nb, s), np.int32)
         plens = np.empty((nb,), np.int32)
         rows = np.zeros((nb, n_pages), np.int32)
+        pre_rows = np.zeros((nb, max(npre, 1)), np.int32)
+        pre_lens = np.zeros((nb,), np.int32)
+        # whole prompts, for the sampler's presence rows
+        full_tokens = np.zeros((nb, npre * self.kv.page + s), np.int32)
+        full_plens = np.empty((nb,), np.int32)
         states = []
-        for i, req in enumerate(reqs):
+        for i, (req, pages) in enumerate(plans):
             state = self.scheduler.admit(self._step_idx, request=req)
             state.resume_step = self._step_idx
-            self._page_need[state.slot] = self._lifetime_pages(req)
-            self.kv.alloc_upto(state.slot, state.plen - 1)
-            tokens[i, : state.plen] = req.prompt
-            plens[i] = state.plen
-            rows[i] = self.kv.bucket_row(state.slot, state.plen, n_pages)
+            hit = len(pages) * self.kv.page
+            state.prefix_hit_tokens = hit
+            reserve = 1 if pages else 0
+            self._page_need[state.slot] = self._lifetime_pages(req) + reserve
+            self._cow_reserve[state.slot] = reserve
+            self._bind_sampler(state.slot, req.sampling, state.plen)
+            if pages:
+                self.kv.adopt(state.slot, pages)
+            self._alloc(state.slot, state.plen - 1)
+            suffix = req.prompt[hit:]
+            tokens[i, : suffix.size] = suffix
+            plens[i] = suffix.size
+            rows[i] = self.kv.suffix_row(state.slot, len(pages), state.plen, n_pages)
+            pre_rows[i, : len(pages)] = pages
+            pre_lens[i] = hit
+            full_tokens[i, : state.plen] = req.prompt
+            full_plens[i] = state.plen
+            if self._prefix is not None:
+                st = self.stats
+                st["prefix_lookups"] += 1
+                st["prefix_hits"] += bool(pages)
+                st["prefix_prompt_tokens"] += state.plen
+                st["prefix_hit_tokens"] += hit
+                st["prefix_hit_pages"] += len(pages)
             states.append(state)
         t0 = time.perf_counter()
         dev = self.device
-        logits, self.kv.buffers = T.prefill_paged(
+        args = (
             self.cfg,
             self.model,
             torch.from_numpy(tokens).to(dev),
@@ -331,9 +701,29 @@ class Engine:
             self.kv.buffers,
             torch.from_numpy(rows).to(dev),
         )
-        # the one batched fetch of this group's first tokens (argmax ties
-        # go to the lowest id)
-        toks = torch.argmax(logits, dim=-1).cpu().numpy()
+        kw = {}
+        if npre:
+            kw = dict(
+                prefix_rows=torch.from_numpy(pre_rows).to(dev),
+                prefix_lens=torch.from_numpy(pre_lens).to(dev),
+            )
+        # a group of plain requests takes the argmax; one sampled or
+        # penalised request switches the whole group to the sampler (its
+        # plain peers still get the exact argmax through temp = 0 rows)
+        if any(not req.sampling.is_plain for req, _ in plans):
+            toks_dev, self.kv.buffers, self._presence = T.prefill_paged(
+                *args,
+                **kw,
+                full_tokens=torch.from_numpy(full_tokens).to(dev),
+                full_plens=torch.from_numpy(full_plens).to(dev),
+                sampler=self._prefill_sampler(states),
+                sampler_candidates=self.ecfg.sampler_candidates,
+            )
+        else:
+            logits, self.kv.buffers = T.prefill_paged(*args, **kw)
+            toks_dev = torch.argmax(logits, dim=-1)
+        # the one batched fetch of this group's first tokens
+        toks = self._fetch(toks_dev)
         now = time.perf_counter()
         st = self.stats
         st["prefill_calls"] += 1
@@ -344,21 +734,35 @@ class Engine:
             state.pos = state.plen
             state.first_token_s = now
             st["ttft_s"].append(now - state.request.submit_s)
+            if self._prefix is not None:
+                # index the prompt's full pages (hits refresh their LRU
+                # tick; new full pages become matchable now their contents
+                # are written)
+                self._prefix.insert(state.request.prompt, self.kv.page_table[state.slot])
         return states
 
     # ---- stepping ----------------------------------------------------
     def step(self) -> list[FinishedRequest]:
-        """One scheduler iteration: admit (batched) -> decode -> evict."""
+        """One scheduler iteration: admit (batched, possibly after
+        preempting) -> resume swapped sequences -> decode -> evict."""
         finished: list[FinishedRequest] = list(self._rejected)
         self._rejected.clear()
         self._expire_waiting(finished)
+        plan = self._plan_admission()
+        if self._maybe_preempt(plan):
+            # the resources changed: recompute the whole pass so the
+            # blocked high-priority request plans first
+            self._unplan(plan)
+            plan = self._plan_admission()
+        for req, pages in plan.resumes:
+            self._resume(req, pages)
         cap = self.ecfg.max_prefill_batch
-        for s, reqs in self._plan_admission().items():
+        for (s, npre), plans in plan.groups.items():
             i = 0
-            while i < len(reqs):
+            while i < len(plans):
                 # greedy power-of-two chunks: 3 -> 2 + 1
-                n = 1 << (min(len(reqs) - i, cap).bit_length() - 1)
-                for state in self._admit_group(reqs[i : i + n], s):
+                n = 1 << (min(len(plans) - i, cap).bit_length() - 1)
+                for state in self._admit_group(plans[i : i + n], s, npre):
                     if state.done:  # max_new_tokens == 1 or instant EOS
                         finished.append(self._finish(state))
                 i += n
@@ -373,21 +777,39 @@ class Engine:
             tokens = np.zeros((self.ecfg.max_slots,), np.int32)
             positions = np.zeros((self.ecfg.max_slots,), np.int32)
             for st_ in active:
-                self.kv.alloc_upto(st_.slot, st_.pos)
+                self._ensure_writable(st_.slot, st_.pos)
+                self._alloc(st_.slot, st_.pos)
                 tokens[st_.slot] = st_.generated[-1]
                 positions[st_.slot] = st_.pos
             t0 = time.perf_counter()
             dev = self.device
-            logits, self.kv.buffers = T.decode_step_paged(
+            pos_dev = torch.from_numpy(positions).to(dev)
+            args = (
                 self.cfg,
                 self.model,
                 self.kv.buffers,
                 torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(positions).to(dev),
+                pos_dev,
                 self.kv.device_table(),
             )
+            if self._fancy_slots:
+                samp = self._decode_sampler()
+                toks_dev, self.kv.buffers, self._presence = T.decode_step_paged(
+                    *args,
+                    sampler={
+                        **samp,
+                        # the request in each slot has emitted
+                        # pos - plen + 1 tokens (idle slots are ignored)
+                        "idx": pos_dev.long() - samp["plen"] + 1,
+                        "presence": self._presence,
+                    },
+                    sampler_candidates=self.ecfg.sampler_candidates,
+                )
+            else:
+                logits, self.kv.buffers = T.decode_step_paged(*args)
+                toks_dev = torch.argmax(logits, dim=-1)
             # THE one host fetch per decode step: every slot's next token
-            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            nxt = self._fetch(toks_dev)
             st = self.stats
             st["decode_step_s"].append(time.perf_counter() - t0)
             st["decode_steps"] += 1
@@ -399,15 +821,42 @@ class Engine:
                     finished.append(self._finish(st_))
                 elif st_.pos >= self.ecfg.max_len:
                     finished.append(self._finish(st_, reason="capacity"))
+        # the decode step has been overlapping the swap-outs' copies to
+        # host: land them and drop the device staging
+        for record in self._pending_swaps:
+            self.swap.finalize(record)
+        self._pending_swaps.clear()
         self._step_idx += 1
         return finished
 
     def _finish(
         self, state: SequenceState, *, reason: str | None = None
     ) -> FinishedRequest:
-        self._page_need.pop(state.slot, None)
+        # pages the lifetime budget reserved but the sequence never
+        # touched go back to the admission budget with the need entry
+        need = self._page_need.pop(state.slot, 0)
+        self._cow_reserve.pop(state.slot, None)
+        self.stats["pages_reclaimed_early"] += max(
+            0, need - self.kv.pages_owned(state.slot)
+        )
+        if self._prefix is not None:
+            # index the decode-written pages too (full blocks only): the
+            # next turn of a conversation prompts with this history. The
+            # last generated token is never written back.
+            written = np.concatenate(
+                [state.request.prompt, np.asarray(state.generated[:-1], np.int32)]
+            )
+            self.stats["decode_indexed_pages"] += self._prefix.insert(
+                written, self.kv.page_table[state.slot]
+            )
         self.scheduler.evict(state.slot)
-        self.kv.free_slot(state.slot)
+        # indexed pages are parked instead of freed: a future prompt
+        # sharing the prefix maps them back in, eviction reclaims them
+        self.kv.free_slot(
+            state.slot,
+            keep=None if self._prefix is None else self._prefix.page_in_tree,
+        )
+        self._fancy_slots.discard(state.slot)
         if reason is None:
             eos = state.request.eos_id
             reason = (
@@ -416,8 +865,12 @@ class Engine:
                 else "length"
             )
         req = state.request
-        self.stats["finished"] += 1
-        self.stats["generated_tokens"] += len(state.generated)
+        st = self.stats
+        st["finished"] += 1
+        st["generated_tokens"] += len(state.generated)
+        kind = st["by_sampler"].setdefault(req.sampling.kind, {"requests": 0, "tokens": 0})
+        kind["requests"] += 1
+        kind["tokens"] += len(state.generated)
         return FinishedRequest(
             uid=req.uid,
             prompt=req.prompt,
@@ -425,6 +878,8 @@ class Engine:
             finish_reason=reason,
             admit_step=state.admit_step,
             finish_step=self._step_idx,
+            prefix_hit_tokens=state.prefix_hit_tokens,
+            preemptions=state.preemptions,
             ttft_s=(
                 state.first_token_s - req.submit_s
                 if state.first_token_s is not None

@@ -93,13 +93,16 @@ def test_queue_timeout_rejects():
 
 
 def test_unported_options_raise():
+    """Only the observability options are still refused; sampling, the
+    prefix cache and priorities are served (their own tests hold them
+    against the JAX engine)."""
     cfg, eng = _small_engine(max_slots=1, max_len=128)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.submit(np.arange(4), 2, sampling=SamplingParams(temperature=0.7))
-    with pytest.raises(NotImplementedError, match="priorit"):
-        eng.submit(np.arange(4), 2, schedule=ScheduleParams(priority=1))
-    for kw in ({"prefix_cache": True}, {"trace": True}, {"monitor": True}, {"flight_dir": "x"}):
-        with pytest.raises(NotImplementedError):
+    eng.submit(np.arange(4), 2, sampling=SamplingParams(temperature=0.7))
+    eng.submit(np.arange(4), 2, schedule=ScheduleParams(priority=1))
+    assert len(eng.drain(max_steps=30)) == 2
+    Engine(cfg, engine_cfg=EngineConfig(max_slots=1, max_len=128, prefix_cache=True), device="cpu")
+    for kw in ({"trace": True}, {"monitor": True}, {"slo": object()}, {"flight_dir": "x"}):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             Engine(cfg, engine_cfg=EngineConfig(max_slots=1, max_len=128, **kw), device="cpu")
 
 

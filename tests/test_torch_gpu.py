@@ -1,6 +1,10 @@
 """Card-only tests: each CUDA kernel of the port against its plain PyTorch
-version on the same CUDA tensors, and the smoke-width engine's greedy
-streams on the card against the CPU's. bf16 takes the tensor-core paths
+version on the same CUDA tensors, the smoke-width engine's streams on the
+card against the CPU's (greedy, and sampled with the prefix cache and a
+preemption), and the serving pieces that run as plain torch ops on the
+card: the threefry noise and the sampler (equal to the CPU's), the
+copy-on-write page copy and the swap round trip through pinned memory,
+and the partial-prefill attention (1e-5 fp32, 2e-2 bf16). bf16 takes the tensor-core paths
 (and, for bsr at M <= 16, the cluster-reduced decode kernel), float32 the
 SIMT kernels; tolerances: bsr 2e-2 bf16 / 1e-4 fp32, attention 2e-2 /
 2e-4, paged decode 1e-2 / 1e-5.
@@ -25,8 +29,14 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bsr_attention import block_sparse_attention_cuda
 from repro_torch.kernels.bsr_matmul import bsr_matmul_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+from repro_torch.models import layers as L
 from repro_torch.models.layers import linear_spec, paged_dense_schedule, paged_sparse_schedule
+from repro_torch.serving import sampling as S
 from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving.kv_cache import PagedKVCache
+from repro_torch.serving.request import ScheduleParams
+from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.swap import SwapManager
 
 pytestmark = pytest.mark.gpu
 
@@ -321,3 +331,128 @@ def test_engine_streams_equal_cpu(cuda):
         return {uids[f.uid]: f.tokens.tolist() for f in eng.drain(max_steps=200)}
 
     assert serve("cuda") == serve("cpu")
+
+
+def test_engine_sampled_prefix_preemption_streams_equal_cpu(cuda):
+    """Sampled and greedy requests on a shared prefix, prefix cache on,
+    and a priority request that preempts a full pool: the same streams
+    on the card as on the CPU."""
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    page = cfg.attn_block
+    rng = np.random.default_rng(1)
+    sys_prompt = rng.integers(0, cfg.vocab_size, 2 * page).astype(np.int32)
+    work = [np.concatenate([sys_prompt, rng.integers(0, cfg.vocab_size, 3 + 11 * i).astype(np.int32)])
+            for i in range(4)]
+
+    def serve(device):
+        eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=2, max_len=8 * page, prefix_cache=True,
+                                                  preempt_min_steps=2), device=device)
+        uids = {eng.submit(p, 20, sampling=SamplingParams(temperature=0.8, top_k=40, top_p=0.95,
+                                                          repetition_penalty=1.1, seed=i) if i % 2 else None): i
+                for i, p in enumerate(work)}
+        fins = []
+        for _ in range(5):
+            fins += eng.step()
+        uids[eng.submit(work[0][:9], 6, schedule=ScheduleParams(priority=1))] = 9
+        fins += eng.drain(max_steps=300)
+        assert eng.stats["preemptions"] >= 1
+        return {uids[f.uid]: (f.tokens.tolist(), f.prefix_hit_tokens) for f in fins}
+
+    assert serve("cuda") == serve("cpu")
+
+
+SEEDS = [0, 7, 2**32 - 1, 2**32 + 5, 2**63 - 1]
+
+
+def test_threefry_noise_on_card_equals_cpu(cuda):
+    keys = torch.from_numpy(np.stack([S.base_key_data(sd) for sd in SEEDS]).astype(np.int64))
+    idx = torch.tensor([0, 1, 1000, 65535, 2**31 - 1])
+    k_cpu = S.fold_in(keys, idx)
+    k_dev = S.fold_in(keys.to(cuda), idx.to(cuda))
+    assert torch.equal(k_dev.cpu(), k_cpu)
+    assert torch.equal(S.random_bits(k_dev, 4096).cpu(), S.random_bits(k_cpu, 4096))
+    g_cpu, g_dev = S.gumbel(k_cpu, 4096).numpy(), S.gumbel(k_dev, 4096).cpu().numpy()
+    ulp = np.spacing(np.maximum(np.abs(g_cpu), np.float32(1.0)))
+    assert (np.abs(g_dev - g_cpu) <= 2 * ulp).all()
+
+
+@pytest.mark.parametrize("candidates", [64, None])
+def test_sample_logits_on_card_equals_cpu_full_vocab(cuda, candidates):
+    """Eight slots at the full vocabulary (152064 padded, 151936 valid),
+    with the engine's knob mix, ties planted at the 64th candidate."""
+    v, valid, n = 152064, 151936, 8
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn((n, v), generator=gen) * 3
+    logits[:, 100:200] = logits[:, :100].amax() - 1.0  # a band of ties
+    seen = torch.rand((n, v), generator=gen) < 0.01
+    temp = torch.tensor([0.8, 0.8, 0.0, 1.3, 0.8, 0.0, 0.5, 2.0])
+    top_k = torch.tensor([40, 0, 0, 7, 40, 5, 64, 0])
+    top_p = torch.tensor([0.95, 1.0, 1.0, 0.9, 0.95, 0.5, 1.0, 0.8])
+    rep = torch.tensor([1.1, 1.0, 1.0, 1.0, 1.1, 1.3, 1.4, 1.0])
+    keys = torch.from_numpy(np.stack([S.base_key_data(100 + i) for i in range(n)]).astype(np.int64))
+    idx = torch.arange(n) * 17
+    for step in range(3):
+        args = (logits, temp, top_k, top_p, rep, keys, idx + step, seen)
+        want = S.sample_logits(*args, valid, candidates)
+        got = S.sample_logits(*(a.to(cuda) for a in args), valid, candidates)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_cow_and_swap_round_trip_through_pinned_memory(cuda):
+    """cow_page copies a page in every layer's pools in place; swap-out
+    stages the victim's pages, copies them to pinned host memory behind a
+    CUDA event, and frees them; a prefill that reuses the freed pages at
+    once (before finalize) must not reach the host copy; swap-in restores
+    the bytes exactly."""
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    page = cfg.attn_block
+    kv = PagedKVCache(cfg, max_slots=2, max_len=4 * page, device=cuda)
+    sm = SwapManager(kv)
+    kv.alloc_upto(0, 3 * page - 1)
+    pages = kv.owned_pages(0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for pool in kv.buffers:
+        for buf in pool.values():
+            buf[:, pages] = torch.randn(buf[:, pages].shape, generator=gen, device=cuda).to(buf.dtype)
+    snap = [{n: b[:, pages].clone() for n, b in pool.items()} for pool in kv.buffers]
+    kv.incref(pages[1])
+    dst = kv.cow_page(0, 1)
+    for pool, old in zip(kv.buffers, snap):
+        for n, buf in pool.items():
+            assert torch.equal(buf[:, dst], old[n][:, 1])
+    kv.unpin(pages[1])  # the outside pin goes: the page is parked
+    pages = kv.owned_pages(0)
+    rec = sm.swap_out(0)
+    assert rec.pending and all(t.is_pinned() for pool in rec.host for t in pool.values())
+    # a prefill takes the freed pages and overwrites them before finalize
+    kv.alloc_upto(1, 4 * page - 1)
+    for pool in kv.buffers:
+        for buf in pool.values():
+            buf[:, kv.owned_pages(1)] = 7.0
+    sm.finalize(rec)
+    kv.free_slot(1)
+    kv.alloc_upto(1, 3 * page - 1)
+    sm.swap_in(rec, 1, n_resident=0)
+    for pool, old in zip(kv.buffers, snap):
+        for n, buf in pool.items():
+            assert torch.equal(buf[:, kv.owned_pages(1)], old[n])
+    assert sm.stats.in_pages == sm.stats.out_pages == 3
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_prefix_flash_attention_on_card_equals_cpu(cuda, dtype, tol, sparse):
+    """The partial-prefill attention at the full model's head shape (Hk 8,
+    G 2, D 128, block 128): 8 requests, a 1024-token prefix buffer with
+    ragged valid lengths and a 256-token suffix."""
+    gen = torch.Generator().manual_seed(1)
+    b, sq, hk, g, d, block = 8, 256, 8, 2, 128, 128
+    lp = 8 * block
+    q = torch.randn((b, sq, hk, g, d), generator=gen).to(dtype)
+    ks, vs = (torch.randn((b, sq, hk, d), generator=gen).to(dtype) for _ in range(2))
+    kp, vp = (torch.randn((b, lp, hk, d), generator=gen).to(dtype) for _ in range(2))
+    plen = torch.tensor([0, 1, 2, 3, 5, 8, 8, 4]) * block
+    kw = dict(sm_scale=d ** -0.5, chunk=1024, block_cfg=(block, 2, 1, 0) if sparse else None)
+    want = L.prefix_flash_attention(q, ks, vs, kp, vp, plen, **kw)
+    got = L.prefix_flash_attention(*(t.to(cuda) for t in (q, ks, vs, kp, vp, plen)), **kw)
+    assert _err(got.cpu(), want) <= tol
