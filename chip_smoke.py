@@ -48,7 +48,23 @@ Phases; any failure raises and the script exits non-zero:
    traffic, and the device time of the sampler (4 sampled decode steps)
    and of the partial-prefill attention (one partial prefill call) from
    profiled windows and from CUDA events.
-7. The kernels line, then the last line
+7. Training. (a) ``BsrMatmul`` (the kernel forward, the kernel dX on the
+   transposed pattern, the batched dBlocks) against autograd of
+   ``ref.bsr_matmul_gather`` at M = 8192 for q, gate and down, fp32 and
+   bf16, and ``BlockSparseAttention`` (kernel forward, the JAX package's
+   gradient backward) against autograd of ``ref.sparse_attention`` at
+   B = 1, S = 2048, H = 16, Hk = 8, D = 128; phase 3's tolerances, the
+   gradients relative to their largest entry; then the bf16 times of dX
+   beside its bound, its plain version and ``dy @ W_dense^T``, of the
+   dBlocks contraction, and of attention forward and backward at B = 4.
+   (b) One fp32 smoke-width train step, seed 0, on the CPU and the card:
+   loss, grad_norm and parameters agree. (c) Full-width sparse qwen3-1.7b
+   through ``Trainer`` at B = 4, S = 2048: a warm-up step and 3 timed
+   steps (step ms, train tokens/s, peak memory, launch counts; finite loss
+   and grad norm; both training kernels launched), then one profiled step
+   (top kernels, the step's ranges, launches in forward vs backward) and
+   one step traced on the device only (its busy share). (d) A smoke-width checkpoint round trip on the card.
+8. The kernels line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -70,8 +86,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
-# record_function ranges of the port's plain-torch serving pieces
-RANGES = ("sampler", "prefix_flash_attention")
+# record_function ranges of the port's plain-torch pieces: serving, and
+# the training step's parts and backward pieces
+RANGES = ("sampler", "prefix_flash_attention", "train_forward", "train_backward", "optimizer",
+          "bsr_matmul_dx", "bsr_matmul_dblocks", "sparse_attention_vjp")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
@@ -126,6 +144,14 @@ def host_us(fn, n=200) -> float:
     return t / n * 1e6
 
 
+def function_host_us(fn) -> float:
+    """``host_us`` of fn under ``torch.no_grad()``, after one call that
+    fills fn's caches."""
+    with torch.no_grad():
+        fn()
+        return host_us(fn)
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -150,6 +176,8 @@ def check_close(name, got, want, tol) -> float:
 
 
 def bsr_case(timer, lin_spec, m, dtype, seed, tol):
+    from repro_torch.core.pixelfly import linear_tables
+    from repro_torch.kernels import autograd as AG
     from repro_torch.kernels import ref
     from repro_torch.kernels.bsr_matmul import bsr_matmul_cuda
 
@@ -177,6 +205,10 @@ def bsr_case(timer, lin_spec, m, dtype, seed, tol):
         "tol": tol,
         "ms": timer.ms(lambda: bsr_matmul_cuda(x, blocks, cols)),
         "host_us": host_us(lambda: bsr_matmul_cuda(x, blocks, cols)),
+        # what a linear of the serving path pays on the host for the same
+        # launch: the tables' lookup and BsrMatmul.apply under no_grad
+        "function_host_us": function_host_us(
+            lambda: AG.bsr_matmul(x, blocks, linear_tables(lin_spec, x.device))),
         "plain_ms": timer.ms(lambda: ref.bsr_matmul_gather(x, blocks, cols)),
         "library_ms": timer.ms(lambda: x @ dense),
         "bound_ms": b_ms,
@@ -602,6 +634,315 @@ def full_width_features(full, state_dict, kernels, rng, seed, smi, profiled, tim
 
 
 # ----------------------------------------------------------------------
+# phase 7: training
+# ----------------------------------------------------------------------
+
+
+def grad_cases(timer, full, seed):
+    """(a) The two training kernels under autograd on the card, against
+    torch autograd of their plain versions on the same CUDA tensors.
+    BsrMatmul at M = 8192 (B = 4 x S = 2048) for q, gate and down (down's
+    transposed pattern is ragged), fp32 and bf16: y and dX within the
+    phase-3 tolerance, dBlocks within it relative to its largest entry.
+    BlockSparseAttention at B = 1, S = 2048, H = 16, Hk = 8, D = 128:
+    the forward within the phase-3 tolerance, dq, dk, dv within it
+    relative to their largest entry. Then, in bf16 at the training shapes,
+    the time of each dX call (the kernel on the transposed pattern)
+    beside its bound, the plain version and ``dy @ W_dense^T``, of the
+    dBlocks contraction, and of the attention forward at B = 4 and its
+    backward."""
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+
+    m = 4 * 2048
+    shapes = {"q": (full.d_model, full.q_dim), "gate": (full.d_model, full.d_ff),
+              "down": (full.d_ff, full.d_model)}
+    rows, dx_rows = [], []
+    for label, (n_in, n_out) in shapes.items():
+        pat = L.linear_spec(full, n_in, n_out, False).pattern()
+        tables = AG.bsr_tables(pat.cols, pat.nb_in, "cuda")
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            g = torch.Generator(device="cuda").manual_seed(seed + n_out)
+            x = torch.randn((m, n_in), generator=g, device="cuda").to(dtype).requires_grad_()
+            blocks = (torch.randn((pat.nb_out, pat.r, pat.block, pat.block), generator=g, device="cuda")
+                      / math.sqrt(pat.r * pat.block)).to(dtype).requires_grad_()
+            dy = torch.randn((m, n_out), generator=g, device="cuda").to(dtype)
+            y = AG.bsr_matmul(x, blocks, tables)
+            dx, db = torch.autograd.grad(y, (x, blocks), dy)
+            y_ref = ref.bsr_matmul_gather(x, blocks, tables.cols)
+            dx_ref, db_ref = torch.autograd.grad(y_ref, (x, blocks), dy)
+            torch.cuda.synchronize()
+            name = f"BsrMatmul {label} M={m} {str(dtype).split('.')[1]}"
+            errs = {"y": check_close(name + " y", y, y_ref, tol),
+                    "dx": check_close(name + " dX", dx, dx_ref, tol)}
+            scale = max(1.0, db_ref.float().abs().max().item())
+            errs["dblocks"] = check_close(name + " dBlocks", db / scale, db_ref / scale, tol)
+            rows.append({"case": name, "tol": tol, "max_abs_err": errs})
+            if dtype != torch.bfloat16:
+                continue
+            # dX on the card: the kernel on the transposed pattern
+            with torch.no_grad():
+                x0, b0 = x.detach(), blocks.detach()
+                bt = AG.transposed_blocks(b0, tables)
+                dense_t = ref.bsr_to_dense(b0, tables.cols, n_in).t().contiguous()
+                nb_in, w = tables.cols_t.shape
+                es = 2
+                nbytes = (m * n_out + b0.numel() + m * n_in) * es
+                flops = 2.0 * m * pat.nb_out * pat.r * pat.block ** 2  # the slots the pattern has
+                b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+                dx_rows.append({
+                    "linear": label,
+                    "shape": f"dX: M={m} n_out={n_out} -> n_in={n_in}, transposed (nb_in, w)=({nb_in}, {w}), "
+                             f"valid share {tables.valid.float().mean().item():.3f}",
+                    "ms": timer.ms(lambda: ops.bsr_matmul(dy, bt, tables.cols_t)),
+                    "transpose_blocks_ms": timer.ms(lambda: AG.transposed_blocks(b0, tables)),
+                    "plain_ms": timer.ms(lambda: ref.bsr_matmul_gather(dy, bt, tables.cols_t)),
+                    "library_ms": timer.ms(lambda: dy @ dense_t),
+                    "bound_ms": b_ms,
+                    "bound_by": b_by,
+                    "dblocks_ms": timer.ms(lambda: AG.bsr_dblocks(x0, dy, tables, pat.block)),
+                    "forward": bsr_case(timer, L.linear_spec(full, n_in, n_out, False), m,
+                                        torch.bfloat16, seed=seed + m, tol=tol),
+                })
+    for r in rows:
+        log(f"[7a] {r['case']}: max abs err y {r['max_abs_err']['y']:.2e}, dX {r['max_abs_err']['dx']:.2e}, "
+            f"dBlocks {r['max_abs_err']['dblocks']:.2e} (relative to its largest entry) (tol {r['tol']:g})")
+    for r in dx_rows:
+        log(f"[7a] bsr_matmul {r['linear']:4s} {r['shape']}: kernel {r['ms']:.4f} ms (+ transposed blocks "
+            f"{r['transpose_blocks_ms']:.4f} ms) plain {r['plain_ms']:.4f} ms dy@W_dense^T {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); dBlocks (batched matmul) {r['dblocks_ms']:.4f} ms")
+        f = r["forward"]
+        log(f"[7a] bsr_matmul {r['linear']:4s} forward {f['shape']}: err {f['max_abs_err']:.2e} kernel {f['ms']:.4f} ms "
+            f"plain {f['plain_ms']:.4f} ms x@dense {f['library_ms']:.4f} ms bound {f['bound_ms']:.4f} ms ({f['bound_by']})")
+
+    attn = []
+    hk, g_, d, block = full.num_kv_heads, full.num_heads // full.num_kv_heads, full.head_dim, full.attn_block
+    for b, s in ((1, 2048), (4, 2048)):
+        kv_index, valid = L._schedule_tensors(s, block, full.attn_local_blocks, full.attn_max_stride,
+                                              full.attn_global_blocks, "cuda")
+        kw = dict(block=block, causal=True, sm_scale=d ** -0.5)
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+            if b == 4 and dtype == torch.float32:
+                continue  # the training shape is timed in bf16 only
+            gen = torch.Generator(device="cuda").manual_seed(seed + b)
+            q = torch.randn((b, s, hk, g_, d), generator=gen, device="cuda").to(dtype).requires_grad_()
+            k, v = (torch.randn((b, s, hk, d), generator=gen, device="cuda").to(dtype).requires_grad_()
+                    for _ in range(2))
+            do = torch.randn((b, s, hk, g_, d), generator=gen, device="cuda").to(dtype)
+            o = AG.block_sparse_attention(q, k, v, kv_index, valid, **kw)
+            got = torch.autograd.grad(o, (q, k, v), do)
+            o_ref = ref.sparse_attention(q, k, v, kv_index, valid, **kw)
+            want = torch.autograd.grad(o_ref, (q, k, v), do)
+            torch.cuda.synchronize()
+            name = f"BlockSparseAttention B={b} S={s} {str(dtype).split('.')[1]}"
+            errs = {"o": check_close(name + " o", o, o_ref, tol)}
+            for key, a, w in zip(("dq", "dk", "dv"), got, want):
+                sc = max(1.0, w.float().abs().max().item())
+                errs[key] = check_close(f"{name} {key}", a / sc, w / sc, tol)
+            row = {"case": name, "tol": tol, "max_abs_err": errs}
+            if dtype == torch.bfloat16:
+                qd, kd, vd = (t.detach() for t in (q, k, v))
+                row["forward_ms"] = timer.ms(lambda: ops.block_sparse_attention(qd, kd, vd, kv_index, valid, **kw))
+                row["backward_ms"] = timer.ms(lambda: AG.sparse_attention_vjp(qd, kd, vd, kv_index, valid, do, **kw))
+            attn.append(row)
+            log(f"[7a] {name}: max abs err o {errs['o']:.2e}, dq {errs['dq']:.2e}, dk {errs['dk']:.2e}, "
+                f"dv {errs['dv']:.2e} (gradients relative to their largest entry) (tol {tol:g})"
+                + (f"; kernel forward {row['forward_ms']:.4f} ms, backward (plain, recomputed) "
+                   f"{row['backward_ms']:.4f} ms" if "forward_ms" in row else ""))
+            del q, k, v, o, got, o_ref, want
+    # the forward kernel at the training shape, as phase 3 times it
+    attn_train = attention_case(timer, b=4, s=2048, h=full.num_heads, hk=hk, d=d, block=block,
+                                dtype=torch.bfloat16, seed=seed + 4, tol=2e-2)
+    log(f"[7a] block_sparse_attention bfloat16 {attn_train['shape']}: err {attn_train['max_abs_err']:.2e} "
+        f"kernel {attn_train['ms']:.4f} ms plain {attn_train['plain_ms']:.4f} ms sdpa {attn_train['library_ms']:.4f} ms "
+        f"bound {attn_train['bound_ms']:.4f} ms ({attn_train['bound_by']})")
+    return {"bsr_grads": rows, "dx": dx_rows, "attention": attn, "attention_forward_train_shape": attn_train}
+
+
+def smoke_step_cpu_vs_card(smoke):
+    """(b) One fp32 ``make_train_step`` step of the smoke model, seed 0, on
+    the CPU (plain versions) and on the card (kernels): loss and grad_norm
+    within 1e-4 relative; every parameter within 1e-6 where the CPU
+    gradient exceeds 1e-5 in magnitude and within 2 * lr elsewhere (a
+    gradient near 0 takes a sign-like first Adam step on either side)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import make_train_step
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = SyntheticLM(smoke.vocab_size, 128, 4, seed=0).batch(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = T.init_model(smoke, seed=0, device=dev)
+        params = dict(model.named_parameters())
+        if dev == "cpu":
+            loss, _ = T.forward_train(smoke, model, batch)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        m = make_train_step(smoke, opt)(model, init_opt_state(opt, params), batch)
+        out[dev] = ({k: float(v) for k, v in m.items()}, {n: p.detach().cpu() for n, p in params.items()})
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    for key in ("loss", "grad_norm"):
+        if not abs(mg[key] - mc[key]) <= 1e-4 * abs(mc[key]):
+            raise AssertionError(f"smoke train step {key}: card {mg[key]} cpu {mc[key]}")
+    worst_big = worst = 0.0
+    for n, p in pc.items():
+        err = (pg[n].float() - p.float()).abs()
+        big = grads[n].abs() > 1e-5
+        if big.any():
+            worst_big = max(worst_big, err[big].max().item())
+        worst = max(worst, err.max().item())
+    if worst_big > 1e-6 or worst > 2 * opt.lr:
+        raise AssertionError(f"smoke train step parameters: max err {worst_big:.2e} where |g| > 1e-5 "
+                             f"(tol 1e-6), {worst:.2e} elsewhere (tol {2 * opt.lr:g})")
+    log(f"[7b] smoke fp32 train step, CPU vs card: loss {mc['loss']:.6f} / {mg['loss']:.6f}, grad_norm "
+        f"{mc['grad_norm']:.6f} / {mg['grad_norm']:.6f}; parameters max err {worst_big:.2e} where |g| > 1e-5, "
+        f"{worst:.2e} anywhere")
+    return {"cpu": mc, "card": mg, "param_err_big_grad": worst_big, "param_err_max": worst}
+
+
+def full_width_training(full, seed, smi, kernels, profiled):
+    """(c) Full-width sparse qwen3-1.7b through ``Trainer`` at B = 4,
+    S = 2048 (SyntheticLM over the full vocab): 1 warm-up step and 3 timed
+    steps with every kernel's count reset before them, then one profiled
+    step whose forward is marked, to split the launches between forward
+    and backward, and one step traced on the device only for the busy
+    share."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import TrainConfig, Trainer
+    from repro_torch.training.optimizer import OptConfig
+
+    import shutil
+
+    b, s = 4, 2048
+    ckpt = ROOT / "build" / "chip_smoke_full_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)  # nothing to restore: start from the seed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(
+        full, OptConfig(lr=3e-4, warmup_steps=2, total_steps=100),
+        SyntheticLM(full.vocab_size, s, b, seed=seed),
+        TrainConfig(steps=4, ckpt_dir=str(ckpt), ckpt_every=10 ** 9,
+                    log_every=1, seed=seed),
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainer.params.values())
+    log(f"[7c] full-width trainer: {n_params / 1e6:.1f} M parameters, weights and AdamW state in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    warm = trainer.run(1)
+    for k in kernels.values():
+        k.launches = 0
+    hist = trainer.run(3)
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for h in warm + hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"full-width training step {h['step']}: loss {h['loss']}, grad_norm {h['grad_norm']}")
+    for name in ("bsr_matmul", "block_sparse_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched in the training steps")
+    if launches["paged_decode_attention"]:
+        raise AssertionError("paged_decode_attention launched in training")
+    step_ms = [1e3 * h["step_time_s"] for h in hist]
+    med = sorted(step_ms)[1]
+    # one profiled step, with the end of its forward marked
+    marks = []
+    forward_train = T.forward_train
+
+    def marked_forward(*a, **kw):
+        out = forward_train(*a, **kw)
+        marks.append({n: k.launches for n, k in kernels.items()})
+        return out
+
+    for k in kernels.values():
+        k.launches = 0
+    T.forward_train = marked_forward
+    try:
+        prof = profiled("one full-width training step (B=4, S=2048)", lambda: trainer.run(1))
+    finally:
+        T.forward_train = forward_train
+    total = {n: k.launches for n, k in kernels.items()}
+    split = {n: {"forward": marks[0][n], "backward": total[n] - marks[0][n]} for n in total}
+    dx = prof["ranges"].get("bsr_matmul_dx", {}).get("calls")
+    # the busy share of a step from a trace of that step alone: the device
+    # only, so the host pays less for the tracing than in the step above
+    busy = profiled("one full-width training step, device only", lambda: trainer.run(1), cpu=False)
+    out = {
+        "shape": f"B={b} S={s} tokens={b * s}",
+        "parameters": n_params,
+        "loss": [h["loss"] for h in warm + hist],
+        "grad_norm": [h["grad_norm"] for h in warm + hist],
+        "warmup_step_ms": 1e3 * warm[0]["step_time_s"],
+        "step_ms": step_ms,
+        "step_ms_median": med,
+        "train_tok_s": b * s / (med / 1e3),
+        "max_memory_allocated_gb": peak,
+        "launches": launches,
+        "profiled_step": {**prof, "launch_split": split, "bsr_matmul_dx_calls": dx},
+        "device_only_trace": {k: busy[k] for k in ("window_ms", "device_busy_ms", "device_idle_share")},
+        "card": smi,
+    }
+    log(f"[7c] full width, B={b} S={s}, on {smi}: losses {', '.join(f'{x:.4f}' for x in out['loss'])}; "
+        f"grad norms {', '.join(f'{x:.3f}' for x in out['grad_norm'])}")
+    log(f"[7c] warm-up step {out['warmup_step_ms']:.0f} ms; timed steps {', '.join(f'{x:.1f}' for x in step_ms)} ms "
+        f"(median {med:.1f} ms, {out['train_tok_s']:.0f} train tokens/s); peak memory {peak:.2f} GB")
+    log(f"[7c] launches over the 3 timed steps: {launches}")
+    if busy["device_idle_share"] is not None:
+        log(f"[7c] device-only trace of one step: {busy['window_ms']:.1f} ms wall, device busy "
+            f"{busy['device_busy_ms']:.1f} ms, idle share {busy['device_idle_share']:.2f}")
+    log(f"[7c] profiled step, launches in forward / backward (the backward recomputes each layer's "
+        f"forward): bsr_matmul {split['bsr_matmul']['forward']} / {split['bsr_matmul']['backward']} (dX "
+        f"{dx} of them), block_sparse_attention {split['block_sparse_attention']['forward']} / "
+        f"{split['block_sparse_attention']['backward']}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def smoke_checkpoint_round_trip(smoke):
+    """(d) A smoke-width Trainer on the card: 2 steps, a checkpoint, 1 more
+    step; a new Trainer restores step 2 with every parameter and moment
+    equal bit for bit, and its next step's loss equals the first one's."""
+    import shutil
+
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import TrainConfig, Trainer
+    from repro_torch.training.optimizer import OptConfig
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def trainer():
+        return Trainer(smoke, OptConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+                       SyntheticLM(smoke.vocab_size, 128, 4, seed=0),
+                       TrainConfig(ckpt_dir=str(ckpt), ckpt_every=1000, log_every=1000), device="cuda")
+
+    a = trainer()
+    a.run(2)
+    a.checkpoint()
+    snap = {n: p.detach().clone() for n, p in a.params.items()}
+    moments = {key: {n: t.clone() for n, t in a.opt[key].items()} for key in ("mu", "nu")}
+    loss3 = a.run(1)[0]["loss"]
+    b = trainer()
+    if (b.step, b.opt["step"]) != (2, 2):
+        raise AssertionError(f"restored step {b.step}, optimizer step {b.opt['step']}, expected 2")
+    for n, p in b.params.items():
+        if not (torch.equal(p, snap[n]) and all(torch.equal(b.opt[k][n], moments[k][n]) for k in moments)):
+            raise AssertionError(f"checkpoint round trip on the card changed {n}")
+    loss3_b = b.run(1)[0]["loss"]
+    if loss3_b != loss3:
+        raise AssertionError(f"step 3 after restore: loss {loss3_b} != {loss3}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[7d] smoke checkpoint round trip on the card: step 2 restored bit for bit "
+        f"({len(snap)} parameters and their moments), step 3 loss {loss3:.6f} on both")
+    return {"loss3": loss3}
+
+
+# ----------------------------------------------------------------------
 # main
 # ----------------------------------------------------------------------
 
@@ -677,7 +1018,8 @@ def main(argv=None) -> int:
             row["linear"] = label
             bsr_rows.append(row)
             log(f"[3] bsr_matmul {label:7s} {row['shape']}: err {row['max_abs_err']:.2e} (tol {row['tol']:g}) "
-                f"kernel {row['ms']:.4f} ms (host {row['host_us']:.1f} us) plain {row['plain_ms']:.4f} ms "
+                f"kernel {row['ms']:.4f} ms (host {row['host_us']:.1f} us, through BsrMatmul "
+                f"{row['function_host_us']:.1f} us) plain {row['plain_ms']:.4f} ms "
                 f"x@dense {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     smoke = registry.get_smoke("qwen3-1.7b", sparse=True)
     small_bsr = bsr_case(timer, L.linear_spec(smoke, 512, 256, False),
@@ -813,10 +1155,13 @@ def main(argv=None) -> int:
     def dev_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
-    def profiled(label, fn):
+    def profiled(label, fn, cpu=True):
         """Wall time, device busy share and the top device kernels of one
-        window around fn (which ends in a synchronise)."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window around fn (which ends in a synchronise). With cpu=False only
+        the device is traced (no host ops or ranges), which costs the host
+        less."""
+        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+        with profile(activities=activities) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
@@ -915,7 +1260,15 @@ def main(argv=None) -> int:
     )
     del eng
 
-    # ---- 7. report -------------------------------------------------
+    # ---- 7. training ------------------------------------------------
+    report["training"] = {
+        "grads": grad_cases(timer, full, args.seed),
+        "smoke_step": smoke_step_cpu_vs_card(smoke),
+        "full_width": full_width_training(full, args.seed, smi, kernels, profiled),
+        "checkpoint": smoke_checkpoint_round_trip(smoke),
+    }
+
+    # ---- 8. report -------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -963,8 +1316,9 @@ def main(argv=None) -> int:
             "library_ms": attn_main["library_ms"],
         },
     ]}
-    for k in line["kernels"]:  # the launches of phase 6's path, counted apart
+    for k in line["kernels"]:  # the launches of phases 6 and 7, counted apart
         k["launches_phase6"] = report["features"]["launches"][k["name"]]
+        k["launches_training"] = report["training"]["full_width"]["launches"][k["name"]]
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

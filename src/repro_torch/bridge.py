@@ -1,4 +1,5 @@
-"""Weight bridge: a JAX params tree (numpy leaves) -> the port's state dict.
+"""Weight bridge: a JAX params tree (numpy leaves) -> the port's state dict,
+and a JAX optimizer state -> the port's optimizer state.
 
 The tree is what the JAX package's ``transformer.init_model`` returns after
 ``jax.tree.map(np.asarray, ...)``. Leaves stacked over a layer group keep
@@ -17,7 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import resolve_device
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax"]
 
 
 def _leaves(tree, path: tuple[str, ...] = ()) -> Iterator[tuple[tuple[str, ...], np.ndarray]]:
@@ -62,4 +63,18 @@ def params_from_jax(
                 out[f"layers.{first + i}.{rest}"] = _tensor(leaf[i], dev)
         else:
             out[".".join(path)] = _tensor(leaf, dev)
+    return out
+
+
+def opt_state_from_jax(
+    opt_tree: dict, cfg: ModelConfig, device: str | torch.device | None = None
+) -> dict:
+    """The JAX package's ``init_opt_state``/``apply_updates`` state (numpy
+    leaves) as the port's optimizer state: ``step`` as an int, and ``mu``,
+    ``nu`` (and ``ef`` with compressed gradients) as fp32 dicts keyed by
+    the port's parameter names, through ``params_from_jax``'s mapping."""
+    out = {"step": int(np.asarray(opt_tree["step"]))}
+    for key in ("mu", "nu", "ef"):
+        if key in opt_tree:
+            out[key] = params_from_jax(opt_tree[key], cfg, device)
     return out

@@ -28,6 +28,7 @@ __all__ = [
     "flat_butterfly_strides",
     "flat_butterfly_cols",
     "max_stride_for_density",
+    "transpose_tables",
     "FlatButterflyPattern",
     "make_pattern",
 ]
@@ -82,6 +83,34 @@ def max_stride_for_density(n_in: int, b: int, density: float) -> int:
     slots = max(1, int(density * n_in / b))
     k = 1 << min(slots - 1, log2_int(g))
     return max(1, k)
+
+
+def transpose_tables(
+    cols: np.ndarray, nb_in: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Static transposed-pattern tables for the BSR backward pass.
+
+    For each *input* block j, the list of (out-block i, slot t) pairs with
+    ``cols[i, t] == j``, padded to the max fan-in. Returns
+    (src_i, src_t, valid), each (nb_in, w). The transposed flat butterfly
+    is itself a flat butterfly (XOR is an involution), so w == r for square
+    patterns; rectangular stretches give ragged fan-in, hence the padding.
+    """
+    nb_out, r = cols.shape
+    lists: list[list[tuple[int, int]]] = [[] for _ in range(nb_in)]
+    for i in range(nb_out):
+        for t in range(r):
+            lists[int(cols[i, t])].append((i, t))
+    w = max(1, max(len(l) for l in lists))
+    src_i = np.zeros((nb_in, w), np.int32)
+    src_t = np.zeros((nb_in, w), np.int32)
+    valid = np.zeros((nb_in, w), np.float32)
+    for j, l in enumerate(lists):
+        for u, (i, t) in enumerate(l):
+            src_i[j, u] = i
+            src_t[j, u] = t
+            valid[j, u] = 1.0
+    return src_i, src_t, valid
 
 
 @dataclasses.dataclass(frozen=True)

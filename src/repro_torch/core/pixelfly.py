@@ -5,12 +5,15 @@ module holding its parameters under the JAX package's names and layouts:
 dense ``w`` is (in, out); sparse ``blocks`` (nb_out, r, b, b), ``U``
 (in, rank), ``V`` (out, rank) and a float32 scalar ``gamma``. ``B`` is a
 flat block butterfly in BSR layout (``repro_torch.core.butterfly``) whose
-product runs through ``kernels.ops.bsr_matmul``.
+product runs through ``kernels.autograd.BsrMatmul`` (the forward and the
+``dX`` of the backward are ``kernels.ops.bsr_matmul``). Every parameter
+is trainable; serving runs under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -18,9 +21,11 @@ from torch import nn
 
 from repro_torch.core import budget as budget_lib
 from repro_torch.core import butterfly
-from repro_torch.kernels import ops
+from repro_torch.kernels import autograd
 
-__all__ = ["LinearSpec", "init_linear", "apply_linear", "param_count", "Linear"]
+__all__ = [
+    "LinearSpec", "init_linear", "apply_linear", "linear_tables", "param_count", "Linear",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,26 +149,29 @@ def apply_linear(
     spec: LinearSpec,
     params: dict[str, torch.Tensor],
     x: torch.Tensor,
-    *,
-    cols: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """y = x @ W (+ bias), with the JAX package's rounding points: the BSR
     term comes back in x's dtype, ``x @ U`` and ``@ Vᵀ`` run in the model
-    dtype, and ``γ·ys + (1−γ)·yl`` is combined in fp32 and cast back.
-    ``cols`` is the pattern's int32 table on x's device (derived from the
-    spec when not given)."""
+    dtype, and ``γ·ys + (1−γ)·yl`` is combined in fp32 and cast back. The
+    BSR term is ``autograd.BsrMatmul``; γ, U, V and the bias get their
+    gradients from autograd, on the pattern's tables on x's device."""
     if not spec.sparse:
         y = torch.matmul(x, params["w"])
     else:
-        if cols is None:
-            cols = torch.as_tensor(spec.pattern().cols, device=x.device)
         g = params["gamma"].float()
-        ys = ops.bsr_matmul(x, params["blocks"], cols)
+        ys = autograd.bsr_matmul(x, params["blocks"], linear_tables(spec, x.device))
         yl = torch.matmul(torch.matmul(x, params["U"]), params["V"].t())
         y = (g * ys.float() + (1.0 - g) * yl.float()).to(x.dtype)
     if spec.use_bias:
         y = y + params["b"].to(y.dtype)
     return y
+
+
+@functools.lru_cache(maxsize=512)
+def linear_tables(spec: LinearSpec, device: torch.device) -> autograd.BsrTables:
+    """The BSR tables (forward and transposed) of a sparse spec's pattern
+    on ``device``, built once per spec and device."""
+    return autograd.bsr_tables(spec.pattern().cols, spec.in_features // spec.block, device)
 
 
 def param_count(spec: LinearSpec) -> int:
@@ -176,7 +184,9 @@ def param_count(spec: LinearSpec) -> int:
 
 
 class Linear(nn.Module):
-    """One dense or pixelfly linear; parameters named as in the JAX tree."""
+    """One dense or pixelfly linear; parameters named as in the JAX tree.
+    A sparse pattern's BSR tables are looked up on the input's device at
+    each call (cached per spec and device; not in the state dict)."""
 
     def __init__(
         self, spec: LinearSpec, *, gen: torch.Generator, device: torch.device
@@ -184,13 +194,7 @@ class Linear(nn.Module):
         super().__init__()
         self.spec = spec
         for name, t in init_linear(spec, gen).items():
-            self.register_parameter(
-                name, nn.Parameter(t.to(device), requires_grad=False)
-            )
-        cols = torch.as_tensor(spec.pattern().cols) if spec.sparse else None
-        self.register_buffer(
-            "cols", None if cols is None else cols.to(device), persistent=False
-        )
+            self.register_parameter(name, nn.Parameter(t.to(device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_linear(self.spec, self._parameters, x, cols=self.cols)
+        return apply_linear(self.spec, self._parameters, x)

@@ -6,7 +6,9 @@ Every GEMM of a block goes through ``core.pixelfly.Linear``, so the dense
 and the pixelfly-sparse model share this code. Attention math is plain
 functions on tensors; the three kernels are reached through
 ``kernels.ops`` (prefill block-sparse attention, the BSR matmul inside the
-linears, and the paged decode read).
+linears, and the paged decode read). Every parameter is trainable:
+``apply_attention(mode="train")`` is the training step's attention, and
+the two training kernels run through ``kernels.autograd``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attn_pattern as ap
 from repro_torch.core.butterfly import next_pow2
 from repro_torch.core.pixelfly import Linear, LinearSpec
-from repro_torch.kernels import ops
+from repro_torch.kernels import autograd, ops
 
 __all__ = [
     "rmsnorm",
@@ -142,7 +144,9 @@ def sparse_prefill_attention(
 ) -> torch.Tensor:
     """Causal pixelfly attention of a prefill: q (B,S,Hk,G,D), k, v
     (B,S,Hk,D), S a multiple of ``cfg.attn_block``. The card runs the
-    block-sparse attention kernel, the CPU its plain version."""
+    block-sparse attention kernel, the CPU its plain version, both through
+    ``autograd.BlockSparseAttention`` (whose backward is the JAX package's
+    gradient of the gathered sparse attention)."""
     kv_index, valid = _schedule_tensors(
         q.shape[1],
         cfg.attn_block,
@@ -151,7 +155,7 @@ def sparse_prefill_attention(
         cfg.attn_global_blocks,
         str(q.device),
     )
-    return ops.block_sparse_attention(
+    return autograd.block_sparse_attention(
         q, k, v, kv_index, valid,
         block=cfg.attn_block, causal=True, sm_scale=sm_scale,
     )
@@ -428,7 +432,7 @@ def linear_spec(cfg: ModelConfig, din: int, dout: int, bias: bool) -> LinearSpec
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class RMSNorm(nn.Module):
@@ -499,6 +503,8 @@ def apply_attention(
     of the attention block, else dense); the fresh (k, v), each
     (B, S, Hk, D), are returned for the caller's page scatter.
 
+    ``mode="train"``: the same attention, and no K/V returned.
+
     ``mode="prefill_prefix"``: cache-aware partial prefill. x holds each
     request's uncached suffix (cos/sin at its absolute positions),
     ``cache`` this layer's slot-shared pools, ``prefix_rows`` (B, P_pre)
@@ -529,12 +535,13 @@ def apply_attention(
     qg = q.reshape(b, s, hk, g, d)
 
     fresh = None
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         if c.sparse_attention and s >= c.attn_block and s % c.attn_block == 0:
             o = sparse_prefill_attention(c, qg, k, v, sm_scale=scale)
         else:
             o = flash_attention(qg, k, v, sm_scale=scale)
-        fresh = (k, v)
+        if mode == "prefill":
+            fresh = (k, v)
     elif mode == "prefill_prefix":
         page = cache["k"].shape[1]
         rows = prefix_rows.long()
@@ -577,7 +584,10 @@ def apply_mlp(mlp: Mlp, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_tokens(embed: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return embed.tok[tokens]
+    """The rows of ``tok`` (a gather). ``F.embedding``, not indexing: its
+    backward sums each row's gradient in a fixed order, where indexing's
+    scatter-add on the CPU does not, so a training step repeats exactly."""
+    return F.embedding(tokens, embed.tok)
 
 
 def lm_logits(

@@ -18,16 +18,20 @@ Entry points:
                     sampler=, sampler_candidates=)
                                   -> ((B, V) logits, caches)
                                      or (tokens (B,), caches, presence)
+  forward_train(cfg, model, batch) -> (loss, {"nll", "lb_loss"})
 Every entry point runs on the card unless the caller passes another device.
+The two serving entry points build no autograd graph (``torch.no_grad``);
+``forward_train`` does, and recomputes each layer in the backward when
+``cfg.remat`` is set.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.pixelfly import Linear
 from repro_torch.models import layers as L
 from repro_torch.serving import sampling as sampling_lib
 
@@ -39,6 +43,7 @@ __all__ = [
     "init_paged_cache",
     "prefill_paged",
     "decode_step_paged",
+    "forward_train",
 ]
 
 
@@ -85,7 +90,7 @@ class LM(nn.Module):
             self.head = nn.Module()
             w = torch.randn((cfg.d_model, cfg.padded_vocab), generator=gen)
             w = (w / cfg.d_model ** 0.5).to(cfg.torch_dtype).to(device)
-            self.head.w = nn.Parameter(w, requires_grad=False)
+            self.head.w = nn.Parameter(w)
         self.final_norm = L.RMSNorm(cfg.d_model, device=device)
         self.layers = nn.ModuleList(
             Block(cfg, gen=gen, device=device) for _ in range(cfg.num_layers)
@@ -118,9 +123,6 @@ def init_model(
         strict=True,
         assign=True,
     )
-    for m in model.modules():  # the non-persistent BSR tables
-        if isinstance(m, Linear) and m.cols is not None:
-            m.cols = torch.as_tensor(m.spec.pattern().cols, device=dev)
     return model
 
 
@@ -149,6 +151,7 @@ def _layer_pools(cfg: ModelConfig, caches: list) -> list[dict[str, torch.Tensor]
     return out
 
 
+@torch.no_grad()
 def prefill_paged(
     cfg: ModelConfig,
     model: LM,
@@ -231,6 +234,7 @@ def prefill_paged(
     return toks, caches, presence
 
 
+@torch.no_grad()
 def decode_step_paged(
     cfg: ModelConfig,
     model: LM,
@@ -271,3 +275,60 @@ def decode_step_paged(
             logits, sampler, valid_vocab=cfg.vocab_size, candidates=sampler_candidates
         )
     return toks, caches, presence
+
+
+# ----------------------------------------------------------------------
+# Training
+# ----------------------------------------------------------------------
+
+
+def _train_block(
+    cfg: ModelConfig, blk: Block, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+) -> torch.Tensor:
+    h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
+    y, _ = L.apply_attention(cfg, blk.attn, h, cos, sin, mode="train")
+    x = x + y
+    return x + L.apply_mlp(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, x, cfg.norm_eps))
+
+
+def forward_train(
+    cfg: ModelConfig, model: LM, batch: dict
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The JAX package's ``forward_train``: batch {"tokens", "labels"}
+    (B, S) int (tensors or numpy, moved to the model's device) -> (loss,
+    {"nll", "lb_loss"}), differentiable with respect to every parameter.
+
+    The loss is the masked mean next-token NLL over ``labels >= 0``: the
+    log-partition by logsumexp over the fp32 logits, the gold logit by an
+    indicator reduce over the vocabulary, as the reference computes both.
+    ``loss = nll + 0.01 * lb``, where the load-balancing term lb is 0 for
+    the dense family.
+
+    With ``cfg.remat`` each layer runs under non-reentrant activation
+    checkpointing: the backward keeps one residual per layer and runs the
+    layer's forward again. The reference checkpoints in two levels (an
+    outer checkpoint over about sqrt(n) layers); one level keeps 28 rather
+    than 7 + 4 residuals of (B, S, d_model) at full width and does not run
+    every layer's forward a third time.
+    """
+    dev = model.embed.tok.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    x = L.embed_tokens(model.embed, tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=dev)[None].expand(b, s)
+    cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    for blk in model.layers:
+        if cfg.remat:
+            x = checkpoint(_train_block, cfg, blk, x, cos, sin, use_reentrant=False)
+        else:
+            x = _train_block(cfg, blk, x, cos, sin)
+    x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
+    logits = L.lm_logits(cfg, model.head, model.embed, x)
+    logz = torch.logsumexp(logits, dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=dev)
+    gold = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
+    mask = (labels >= 0).float()
+    nll = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+    lb = torch.zeros((), device=dev)
+    return nll + 0.01 * lb, {"nll": nll, "lb_loss": lb}

@@ -742,9 +742,13 @@ class Engine:
         return states
 
     # ---- stepping ----------------------------------------------------
+    @torch.no_grad()
     def step(self) -> list[FinishedRequest]:
         """One scheduler iteration: admit (batched, possibly after
-        preempting) -> resume swapped sequences -> decode -> evict."""
+        preempting) -> resume swapped sequences -> decode -> evict. Runs
+        under ``torch.no_grad()``: the model's parameters are trainable,
+        and no step (prefill, decode, sampler, swap) keeps an autograd
+        graph."""
         finished: list[FinishedRequest] = list(self._rejected)
         self._rejected.clear()
         self._expire_waiting(finished)

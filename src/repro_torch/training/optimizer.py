@@ -1,0 +1,131 @@
+"""Optimizer: AdamW + warmup-cosine schedule + global-norm clipping, with
+an optional error-feedback int8 gradient-compression hook.
+
+The port of the JAX package's ``training/optimizer.py``, as plain functions
+over dicts keyed by the model's parameter names. The state is
+``{"step": int, "mu": {...}, "nu": {...}}`` (+ ``"ef"`` with compressed
+gradients), the moments in fp32. Where the JAX package returns new trees,
+``apply_updates`` updates the parameters and the state in place, which
+saves a copy of every parameter and moment.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+__all__ = ["OptConfig", "lr_at", "init_opt_state", "apply_updates", "decays", "reference_leaf"]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    # error-feedback int8 gradient compression (the numerics of a
+    # compressed all-reduce)
+    compress_grads: bool = False
+
+
+def lr_at(cfg: OptConfig, step: int) -> float:
+    """The learning rate at ``step``, computed in fp32 as the reference
+    computes it: linear warm-up, then cosine down to ``min_lr_frac``."""
+    s = torch.tensor(float(step), dtype=torch.float32)
+    warm = cfg.lr * (s + 1.0) / max(1, cfg.warmup_steps)
+    t = torch.clamp(
+        (s - cfg.warmup_steps) / max(1, cfg.total_steps - cfg.warmup_steps), 0.0, 1.0
+    )
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (1 + torch.cos(math.pi * t))
+    return float(warm if step < cfg.warmup_steps else cfg.lr * cos)
+
+
+def init_opt_state(cfg: OptConfig, params: dict[str, torch.Tensor]) -> dict:
+    def zeros32():
+        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
+
+    state = {"step": 0, "mu": zeros32(), "nu": zeros32()}
+    if cfg.compress_grads:
+        state["ef"] = zeros32()  # error-feedback residual
+    return state
+
+
+def reference_leaf(name: str) -> str:
+    """The reference's tree leaf that holds parameter ``name``: it stacks
+    the leaves of a layer group on a leading layer axis, so every layer's
+    ``layers.{i}.<path>`` is one leaf ``layers.*.<path>`` there."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        parts[1] = "*"
+    return ".".join(parts)
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """Weight decay where the reference's leaf has ndim >= 2. With the
+    stacked layer axis, every ``layers.*`` parameter of ndim >= 1 decays
+    there (the norm scales included) and only the scalar γ does not;
+    outside the layers the rule reads the tensor's own ndim
+    (``final_norm.scale`` does not decay)."""
+    return p.ndim + (reference_leaf(name) != name) >= 2
+
+
+def _compress_int8(
+    grads: dict[str, torch.Tensor], residual: dict[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """Symmetric int8 quantization with error feedback, one scale per leaf
+    of the reference's tree (``reference_leaf``: the same parameter of every
+    layer shares one scale, as the reference quantizes its stacked leaf).
+    Returns the dequantized fp32 gradients and updates ``residual`` in
+    place."""
+    leaves: dict[str, list[str]] = {}
+    for k in grads:
+        leaves.setdefault(reference_leaf(k), []).append(k)
+    out = {}
+    for names in leaves.values():
+        gf = {k: grads[k].float() + residual[k] for k in names}
+        scale = torch.stack([g.abs().max() for g in gf.values()]).max() / 127.0
+        scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+        for k, g in gf.items():
+            out[k] = torch.clamp(torch.round(g / scale), -127, 127) * scale
+            residual[k].copy_(g - out[k])
+    return out
+
+
+@torch.no_grad()
+def apply_updates(
+    cfg: OptConfig,
+    params: dict[str, torch.Tensor],
+    grads: dict[str, torch.Tensor],
+    state: dict,
+) -> dict:
+    """One AdamW step, in place on ``params`` and ``state``. The gradient
+    is clipped to a global norm, the moments and the update are fp32, and
+    each parameter is cast back to its dtype. Returns {"grad_norm" (a
+    device scalar), "lr"}."""
+    if cfg.compress_grads:
+        grads = _compress_int8(grads, state["ef"])
+    gnorm = torch.sqrt(torch.stack([g.float().square().sum() for g in grads.values()]).sum())
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    step = state["step"] + 1
+    lr = lr_at(cfg, step)
+    s32 = torch.tensor(float(step), dtype=torch.float32)
+    b1c = float(1 - torch.tensor(cfg.b1, dtype=torch.float32) ** s32)
+    b2c = float(1 - torch.tensor(cfg.b2, dtype=torch.float32) ** s32)
+    for k, p in params.items():
+        g = grads[k].float() * scale
+        mu, nu = state["mu"][k], state["nu"][k]
+        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
+        p32 = p.float()
+        wd = cfg.weight_decay if decays(k, p) else 0.0
+        p.copy_(p32 - lr * (delta + wd * p32))
+    state["step"] = step
+    return {"grad_norm": gnorm, "lr": lr}

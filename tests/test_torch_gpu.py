@@ -456,3 +456,152 @@ def test_prefix_flash_attention_on_card_equals_cpu(cuda, dtype, tol, sparse):
     want = L.prefix_flash_attention(q, ks, vs, kp, vp, plen, **kw)
     got = L.prefix_flash_attention(*(t.to(cuda) for t in (q, ks, vs, kp, vp, plen)), **kw)
     assert _err(got.cpu(), want) <= tol
+
+
+# ----------------------------------------------------------------------
+# training: the two kernels under autograd, a train step, checkpoints
+# ----------------------------------------------------------------------
+
+
+def _rel(a, b):
+    """Max abs error over max(1, max |b|): for sums over many tokens."""
+    return _err(a, b) / max(1.0, b.float().abs().max().item())
+
+
+def _allclose(a, b, tol):
+    """|a - b| <= tol + tol * |b| everywhere (rtol = atol = tol): a bf16
+    result of magnitude 4-8 is one rounding away at 2^-5."""
+    return bool(((a.float() - b.float()).abs() <= tol + tol * b.float().abs()).all())
+
+
+@pytest.mark.parametrize("label", ["q", "gate", "down"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_bsr_matmul_grads_on_card(cuda, label, dtype, tol):
+    """``BsrMatmul`` on the card (the kernel forward, the kernel dX on the
+    transposed tables, the batched dBlocks) against torch autograd of
+    ``ref.bsr_matmul_gather`` on the same CUDA tensors, M = 1024, at the
+    full-width q, gate and down patterns (down's transpose is ragged);
+    y and dX within tol (rtol = atol, as phase 3 of ``chip_smoke.py``:
+    dX sums up to 6 x 128 products, magnitudes up to ~8), dBlocks within
+    tol relative to its largest entry."""
+    from repro_torch.kernels import autograd as AG
+
+    full = registry.get("qwen3-1.7b", sparse=True)
+    n_in, n_out = {"q": (full.d_model, full.q_dim), "gate": (full.d_model, full.d_ff),
+                   "down": (full.d_ff, full.d_model)}[label]
+    pat = linear_spec(full, n_in, n_out, False).pattern()
+    rng = np.random.default_rng(5)
+    x = _t(rng.standard_normal((1024, n_in)), dtype, cuda).requires_grad_()
+    blocks = _t(rng.standard_normal((pat.nb_out, pat.r, 128, 128)) / np.sqrt(pat.r * 128),
+                dtype, cuda).requires_grad_()
+    dy = _t(rng.standard_normal((1024, n_out)), dtype, cuda)
+    y = AG.bsr_matmul(x, blocks, AG.bsr_tables(pat.cols, pat.nb_in, cuda))
+    dx, db = torch.autograd.grad(y, (x, blocks), dy)
+    y_ref = ref.bsr_matmul_gather(x, blocks, torch.as_tensor(pat.cols, device=cuda))
+    dx_ref, db_ref = torch.autograd.grad(y_ref, (x, blocks), dy)
+    assert _allclose(y, y_ref, tol)
+    assert _allclose(dx, dx_ref, tol)
+    assert _rel(db, db_ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+def test_block_sparse_attention_grads_on_card(cuda, dtype, tol):
+    """``BlockSparseAttention`` on the card (the kernel forward, the JAX
+    package's gradient of the gathered attention backward) against torch
+    autograd of ``ref.sparse_attention``, B = 1, S = 1024, H = 16, Hk = 8,
+    D = 128, block 128: the output within the kernel's tolerance, dq, dk,
+    dv within it relative to their largest entry (the backward repeats the
+    plain version's arithmetic; its index scatter-adds sum in any order)."""
+    from repro_torch.kernels import autograd as AG
+
+    b, s, hk, g, d, block = 1, 1024, 8, 2, 128, 128
+    kv_index, valid = L._schedule_tensors(s, block, 2, 0, 1, str(cuda))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((b, s, hk, g, d), generator=gen, device=cuda).to(dtype).requires_grad_()
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device=cuda).to(dtype).requires_grad_()
+            for _ in range(2))
+    do = torch.randn((b, s, hk, g, d), generator=gen, device=cuda).to(dtype)
+    kw = dict(block=block, causal=True, sm_scale=d ** -0.5)
+    o = AG.block_sparse_attention(q, k, v, kv_index, valid, **kw)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    o_ref = ref.sparse_attention(q, k, v, kv_index, valid, **kw)
+    want = torch.autograd.grad(o_ref, (q, k, v), do)
+    assert _err(o, o_ref) <= tol
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= tol
+
+
+def test_train_step_on_card_equals_cpu(cuda):
+    """One fp32 ``make_train_step`` step of the smoke model, seed 0, on the
+    card (kernels) and on the CPU (plain versions): loss and grad_norm
+    within 1e-4 relative; parameters within 1e-6 where the CPU gradient
+    exceeds 1e-5 in magnitude and within 2 * lr elsewhere."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import make_train_step
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = SyntheticLM(cfg.vocab_size, 128, 4, seed=0).batch(0)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = T.init_model(cfg, seed=0, device=dev)
+        params = dict(model.named_parameters())
+        if dev == "cpu":
+            loss, _ = T.forward_train(cfg, model, batch)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        m = make_train_step(cfg, opt)(model, init_opt_state(opt, params), batch)
+        out[str(dev)] = (m, {n: p.detach().cpu() for n, p in params.items()})
+    (mc, pc), (mg, pg) = out["cpu"], out[str(cuda)]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mg[key]) - float(mc[key])) <= 1e-4 * abs(float(mc[key]))
+    for n, p in pc.items():
+        err = (pg[n].float() - p.float()).abs()
+        big = grads[n].abs() > 1e-5
+        assert (err[big] <= 1e-6).all(), n
+        assert err.max().item() <= 2 * opt.lr, n
+
+
+def test_model_moved_to_card_uses_tables_there(cuda):
+    """A smoke model built on the CPU and moved with ``Module.to``: every
+    linear finds its BSR tables on the card, and the fp32 training loss
+    equals the CPU model's within 1e-4 relative."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticLM
+
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    batch = SyntheticLM(cfg.vocab_size, 128, 2, seed=0).batch(0)
+    model = T.init_model(cfg, seed=0, device="cpu")
+    with torch.no_grad():
+        want = T.forward_train(cfg, model, batch)[0].item()
+        got = T.forward_train(cfg, model.to(cuda), batch)[0].item()
+    assert abs(got - want) <= 1e-4 * abs(want)
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A smoke Trainer on the card: 2 steps, a checkpoint, 1 more step; a
+    new Trainer restores step 2 with every parameter and moment equal bit
+    for bit, and its next step's loss equals the first trainer's."""
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import TrainConfig, Trainer
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+
+    def trainer():
+        return Trainer(cfg, OptConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+                       SyntheticLM(cfg.vocab_size, 128, 4, seed=0),
+                       TrainConfig(ckpt_dir=str(tmp_path), ckpt_every=1000), device=cuda)
+
+    a = trainer()
+    a.run(2)
+    a.checkpoint()
+    snap = {n: p.detach().clone() for n, p in a.params.items()}
+    mu = {n: t.clone() for n, t in a.opt["mu"].items()}
+    loss3 = a.run(1)[0]["loss"]
+    b = trainer()
+    assert b.step == 2 and b.opt["step"] == 2
+    for n, p in b.params.items():
+        assert torch.equal(p, snap[n]) and torch.equal(b.opt["mu"][n], mu[n]), n
+    assert b.run(1)[0]["loss"] == loss3

@@ -37,7 +37,7 @@ def _pair(sparse):
 
 
 def _close(got, want, tol=TOL):
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("sparse", [False, True])
