@@ -64,7 +64,25 @@ Phases; any failure raises and the script exits non-zero:
    and grad norm; both training kernels launched), then one profiled step
    (top kernels, the step's ranges, launches in forward vs backward) and
    one step traced on the device only (its busy share). (d) A smoke-width checkpoint round trip on the card.
-8. The kernels line, then the last line
+8. The rest of the dense family. (a) The three kernels at the shapes of
+   smollm-360m (GQA group 3, head dim 64, linears at block 64) and
+   qwen2-1.5b (group 6, head dim 128) against their plain versions, timed
+   as in phase 3, with bsr_matmul's dX on the transposed patterns; the
+   G in {1, 2, 4} attention outputs at phase 3's main shape (digests, and
+   equal bit for bit to the one-head-a-block launch); the dense baseline's
+   attention (PyTorch's flash kernel, no TPU kernel) against the chunked
+   plain version at qwen3-1.7b's training shape. (b) fp32 sparse smoke
+   models of both: equal greedy streams on the CPU and the card, and one
+   qwen2-1.5b train step held as in 7b. (c) Each at full width, sparse:
+   ``Engine(max_slots=8, max_len=2048)`` serves 8 requests of 200-1000
+   prompt tokens, 32 new each, then a ``Trainer`` takes 1 warm-up and 2
+   timed steps at B = 4, S = 2048, the kernels' counts set to 0 just
+   before each and read just after. (d) ``repro_torch.bench.lm_speedup``:
+   dense against pixelfly training for qwen3-1.7b (B = 4) and smollm-360m
+   (B = 8) at S = 2048: step times, speedup, parameter ratio, each arm's
+   device busy share and top device kernels.
+9. The kernels line (with each kernel's launches in phases 5, 6, 7 and 8),
+   the script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -75,6 +93,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -83,6 +102,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
@@ -168,6 +188,15 @@ def check_close(name, got, want, tol) -> float:
     if not (worst <= tol) or not math.isfinite(max_abs):
         raise AssertionError(f"{name}: max abs err {max_abs:.3e} beyond tol {tol:g} (rtol=atol)")
     return max_abs
+
+
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes: two runs
+    on the same seeded inputs gave the same bits if their digests agree."""
+    import hashlib
+
+    raw = t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
 
 
 # ----------------------------------------------------------------------
@@ -307,7 +336,8 @@ def attention_case(timer, *, b, s, h, hk, d, block, dtype, seed, tol):
     def plain():
         return ref.sparse_attention(q.reshape(b, s, hk, g, d), k, v, kv_index, valid, **kw)
 
-    err = check_close(f"block_sparse_attention S={s} {dtype}", got, plain().reshape(b, s, h, d), tol)
+    err = check_close(f"block_sparse_attention B={b} S={s} H={h} Hk={hk} D={d} {dtype}", got,
+                      plain().reshape(b, s, h, d), tol)
     # causal-visible (q, k) pairs of the schedule
     pairs = 0
     for i in range(sched.nqb):
@@ -328,6 +358,7 @@ def attention_case(timer, *, b, s, h, hk, d, block, dtype, seed, tol):
     return {
         "shape": f"B={b} S={s} H={h} Hk={hk} D={d} block={block} nkv={sched.max_nkv}",
         "dtype": str(dtype).split(".")[1],
+        "out_sha256": digest(got),
         "max_abs_err": err,
         "tol": tol,
         "ms": timer.ms(lambda: block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw)),
@@ -398,6 +429,17 @@ def smoke_workloads(smoke, seed):
         return out
 
     return {"sampled mix": sampled, "shared-prefix mix": prefix, "priority preemption": preemption}
+
+
+def smoke_greedy_streams(cfg, work, seed, device):
+    """Greedy streams of a smoke-width engine (2 slots, 16 pages a slot)
+    over ``work`` [(prompt, new tokens)], weights from ``seed``."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=2, max_len=16 * cfg.attn_block),
+                 seed=seed, device=device)
+    uids = {eng.submit(p, n): i for i, (p, n) in enumerate(work)}
+    return {uids[f.uid]: f.tokens.tolist() for f in eng.drain(max_steps=500)}
 
 
 # ----------------------------------------------------------------------
@@ -638,6 +680,35 @@ def full_width_features(full, state_dict, kernels, rng, seed, smi, profiled, tim
 # ----------------------------------------------------------------------
 
 
+def dx_case(timer, x, blocks, dy, tables, pat):
+    """bf16 times of one linear's backward pieces on the card: dX (the
+    kernel on the transposed pattern) beside its bound, its plain version
+    and ``dy @ W_dense^T``; the blocks' transpose; the dBlocks
+    contraction."""
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.kernels import ops, ref
+
+    with torch.no_grad():
+        (m, n_in), n_out = x.shape, dy.shape[1]
+        bt = AG.transposed_blocks(blocks, tables)
+        dense_t = ref.bsr_to_dense(blocks, tables.cols, n_in).t().contiguous()
+        nb_in, w = tables.cols_t.shape
+        nbytes = (m * n_out + blocks.numel() + m * n_in) * 2
+        flops = 2.0 * m * pat.nb_out * pat.r * pat.block ** 2  # the slots the pattern has
+        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        return {
+            "shape": f"dX: M={m} n_out={n_out} -> n_in={n_in}, transposed (nb_in, w)=({nb_in}, {w}), "
+                     f"valid share {tables.valid.float().mean().item():.3f}",
+            "ms": timer.ms(lambda: ops.bsr_matmul(dy, bt, tables.cols_t)),
+            "transpose_blocks_ms": timer.ms(lambda: AG.transposed_blocks(blocks, tables)),
+            "plain_ms": timer.ms(lambda: ref.bsr_matmul_gather(dy, bt, tables.cols_t)),
+            "library_ms": timer.ms(lambda: dy @ dense_t),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "dblocks_ms": timer.ms(lambda: AG.bsr_dblocks(x, dy, tables, pat.block)),
+        }
+
+
 def grad_cases(timer, full, seed):
     """(a) The two training kernels under autograd on the card, against
     torch autograd of their plain versions on the same CUDA tensors.
@@ -681,30 +752,9 @@ def grad_cases(timer, full, seed):
             rows.append({"case": name, "tol": tol, "max_abs_err": errs})
             if dtype != torch.bfloat16:
                 continue
-            # dX on the card: the kernel on the transposed pattern
-            with torch.no_grad():
-                x0, b0 = x.detach(), blocks.detach()
-                bt = AG.transposed_blocks(b0, tables)
-                dense_t = ref.bsr_to_dense(b0, tables.cols, n_in).t().contiguous()
-                nb_in, w = tables.cols_t.shape
-                es = 2
-                nbytes = (m * n_out + b0.numel() + m * n_in) * es
-                flops = 2.0 * m * pat.nb_out * pat.r * pat.block ** 2  # the slots the pattern has
-                b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-                dx_rows.append({
-                    "linear": label,
-                    "shape": f"dX: M={m} n_out={n_out} -> n_in={n_in}, transposed (nb_in, w)=({nb_in}, {w}), "
-                             f"valid share {tables.valid.float().mean().item():.3f}",
-                    "ms": timer.ms(lambda: ops.bsr_matmul(dy, bt, tables.cols_t)),
-                    "transpose_blocks_ms": timer.ms(lambda: AG.transposed_blocks(b0, tables)),
-                    "plain_ms": timer.ms(lambda: ref.bsr_matmul_gather(dy, bt, tables.cols_t)),
-                    "library_ms": timer.ms(lambda: dy @ dense_t),
-                    "bound_ms": b_ms,
-                    "bound_by": b_by,
-                    "dblocks_ms": timer.ms(lambda: AG.bsr_dblocks(x0, dy, tables, pat.block)),
-                    "forward": bsr_case(timer, L.linear_spec(full, n_in, n_out, False), m,
-                                        torch.bfloat16, seed=seed + m, tol=tol),
-                })
+            dx_rows.append({"linear": label, **dx_case(timer, x.detach(), blocks.detach(), dy, tables, pat),
+                            "forward": bsr_case(timer, L.linear_spec(full, n_in, n_out, False), m,
+                                                torch.bfloat16, seed=seed + m, tol=tol)})
     for r in rows:
         log(f"[7a] {r['case']}: max abs err y {r['max_abs_err']['y']:.2e}, dX {r['max_abs_err']['dx']:.2e}, "
             f"dBlocks {r['max_abs_err']['dblocks']:.2e} (relative to its largest entry) (tol {r['tol']:g})")
@@ -760,7 +810,7 @@ def grad_cases(timer, full, seed):
     return {"bsr_grads": rows, "dx": dx_rows, "attention": attn, "attention_forward_train_shape": attn_train}
 
 
-def smoke_step_cpu_vs_card(smoke):
+def smoke_step_cpu_vs_card(smoke, tag="7b"):
     """(b) One fp32 ``make_train_step`` step of the smoke model, seed 0, on
     the CPU (plain versions) and on the card (kernels): loss and grad_norm
     within 1e-4 relative; every parameter within 1e-6 where the CPU
@@ -796,7 +846,7 @@ def smoke_step_cpu_vs_card(smoke):
     if worst_big > 1e-6 or worst > 2 * opt.lr:
         raise AssertionError(f"smoke train step parameters: max err {worst_big:.2e} where |g| > 1e-5 "
                              f"(tol 1e-6), {worst:.2e} elsewhere (tol {2 * opt.lr:g})")
-    log(f"[7b] smoke fp32 train step, CPU vs card: loss {mc['loss']:.6f} / {mg['loss']:.6f}, grad_norm "
+    log(f"[{tag}] {smoke.name} smoke fp32 train step, CPU vs card: loss {mc['loss']:.6f} / {mg['loss']:.6f}, grad_norm "
         f"{mc['grad_norm']:.6f} / {mg['grad_norm']:.6f}; parameters max err {worst_big:.2e} where |g| > 1e-5, "
         f"{worst:.2e} anywhere")
     return {"cpu": mc, "card": mg, "param_err_big_grad": worst_big, "param_err_max": worst}
@@ -943,6 +993,295 @@ def smoke_checkpoint_round_trip(smoke):
 
 
 # ----------------------------------------------------------------------
+# phase 8: the rest of the dense family, and dense against pixelfly
+# ----------------------------------------------------------------------
+
+# the two full-width models of phase 8 and the batch each trains at in (d)
+FAMILY = {"smollm-360m": 8, "qwen2-1.5b": 4}
+
+
+def family_kernels(timer, seed):
+    """(a) The three kernels at the shapes of smollm-360m (G = 3, D = 64,
+    linears at block 64) and qwen2-1.5b (G = 6, D = 128, block 128)
+    against their plain versions, timed as in phase 3: bf16 attention at
+    B = 1 and at the training batch, S = 2048; the paged decode read at
+    B = 8, page 128; bsr_matmul forward at M = 8 and the training M, and
+    dX on the transposed patterns at the training M. Then the G in
+    {1, 2, 4} outputs at phase 3's main shape: their digests, and each
+    equal bit for bit to the G = 1 launch on K/V repeated to every query
+    head (the layout untouched by the new sub-group axis). Then the dense
+    baseline's attention (PyTorch's flash kernel) against the chunked
+    plain version at qwen3-1.7b's training shape."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bsr_attention import block_sparse_attention_cuda
+    from repro_torch.models import layers as L
+
+    out = {"block_sparse_attention": [], "paged_decode_attention": [], "bsr_matmul": [], "bsr_matmul_dx": []}
+    for arch, b_train in FAMILY.items():
+        full = registry.get(arch, sparse=True)
+        h, hk, d = full.num_heads, full.num_kv_heads, full.head_dim
+        for b in (1, b_train):
+            row = attention_case(timer, b=b, s=2048, h=h, hk=hk, d=d, block=full.attn_block,
+                                 dtype=torch.bfloat16, seed=seed + b, tol=2e-2)
+            out["block_sparse_attention"].append({"arch": arch, **row})
+        row = paged_case(timer, b=8, hk=hk, g=h // hk, d=d, page=full.attn_block, pps=16,
+                         dtype=torch.bfloat16, seed=seed + 9, tol=1e-2)
+        out["paged_decode_attention"].append({"arch": arch, **row})
+        m_train = b_train * 2048
+        for label, (n_in, n_out) in {"q": (full.d_model, full.q_dim), "kv": (full.d_model, full.kv_dim),
+                                     "gate/up": (full.d_model, full.d_ff),
+                                     "down": (full.d_ff, full.d_model)}.items():
+            spec = L.linear_spec(full, n_in, n_out, False)
+            for m in (8, m_train):
+                row = bsr_case(timer, spec, m, torch.bfloat16, seed=seed + m, tol=2e-2)
+                out["bsr_matmul"].append({"arch": arch, "linear": label, **row})
+            pat = spec.pattern()
+            tables = AG.bsr_tables(pat.cols, pat.nb_in, "cuda")
+            g = torch.Generator(device="cuda").manual_seed(seed + n_out)
+            x = torch.randn((m_train, n_in), generator=g, device="cuda").to(torch.bfloat16)
+            blocks = (torch.randn((pat.nb_out, pat.r, pat.block, pat.block), generator=g, device="cuda")
+                      / math.sqrt(pat.r * pat.block)).to(torch.bfloat16)
+            dy = torch.randn((m_train, n_out), generator=g, device="cuda").to(torch.bfloat16)
+            xr, br = x.clone().requires_grad_(), blocks.clone().requires_grad_()
+            dx = torch.autograd.grad(AG.bsr_matmul(xr, br, tables), xr, dy)[0]
+            dx_ref = torch.autograd.grad(ref.bsr_matmul_gather(xr, br, tables.cols), xr, dy)[0]
+            err = check_close(f"{arch} {label} dX M={m_train}", dx, dx_ref, 2e-2)
+            out["bsr_matmul_dx"].append({"arch": arch, "linear": label, "max_abs_err": err, "tol": 2e-2,
+                                         **dx_case(timer, x, blocks, dy, tables, pat)})
+    for r in out["block_sparse_attention"]:
+        log(f"[8a] {r['arch']} block_sparse_attention bf16 {r['shape']}: err {r['max_abs_err']:.2e} (tol 2e-2) "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for r in out["paged_decode_attention"]:
+        log(f"[8a] {r['arch']} paged_decode_attention bf16 {r['shape']}: err {r['max_abs_err']:.2e} (tol 1e-2) "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    for r in out["bsr_matmul"]:
+        log(f"[8a] {r['arch']} bsr_matmul {r['linear']:7s} {r['shape']}: err {r['max_abs_err']:.2e} kernel "
+            f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms x@dense {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for r in out["bsr_matmul_dx"]:
+        log(f"[8a] {r['arch']} bsr_matmul {r['linear']:7s} {r['shape']}: err {r['max_abs_err']:.2e} kernel "
+            f"{r['ms']:.4f} ms (+ transposed blocks {r['transpose_blocks_ms']:.4f} ms) plain {r['plain_ms']:.4f} ms "
+            f"dy@W_dense^T {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"dBlocks {r['dblocks_ms']:.4f} ms")
+
+    # G in {1, 2, 4} at phase 3's main shape: digests, and the G = 1 bits
+    bits = []
+    for g in (1, 2, 4):
+        q, k, v, kv_index, valid = attention_inputs(1, 2048, 8, g, 128, 128, seed + g)
+        kw = dict(block=128, causal=True, sm_scale=128 ** -0.5)
+        got = block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw)
+        k1, v1 = (t.repeat_interleave(g, dim=2).contiguous() for t in (k, v))
+        same = torch.equal(got, block_sparse_attention_cuda(q, k1, v1, kv_index, valid, **kw))
+        if not same:
+            raise AssertionError(f"block_sparse_attention G={g}: the grouped launch differs from the "
+                                 "G = 1 launch on repeated K/V")
+        bits.append({"g": g, "shape": f"B=1 S=2048 H={8 * g} Hk=8 D=128 block=128", "out_sha256": digest(got),
+                     "equals_one_head_blocks": same})
+    out["gqa_bits"] = bits
+    log("[8a] block_sparse_attention bf16 G in {1, 2, 4} at B=1 S=2048 Hk=8 D=128: equal bit for bit to the "
+        "G = 1 launch on repeated K/V; digests " + ", ".join(f"G={r['g']} {r['out_sha256']}" for r in bits))
+
+    # the dense baseline's attention: library flash against the chunked plain version
+    qwen3 = registry.get("qwen3-1.7b")
+    b, s, hk, g, d = 4, 2048, qwen3.num_kv_heads, qwen3.num_heads // qwen3.num_kv_heads, qwen3.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, s, hk, g, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    kw = dict(sm_scale=d ** -0.5, chunk=qwen3.attn_chunk)
+    got = L.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = check_close("dense attention (flash) vs chunked", got, L.chunked_attention(q, k, v, **kw), 2e-2)
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    flops = 4.0 * d * b * hk * g * s * (s + 1) / 2  # the causal (q, k) pairs
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    out["dense_attention"] = {
+        "shape": f"B={b} S={s} H={hk * g} Hk={hk} D={d} causal", "dtype": "bfloat16", "max_abs_err": err,
+        "tol": 2e-2, "ms": timer.ms(lambda: L.flash_attention(q, k, v, **kw)),
+        "plain_ms": timer.ms(lambda: L.chunked_attention(q, k, v, **kw)),
+        "bound_ms": b_ms, "bound_by": b_by, "library": "torch scaled_dot_product_attention, flash backend",
+    }
+    r = out["dense_attention"]
+    log(f"[8a] dense attention (library flash; no TPU kernel) bf16 {r['shape']}: err vs chunked {err:.2e} "
+        f"(tol 2e-2) flash {r['ms']:.4f} ms chunked plain {r['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    return out
+
+
+def attention_inputs(b, s, hk, g, d, block, seed):
+    """bf16 q (B, S, Hk * G, D), k, v (B, S, Hk, D) on the card from
+    ``seed``, and the causal pixelfly schedule (2 local, 1 global)."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, s, hk * g, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    kv_index, valid = L._schedule_tensors(s, block, 2, 0, 1, "cuda")
+    return q, k, v, kv_index, valid
+
+
+def family_smoke(seed):
+    """(b) fp32 sparse smoke models of smollm-360m and qwen2-1.5b, the same
+    seeded weights on both devices: equal greedy streams on the CPU and
+    the card; then one qwen2-1.5b smoke train step, CPU against card, held
+    as phase 7b holds qwen3's."""
+    from repro_torch.configs import registry
+
+    out = {}
+    for arch in FAMILY:
+        cfg = registry.get_smoke(arch, sparse=True)
+        page = cfg.attn_block
+        rng = np.random.default_rng(seed + 8)
+        work = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 6)
+                for n in (9 * page + 20, 2 * page + 1, 40, 14 * page + 3)]
+        got = {dev: smoke_greedy_streams(cfg, work, seed, dev) for dev in ("cpu", "cuda")}
+        if got["cpu"] != got["cuda"]:
+            raise AssertionError(f"{arch} smoke streams differ: cpu {got['cpu']} cuda {got['cuda']}")
+        out[arch] = {"requests": len(work), "tokens": sum(len(t) for t in got["cpu"].values())}
+        log(f"[8b] {arch} smoke-width sparse fp32: CPU and card greedy streams equal over {len(work)} requests")
+    out["train_step"] = smoke_step_cpu_vs_card(registry.get_smoke("qwen2-1.5b", sparse=True), tag="8b")
+    return out
+
+
+def family_full_width(arch, seed, smi, kernels):
+    """(c) Full-width sparse ``arch``: ``Engine(max_slots=8, max_len=2048)``
+    serves 8 requests of 200-1000 prompt tokens from ``seed``, 32 new
+    tokens each; then a ``Trainer`` takes 1 warm-up and 2 timed steps at
+    B = 4, S = 2048. The kernels' counts are set to 0 just before each of
+    the two and read just after: all three must launch in serving, the two
+    training kernels in training; every request finishes, loss and grad
+    norm are finite."""
+    import shutil
+
+    from repro_torch.configs import registry
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import TrainConfig, Trainer
+    from repro_torch.training.optimizer import OptConfig
+
+    full = registry.get(arch, sparse=True)
+    rng = np.random.default_rng(seed + 8)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(full, engine_cfg=EngineConfig(max_slots=8, max_len=2048), seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng.submit(rng.integers(0, full.vocab_size, 300).astype(np.int32), 4)  # warm-up, not counted
+    eng.drain(max_steps=50)
+    eng.reset_stats()
+    plens = rng.integers(200, 1001, 8)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    for n in plens:
+        eng.submit(rng.integers(0, full.vocab_size, int(n)).astype(np.int32), 32)
+    fins = eng.drain(max_steps=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve_launches = {name: k.launches for name, k in kernels.items()}
+    st = eng.stats
+    if len(fins) != 8 or any(f.finish_reason != "length" or len(f.tokens) != 32 for f in fins):
+        raise AssertionError(f"{arch}: not every request finished with 32 tokens: "
+                             f"{[(f.finish_reason, len(f.tokens)) for f in fins]}")
+    if any(not (0 <= t < full.vocab_size) for f in fins for t in f.tokens):
+        raise AssertionError(f"{arch}: token id out of the vocabulary")
+    for name, n in serve_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{arch}: kernel {name} was never launched in serving")
+    steps = st["decode_step_s"]
+    serving = {
+        "weights_s": init_s,
+        "requests": len(fins),
+        "prompt_tokens": int(plens.sum()),
+        "wall_s": wall,
+        "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+        "decode_tok_s": st["decode_tokens"] / sum(steps),
+        "decode_step_ms_p50": 1e3 * p50(steps),
+        "ttft_ms_p50": 1e3 * p50(st["ttft_s"]),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": serve_launches,
+    }
+    del eng, fins
+    log(f"[8c] {arch} sparse, full width: served 8 requests ({int(plens.sum())} prompt tokens, 32 new each) in "
+        f"{wall:.2f} s on {smi}: decode {serving['decode_tok_s']:.1f} tok/s, step p50 "
+        f"{serving['decode_step_ms_p50']:.2f} ms, prefill {serving['prefill_tok_s']:.0f} tok/s, TTFT p50 "
+        f"{serving['ttft_ms_p50']:.1f} ms, peak memory {serving['max_memory_allocated_gb']:.2f} GB; launches "
+        f"{serve_launches}")
+
+    b, s = 4, 2048
+    ckpt = ROOT / "build" / "chip_smoke_family_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(full, OptConfig(lr=3e-4, warmup_steps=2, total_steps=100),
+                      SyntheticLM(full.vocab_size, s, b, seed=seed),
+                      TrainConfig(ckpt_dir=str(ckpt), ckpt_every=10 ** 9, log_every=10 ** 9, seed=seed),
+                      device="cuda")
+    warm = trainer.run(1)
+    for k in kernels.values():
+        k.launches = 0
+    hist = trainer.run(2)
+    train_launches = {name: k.launches for name, k in kernels.items()}
+    for h in warm + hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"{arch} training step {h['step']}: loss {h['loss']}, grad_norm {h['grad_norm']}")
+    for name in ("bsr_matmul", "block_sparse_attention"):
+        if train_launches[name] <= 0:
+            raise AssertionError(f"{arch}: kernel {name} was never launched in the training steps")
+    step_ms = [1e3 * h["step_time_s"] for h in hist]
+    med = statistics.median(step_ms)
+    training = {
+        "shape": f"B={b} S={s}",
+        "parameters": sum(p.numel() for p in trainer.params.values()),
+        "loss": [h["loss"] for h in warm + hist],
+        "grad_norm": [h["grad_norm"] for h in warm + hist],
+        "step_ms": step_ms,
+        "step_ms_median": med,
+        "train_tok_s": b * s / (med / 1e3),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": train_launches,
+    }
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[8c] {arch} sparse, full width: Trainer B={b} S={s}: steps {', '.join(f'{x:.1f}' for x in step_ms)} ms "
+        f"(median {med:.1f} ms, {training['train_tok_s']:.0f} train tokens/s), losses "
+        f"{', '.join(f'{x:.4f}' for x in training['loss'])}, grad norms "
+        f"{', '.join(f'{x:.3f}' for x in training['grad_norm'])}, peak memory "
+        f"{training['max_memory_allocated_gb']:.2f} GB; launches {train_launches}")
+    return {"serving": serving, "training": training, "card": smi}
+
+
+def dense_vs_pixelfly(seed):
+    """(d) ``repro_torch.bench.lm_speedup`` for qwen3-1.7b at B = 4 and
+    smollm-360m at B = 8, S = 2048: the dense model and its pixelfly twin,
+    2 warm-up, 3 timed and 1 device-traced step each."""
+    from repro_torch.bench import lm_speedup
+
+    out = {}
+    for arch, b in (("qwen3-1.7b", 4), ("smollm-360m", 8)):
+        res = lm_speedup.compare(arch, batch=b, seq=2048, steps=3, seed=seed, device="cuda")
+        out[arch] = res
+        for arm in ("dense", "sparse"):
+            a = res[arm]
+            tr = a["device_trace"]
+            busy = ("the profiler recorded no device time: busy share not measured" if tr["device_busy_ms"] is None
+                    else f"device busy {tr['device_busy_ms']:.1f} ms, idle share {tr['device_idle_share']:.3f}")
+            log(f"[8d] {arch} {arm}, B={b} S=2048: {a['parameters'] / 1e6:.1f} M parameters, step "
+                f"{', '.join(f'{x:.1f}' for x in a['step_ms'])} ms (median {a['step_ms_median']:.1f} ms, "
+                f"{a['train_tok_s']:.0f} train tokens/s), loss (last 5) {a['loss_last5_mean']:.4f}, peak memory "
+                f"{a['max_memory_allocated_gb']:.2f} GB; traced step {tr['window_ms']:.1f} ms, {busy}")
+            for name, ms, n in tr["top"][:6]:
+                log(f"[8d]   {ms:8.3f} ms  x{n:<5d} {name}")
+        log(f"[8d] {arch}: dense {res['dense']['step_ms_median']:.1f} ms, pixelfly {res['sparse']['step_ms_median']:.1f} "
+            f"ms a step: speedup {res['speedup']:.3f}x, parameter ratio {res['param_ratio']:.3f} ({res['card']})")
+    return out
+
+
+# ----------------------------------------------------------------------
 # main
 # ----------------------------------------------------------------------
 
@@ -1060,13 +1399,7 @@ def main(argv=None) -> int:
     work = [(rng.integers(0, smoke.vocab_size, n).astype(np.int32), 6)
             for n in (9 * page + 20, 2 * page + 1, 40, 14 * page + 3)]
 
-    def serve(device):
-        eng = Engine(smoke, engine_cfg=EngineConfig(max_slots=2, max_len=16 * page),
-                     seed=args.seed, device=device)
-        uids = {eng.submit(p, n): i for i, (p, n) in enumerate(work)}
-        return {uids[f.uid]: f.tokens.tolist() for f in eng.drain(max_steps=500)}
-
-    cpu_streams, cuda_streams = serve("cpu"), serve("cuda")
+    cpu_streams, cuda_streams = (smoke_greedy_streams(smoke, work, args.seed, dev) for dev in ("cpu", "cuda"))
     if cpu_streams != cuda_streams:
         raise AssertionError(f"smoke streams differ: cpu {cpu_streams} cuda {cuda_streams}")
     log(f"[4] smoke-width sparse fp32: CPU and CUDA greedy streams equal over "
@@ -1137,6 +1470,9 @@ def main(argv=None) -> int:
         "decode_tok_s": st["decode_tokens"] / sum(steps),
         "decode_step_ms_p50": 1e3 * steps[len(steps) // 2],
         "ttft_ms_p50": 1e3 * ttft[len(ttft) // 2],
+        # the greedy streams in submission order: equal digests, equal tokens
+        "streams_sha256": digest(torch.as_tensor(np.concatenate(
+            [f.tokens for f in sorted(fins, key=lambda f: f.uid)]).astype(np.int64))),
         "wall_s": wall,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
@@ -1147,7 +1483,8 @@ def main(argv=None) -> int:
         f"on {smi}: prefill {serving['prefill_tok_s']:.0f} tok/s over {st['prefill_calls']} calls, "
         f"decode {serving['decode_tok_s']:.1f} tok/s, decode step p50 {serving['decode_step_ms_p50']:.2f} ms, "
         f"TTFT p50 {serving['ttft_ms_p50']:.1f} ms, peak memory {serving['max_memory_allocated_gb']:.2f} GB")
-    log(f"[5] launches on the main path: {launches} over {st['decode_steps']} decode steps")
+    log(f"[5] launches on the main path: {launches} over {st['decode_steps']} decode steps; "
+        f"streams digest {serving['streams_sha256']}")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1268,7 +1605,17 @@ def main(argv=None) -> int:
         "checkpoint": smoke_checkpoint_round_trip(smoke),
     }
 
-    # ---- 8. report -------------------------------------------------
+    # ---- 8. the rest of the dense family; dense against pixelfly ----
+    t8 = time.perf_counter()
+    family = {"kernels": family_kernels(timer, args.seed), "smoke": family_smoke(args.seed)}
+    for arch in FAMILY:
+        family[arch] = family_full_width(arch, args.seed, smi, kernels)
+    family["dense_vs_pixelfly"] = dense_vs_pixelfly(args.seed)
+    family["wall_s"] = time.perf_counter() - t8
+    report["family"] = family
+    log(f"[8] phase 8 took {family['wall_s']:.1f} s")
+
+    # ---- 9. report -------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -1316,9 +1663,11 @@ def main(argv=None) -> int:
             "library_ms": attn_main["library_ms"],
         },
     ]}
-    for k in line["kernels"]:  # the launches of phases 6 and 7, counted apart
+    for k in line["kernels"]:  # the launches of phases 6, 7 and 8, counted apart
         k["launches_phase6"] = report["features"]["launches"][k["name"]]
         k["launches_training"] = report["training"]["full_width"]["launches"][k["name"]]
+        k["launches_phase8"] = sum(family[a][part]["launches"][k["name"]]
+                                   for a in FAMILY for part in ("serving", "training"))
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -1326,6 +1675,9 @@ def main(argv=None) -> int:
     if not paged_main["ms"] < paged_main["library_ms"]:
         raise AssertionError(f"paged_decode_attention {paged_main['ms']:.4f} ms is not below "
                              f"SDPA's {paged_main['library_ms']:.4f} ms on the same inputs")
+    report["wall_s"] = time.perf_counter() - T_START
+    out.write_text(json.dumps(report, indent=1))
+    log(f"[9] chip_smoke.py took {report['wall_s']:.1f} s")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -2,8 +2,13 @@
 
 ``get(name)`` returns the published config; ``get(name, sparse=True)`` its
 pixelfly-sparsified twin (the same overrides as the JAX registry);
-``get_smoke(name)`` the reduced same-family config. Only the architectures
-the port serves so far are listed.
+``get_smoke(name)`` the reduced same-family config. The four
+architectures of the dense decoder family are listed; the others wait for
+their families (ROADMAP Queue 1). The JAX registry's mesh tables
+(``DEFAULT_STRATEGY``, ``LONG_CONTEXT_*``, ``shapes_for``) wait for the
+port of distribution (ROADMAP Queue 1 item 9). ``deepseek-67b`` (134 GB of
+bf16 weights) does not fit one 80 GB card: the port runs it at smoke
+width, and at full width only builds it on the meta device.
 """
 
 from __future__ import annotations
@@ -13,7 +18,10 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "smollm-360m": "repro_torch.configs.smollm_360m",
 }
 
 ARCH_NAMES = list(_MODULES)

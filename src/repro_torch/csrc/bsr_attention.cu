@@ -20,10 +20,20 @@
 //
 // bf16: block_sparse_attention_tc_kernel, flash-attention-2 shaped, on
 // mma.sync m16n8k16 (bf16 -> fp32). A thread block of 4 warps owns 64
-// query rows of one (batch, kv head): 64 / G positions of all G query heads
-// of that kv head (32 positions at G = 2), so each K/V tile is read once
-// per group, not once per query head; a warp owns 16 rows of one head
-// (G in {1, 2, 4}, so 64 / G positions fill whole warps).
+// query rows of one (batch, kv head, sub-group): the G query heads of a kv
+// head are cut into G / Gs sub-groups of Gs heads, Gs the largest of
+// {4, 2, 1} dividing G, and the block takes 64 / Gs positions of its Gs
+// heads (32 positions at Gs = 2), so a warp owns 16 rows of one head.
+// At G in {1, 2, 4} there is one sub-group: each K/V tile is read once per
+// group, not once per query head. Other groups add a grid axis of G / Gs
+// sub-groups, each reading the kv head's tiles again: G = 3 (smollm-360m)
+// runs 3 sub-groups of one head, G = 6 (qwen2-1.5b) 3 of two, G = 8
+// (deepseek-67b) 2 of four. What bounds those shapes is still the
+// operations: a block does the same products per row as at G = 1, and the
+// G / Gs re-reads of a kv head's K/V (0.5 MB at S = 2048, D = 64; 1 MB at
+// D = 128) come from L2, where the sub-groups of one kv head, adjacent in
+// the grid, run together. A row's arithmetic does not depend on its
+// sub-group, so G in {1, 2, 4} keep their bits.
 // The block first lists its 64-key tiles: the scheduled blocks with
 // valid == 1, cut at 64 keys, minus those wholly above the causal diagonal
 // for all its rows; nothing else is read. The last query tiles, which see
@@ -38,7 +48,7 @@
 // p.astype(v.dtype), and the output is divided by l once at the end
 // (l == 0 -> 1). The element mask is applied only on tiles that cross a
 // warp's diagonal; a warp skips the products of a tile wholly above its 16
-// rows. At D = 128: 221 registers and 87,040 bytes of shared memory, two
+// rows. At D = 128: 217 registers and 87,040 bytes of shared memory, two
 // blocks an SM (512 blocks at B = 1, S = 2048, Hk = 8). Blocks of 8 warps
 // (128 rows, one an SM) were slower on the H100 at that shape, with two
 // stages or three; so were 32 rows a warp (two m16 tiles sharing each K/V
@@ -219,8 +229,8 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
                                      const int* __restrict__ kv_index,
                                      const int* __restrict__ valid,
                                      bf16* __restrict__ out, int S, int H,
-                                     int Hk, int nkv, int block, int causal,
-                                     float scale_log2) {
+                                     int Hk, int Gs, int nkv, int block,
+                                     int causal, float scale_log2) {
   using Tl = AttnTile<D>;
   constexpr int kThr = kTcWarps * 32;
   constexpr int kDT = D / 8;          // n8 tiles over the head dim
@@ -240,9 +250,11 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int G = H / Hk;
-  const int Pq = Tl::kRows / G;  // positions of this block
-  const int b = blockIdx.y / Hk;
-  const int hk = blockIdx.y % Hk;
+  const int n_sub = G / Gs;       // sub-groups of Gs heads per kv head
+  const int Pq = Tl::kRows / Gs;  // positions of this block
+  const int b = blockIdx.y / (Hk * n_sub);
+  const int hk = blockIdx.y / n_sub % Hk;
+  const int h0 = hk * G + blockIdx.y % n_sub * Gs;  // first query head
   // the last query tiles see the most keys: they are launched first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * Pq;
   const int qb = q0 / block;
@@ -262,14 +274,14 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
     }
     n_tiles = n;
   }
-  // Q: row r is head r / Pq of the group at position q0 + r % Pq
+  // Q: row r is head h0 + r / Pq at position q0 + r % Pq
   for (int e = tid; e < Tl::kRows * (D / 8); e += kThr) {
     const int row = e / (D / 8);
     const int ch = e % (D / 8);
     const int pos = q0 + row % Pq;
     repro::cp_async16(
         qs + row * Tl::kRow + ch * 8,
-        q + (static_cast<size_t>(b * S + pos) * H + hk * G + row / Pq) * D +
+        q + (static_cast<size_t>(b * S + pos) * H + h0 + row / Pq) * D +
             ch * 8);
   }
   repro::cp_async_commit();
@@ -431,7 +443,7 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
   }
   const float inv_lo = 1.f / (l_lo == 0.f ? 1.f : l_lo);
   const float inv_hi = 1.f / (l_hi == 0.f ? 1.f : l_hi);
-  const int h = hk * G + gh;
+  const int h = h0 + gh;
   bf16* o_lo = out + (static_cast<size_t>(b * S + pos_lo) * H + h) * D + c2;
   bf16* o_hi = out + (static_cast<size_t>(b * S + pos_hi) * H + h) * D + c2;
 #pragma unroll
@@ -455,10 +467,12 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int pq = AttnTile<D>::kRows / (H / Hk);
+  const int G = H / Hk;
+  const int gs = G % 4 == 0 ? 4 : G % 2 == 0 ? 2 : 1;  // heads a block takes
+  const int pq = AttnTile<D>::kRows / gs;
   const float log2e = 1.4426950408889634f;
-  kernel<<<dim3(S / pq, B * Hk), kTcWarps * 32, smem, stream>>>(
-      q, k, v, kv_index, valid, out, S, H, Hk, nkv, block, causal,
+  kernel<<<dim3(S / pq, B * Hk * (G / gs)), kTcWarps * 32, smem, stream>>>(
+      q, k, v, kv_index, valid, out, S, H, Hk, gs, nkv, block, causal,
       sm_scale * log2e);
   return 0;
 }
@@ -468,7 +482,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
 // q, out (B, S, H, D); k, v (B, S, Hk, D); all contiguous, one dtype.
 // kv_index, valid (S / block, nkv) int32. D in {64, 128}; S a multiple of
 // block; H a multiple of Hk. fp32: block a multiple of 32. bf16: block a
-// multiple of 64, G = H / Hk in {1, 2, 4}, pointers 16-byte aligned.
+// multiple of 64, pointers 16-byte aligned; any G = H / Hk.
 // Returns cudaGetLastError() after the launch.
 extern "C" int block_sparse_attention_launch(
     const void* q, const void* k, const void* v, const void* kv_index,
@@ -493,9 +507,7 @@ extern "C" int block_sparse_attention_launch(
       launch_simt<float, 128>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv, block,
                               causal, sm_scale, s);
   } else if (dtype == REPRO_BF16) {
-    const int G = H / Hk;
-    if (block % kTcKeys != 0 || (G != 1 && G != 2 && G != 4))
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (block % kTcKeys != 0) return static_cast<int>(cudaErrorInvalidValue);
     const bf16* qt = static_cast<const bf16*>(q);
     const bf16* kt = static_cast<const bf16*>(k);
     const bf16* vt = static_cast<const bf16*>(v);

@@ -41,8 +41,10 @@ def block_sparse_attention_cuda(
     h reads kv head h // (H // Hk)); kv_index/valid (S // block, nkv)
     int32. All contiguous on one CUDA device, q/k/v of one dtype; D is 64
     or 128 and block a multiple of 32 dividing S. bfloat16 runs on the
-    tensor cores and also needs block a multiple of 64, H // Hk in
-    {1, 2, 4} and q, k, v 16-byte aligned. Returns (B, S, H, D)."""
+    tensor cores and also needs block a multiple of 64 and q, k, v
+    16-byte aligned; it takes every H // Hk (a thread block holds 4, 2 or
+    1 heads of a group, the largest that divides it). Returns
+    (B, S, H, D)."""
     dev = q.device
     if not q.is_cuda or any(t.device != dev for t in (k, v, kv_index, valid)):
         raise ValueError("block_sparse_attention_cuda needs every input on one CUDA device")
@@ -67,10 +69,9 @@ def block_sparse_attention_cuda(
     if not all(t.is_contiguous() for t in (q, k, v, kv_index, valid)):
         raise ValueError("block_sparse_attention_cuda needs contiguous inputs")
     if q.dtype == torch.bfloat16:
-        if block % 64 or h // hk not in (1, 2, 4):
+        if block % 64:
             raise ValueError(
-                f"the bfloat16 kernel takes a block that is a multiple of 64 and "
-                f"H // Hk in (1, 2, 4), not block {block} and H // Hk {h // hk}"
+                f"the bfloat16 kernel takes a block that is a multiple of 64, not {block}"
             )
         check_aligned("block_sparse_attention_cuda", q=q, k=k, v=v)
     out = torch.empty_like(q)

@@ -6,7 +6,8 @@ Every GEMM of a block goes through ``core.pixelfly.Linear``, so the dense
 and the pixelfly-sparse model share this code. Attention math is plain
 functions on tensors; the three kernels are reached through
 ``kernels.ops`` (prefill block-sparse attention, the BSR matmul inside the
-linears, and the paged decode read). Every parameter is trainable:
+linears, and the paged decode read); a dense model's bf16 attention on the
+card is PyTorch's flash kernel, as no TPU kernel stands behind it. Every parameter is trainable:
 ``apply_attention(mode="train")`` is the training step's attention, and
 the two training kernels run through ``kernels.autograd``.
 """
@@ -20,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attn_pattern as ap
@@ -32,6 +35,7 @@ __all__ = [
     "rope_angles",
     "apply_rope",
     "flash_attention",
+    "chunked_attention",
     "prefill_schedule",
     "sparse_prefill_attention",
     "prefix_flash_attention",
@@ -88,23 +92,116 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ----------------------------------------------------------------------
 
 
+def _online_softmax_scan(
+    q_in: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    chunk: int,
+    mask_fn,
+) -> torch.Tensor:
+    """The online-softmax core shared by the dense causal and the partial
+    prefill attention, the JAX package's ``_online_softmax_scan``: a loop
+    over KV chunks that never holds an (Sq, Sk) score tensor.
+
+    q_in (B,Sq,Hk,G,D) fp32, the scaled q already rounded to the model
+    dtype; k, v (B,Sk,Hk,D) with Sk a ``chunk`` multiple; ``mask_fn(c0)``
+    gives a bool mask broadcastable to the (B,Hk,G,Sq,chunk) scores of the
+    chunk starting at key c0 (False = masked out). Scores and P @ V sum in
+    fp32 with P rounded to v's dtype; m, l and acc are fp32, and l == 0 ->
+    1. While autograd records, each chunk is recomputed in the backward
+    (the reference's ``jax.checkpoint`` of the scan body), so the saved
+    tensors stay (B,Hk,G,Sq,D)-sized per chunk."""
+    b, sq, hk, g, d = q_in.shape
+    dev = q_in.device
+
+    def body(m, l, acc, kb, vb, mask):
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q_in, kb.float()).masked_fill(~mask, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        masked = torch.isneginf(m_new)
+        alpha = torch.where(masked, 1.0, torch.exp(m - m_new))
+        p = torch.where(masked[..., None], 0.0, torch.exp(s - m_new[..., None]))
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(), vb.float())
+        acc = acc * alpha[..., None] + pv
+        return m_new, l, acc
+
+    m = torch.full((b, hk, g, sq), float("-inf"), device=dev)
+    l = torch.zeros((b, hk, g, sq), device=dev)
+    acc = torch.zeros((b, hk, g, sq, d), device=dev)
+    for c0 in range(0, k.shape[1], chunk):
+        args = (m, l, acc, k[:, c0 : c0 + chunk], v[:, c0 : c0 + chunk], mask_fn(c0))
+        if torch.is_grad_enabled():
+            m, l, acc = checkpoint(body, *args, use_reentrant=False)
+        else:
+            m, l, acc = body(*args)
+    l = torch.where(l == 0.0, 1.0, l)
+    out = acc / l[..., None]  # (B, Hk, G, Sq, D)
+    return out.permute(0, 3, 1, 2, 4)
+
+
 def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: float,
+    chunk: int,
+) -> torch.Tensor:
+    """Causal attention for the dense prefill and training branch: q
+    (B,S,Hk,G,D), k, v (B,S,Hk,D) -> (B,S,Hk,G,D).
+
+    bfloat16 on the card: PyTorch's flash-attention kernel
+    (``scaled_dot_product_attention`` with only the flash backend
+    allowed, so a shape it cannot take raises), grouped-query attention
+    read in place. The JAX package computes dense attention in jnp, not
+    in a Pallas kernel, so no TPU kernel stands behind this: it is the
+    dense baseline's attention. Everything else (the CPU, fp32 on the
+    card): ``chunked_attention``, the JAX package's algorithm."""
+    if q.is_cuda and q.dtype == torch.bfloat16:
+        return _sdpa_flash(q, k, v, sm_scale=sm_scale)
+    return chunked_attention(q, k, v, sm_scale=sm_scale, chunk=chunk)
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: float,
+    chunk: int,
+) -> torch.Tensor:
+    """The JAX package's ``flash_attention_jnp`` (causal): q (B,Sq,Hk,G,D),
+    k, v (B,Sk,Hk,D), query i at key position i; an online softmax over
+    chunks of ``min(chunk, Sk)`` keys, Sk zero-padded to a whole chunk and
+    the padded keys masked, the scale folded into q in fp32 and q cast
+    back to the model dtype. Holds no (Sq, Sk) tensor."""
+    sq, sk = q.shape[1], k.shape[1]
+    chunk = min(chunk, sk)
+    pad = (-sk) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    q_in = (q.float() * sm_scale).to(q.dtype).float()
+    qpos = torch.arange(sq, device=q.device)
+
+    def mask_fn(c0):
+        kpos = c0 + torch.arange(chunk, device=q.device)
+        return ((kpos[None, :] < sk) & (kpos[None, :] <= qpos[:, None]))[None, None, None]
+
+    return _online_softmax_scan(q_in, k, v, chunk, mask_fn).to(q.dtype)
+
+
+def _sdpa_flash(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sm_scale: float
 ) -> torch.Tensor:
-    """Plain causal attention for the dense prefill branch: q (B,S,Hk,G,D),
-    k, v (B,S,Hk,D) -> (B,S,Hk,G,D). Scores in fp32, scale folded into q
-    in fp32 and q cast back to the model dtype (the JAX package's flash
-    path does the same)."""
-    sq, sk = q.shape[1], k.shape[1]
-    q32 = (q.float() * sm_scale).to(q.dtype)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q32.float(), k.float())
-    causal = torch.arange(sk, device=q.device)[None, :] <= torch.arange(
-        sq, device=q.device
-    )[:, None]
-    s = s.masked_fill(~causal, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
-    return o.to(q.dtype)
+    b, sq, hk, g, d = q.shape
+    qt = q.reshape(b, sq, hk * g, d).transpose(1, 2)  # head h = hk * G + g
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        o = F.scaled_dot_product_attention(
+            qt, k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=sm_scale, enable_gqa=g > 1,
+        )
+    return o.transpose(1, 2).reshape(b, sq, hk, g, d)
 
 
 @functools.lru_cache(maxsize=64)
@@ -222,7 +319,7 @@ def prefix_flash_attention(
     computes this outside Pallas, so no kernel stands behind it. The scale
     is folded into q in fp32 and q cast back to the model dtype; scores
     and P @ V accumulate in fp32, with P rounded to the model dtype."""
-    b, sq, hk, g, d = q.shape
+    sq = q.shape[1]
     lp = k_pre.shape[1]
     k = torch.cat([k_pre.to(k_suf.dtype), k_suf], dim=1)
     v = torch.cat([v_pre.to(v_suf.dtype), v_suf], dim=1)
@@ -236,13 +333,8 @@ def prefix_flash_attention(
     q_in = (q.float() * sm_scale).to(q.dtype).float()
     plen = prefix_len.long()[:, None]
     qpos = plen + torch.arange(sq, device=dev)[None, :]  # (B, Sq) absolute
-    m = torch.full((b, hk, g, sq), float("-inf"), device=dev)
-    l = torch.zeros((b, hk, g, sq), device=dev)
-    acc = torch.zeros((b, hk, g, sq, d), device=dev)
-    for c0 in range(0, sk + pad, chunk):
-        kb = k[:, c0 : c0 + chunk].float()
-        vb = v[:, c0 : c0 + chunk]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", q_in, kb)
+
+    def mask_fn(c0):
         j = c0 + torch.arange(chunk, device=dev)[None, :]  # [prefix ; suffix]
         is_pre = j < lp
         # absolute key positions: prefix token j sits at j, suffix token
@@ -258,18 +350,9 @@ def prefix_flash_attention(
                 block=blk, local_blocks=loc, global_blocks=glo,
                 max_stride=stride,
             )
-        s = s.masked_fill(~mask[:, None, None], float("-inf"))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        masked = torch.isneginf(m_new)
-        alpha = torch.where(masked, 1.0, torch.exp(m - m_new))
-        p = torch.where(masked[..., None], 0.0, torch.exp(s - m_new[..., None]))
-        l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(), vb.float())
-        acc = acc * alpha[..., None] + pv
-        m = m_new
-    l = torch.where(l == 0.0, 1.0, l)
-    out = acc / l[..., None]  # (B, Hk, G, Sq, D)
-    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+        return mask[:, None, None]
+
+    return _online_softmax_scan(q_in, k, v, chunk, mask_fn).to(q.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -539,7 +622,7 @@ def apply_attention(
         if c.sparse_attention and s >= c.attn_block and s % c.attn_block == 0:
             o = sparse_prefill_attention(c, qg, k, v, sm_scale=scale)
         else:
-            o = flash_attention(qg, k, v, sm_scale=scale)
+            o = flash_attention(qg, k, v, sm_scale=scale, chunk=c.attn_chunk)
         if mode == "prefill":
             fresh = (k, v)
     elif mode == "prefill_prefix":

@@ -49,7 +49,9 @@ def make_train_step(
 
     ``microbatches = k > 1`` accumulates gradients over k sequential
     slices of the batch's rows, summed in fp32 and divided by k (so are
-    the loss and its parts), bounding live activations to one slice.
+    the loss and its parts), bounding live activations to one slice. A
+    batch whose row count is not a multiple of k raises ``ValueError``,
+    as the JAX package's reshape into k slices does.
     The forward, the backward and the update run inside the profiler
     ranges ``train_forward``, ``train_backward`` and ``optimizer``.
     """
@@ -68,6 +70,11 @@ def make_train_step(
             grads = dict(zip(params, g))
         else:
             k = microbatches
+            if len(batch["tokens"]) % k:
+                raise ValueError(
+                    f"a batch of {len(batch['tokens'])} rows does not split into "
+                    f"{k} microbatches"
+                )
             rows = len(batch["tokens"]) // k
             gsum = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in params.items()}
             msum = None

@@ -118,7 +118,7 @@ def test_bsr_matmul_kernel_refuses_small_blocks(cuda):
                         torch.zeros((2, 1), dtype=torch.int32, device=cuda))
 
 
-@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 def test_paged_decode_kernel(cuda, g, dtype, tol):
     rng = np.random.default_rng(g)
@@ -189,7 +189,7 @@ def _paged_check(args, tol):
 
 
 @pytest.mark.parametrize("schedule", ["sparse", "dense"])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 8])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 def test_paged_decode_kernel_main_shapes(cuda, schedule, g, dtype, tol):
     args = _paged_main(g, dtype, cuda, schedule=schedule, seed=g)
@@ -291,7 +291,7 @@ def _attention_inputs(b, s, hk, g, d, block, dtype, dev, seed):
 
 
 @pytest.mark.parametrize("d,block,s", [(128, 128, 2048), (64, 64, 1024)])
-@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 8])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
 def test_block_sparse_attention_kernel_main_shapes(cuda, d, block, s, g, dtype, tol):
     b, hk = 2, 2
@@ -305,6 +305,23 @@ def test_block_sparse_attention_kernel_main_shapes(cuda, d, block, s, g, dtype, 
         assert torch.equal(got, block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw))
 
 
+@pytest.mark.parametrize("d,block", [(64, 128), (128, 128), (64, 64)])
+@pytest.mark.parametrize("g", [2, 3, 4, 6, 8])
+def test_block_sparse_attention_groups_equal_one_head_blocks(cuda, d, block, g):
+    """bf16: a thread block takes 4, 2 or 1 heads of a GQA group (the
+    largest dividing G) and G / that many sub-groups run side by side. A
+    row's arithmetic does not depend on which heads share its block, so
+    the grouped launch gives the bits of the G = 1 launch on K/V repeated
+    to every query head (one head a block, the layout untouched by the
+    grid's sub-group axis)."""
+    b, hk, s = 2, 2, 1024
+    q, k, v, kv_index, valid = _attention_inputs(b, s, hk, g, d, block, torch.bfloat16, cuda, seed=g)
+    kw = dict(block=block, causal=True, sm_scale=d ** -0.5)
+    got = block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw)
+    k1, v1 = (t.repeat_interleave(g, dim=2).contiguous() for t in (k, v))
+    assert torch.equal(got, block_sparse_attention_cuda(q, k1, v1, kv_index, valid, **kw))
+
+
 def test_block_sparse_attention_kernel_refuses_misaligned(cuda):
     q, k, v, kv_index, valid = _attention_inputs(1, 256, 2, 2, 64, 64, torch.bfloat16, cuda, seed=0)
     kw = dict(block=64, causal=True, sm_scale=0.125)
@@ -316,6 +333,88 @@ def test_block_sparse_attention_kernel_refuses_misaligned(cuda):
     q, k, v, kv_index, valid = _attention_inputs(1, 256, 2, 2, 64, 32, torch.bfloat16, cuda, seed=0)
     with pytest.raises(ValueError, match="multiple of 64"):
         block_sparse_attention_cuda(q, k, v, kv_index, valid, block=32, causal=True, sm_scale=0.125)
+
+
+# the dense-family configs the port added: (arch, linear) -> (n_in, n_out)
+FAMILY = {
+    "smollm-360m": {"q": ("d_model", "q_dim"), "kv": ("d_model", "kv_dim"),
+                    "gate": ("d_model", "d_ff"), "down": ("d_ff", "d_model")},
+    "qwen2-1.5b": {"q": ("d_model", "q_dim"), "kv": ("d_model", "kv_dim"),
+                   "gate": ("d_model", "d_ff"), "down": ("d_ff", "d_model")},
+}
+FAMILY_CASES = [(a, lin) for a in FAMILY for lin in FAMILY[a]]
+
+
+@pytest.mark.parametrize("arch,label", FAMILY_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_bsr_matmul_family_patterns(cuda, arch, label, dtype, tol):
+    """The kernel forward at smollm-360m's block-64 patterns (odd nb_out
+    15 and 5, r = 1 for kv) and qwen2-1.5b's block-128 ones, at M = 8 (the
+    cluster-split decode kernel in bf16) and M = 700 (the tensor-core
+    kernel, a ragged last row tile); then ``BsrMatmul``'s dX and dBlocks
+    at M = 700 against torch autograd of ``ref.bsr_matmul_gather`` (y and
+    dX within tol, rtol = atol; dBlocks relative to its largest entry)."""
+    from repro_torch.kernels import autograd as AG
+
+    full = registry.get(arch, sparse=True)
+    n_in, n_out = (getattr(full, f) for f in FAMILY[arch][label])
+    pat = linear_spec(full, n_in, n_out, False).pattern()
+    assert pat.block == full.sparse_block
+    rng = np.random.default_rng(n_in + n_out)
+    blocks = _t(rng.standard_normal((pat.nb_out, pat.r, pat.block, pat.block)) / np.sqrt(pat.r * pat.block),
+                dtype, cuda)
+    cols = torch.as_tensor(pat.cols, device=cuda)
+    for m in (8, 700):
+        x = _t(rng.standard_normal((m, n_in)), dtype, cuda)
+        assert _allclose(bsr_matmul_cuda(x, blocks, cols), ref.bsr_matmul_gather(x, blocks, cols), tol)
+    x, blocks = x.requires_grad_(), blocks.requires_grad_()
+    dy = _t(rng.standard_normal((700, n_out)), dtype, cuda)
+    y = AG.bsr_matmul(x, blocks, AG.bsr_tables(pat.cols, pat.nb_in, cuda))
+    dx, db = torch.autograd.grad(y, (x, blocks), dy)
+    dx_ref, db_ref = torch.autograd.grad(ref.bsr_matmul_gather(x, blocks, cols), (x, blocks), dy)
+    assert _allclose(dx, dx_ref, tol)
+    assert _rel(db, db_ref) <= tol
+
+
+@pytest.mark.parametrize("g,d", [(2, 128), (3, 64), (6, 128)])
+def test_dense_attention_flash_equals_chunked(cuda, g, d):
+    """bf16 dense attention on the card (PyTorch's flash kernel through
+    ``layers.flash_attention``) against ``layers.chunked_attention`` (the
+    JAX package's algorithm) on the same CUDA tensors, S = 1024, chunk
+    256: the output within 2e-2 (rtol = atol; each rounds q, P and the
+    output to bf16 at its own points), dq, dk, dv within 2e-2 relative to
+    their largest entry."""
+    b, s, hk = 2, 1024, 2
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    q = torch.randn((b, s, hk, g, d), generator=gen, device=cuda).to(torch.bfloat16).requires_grad_()
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device=cuda).to(torch.bfloat16).requires_grad_()
+            for _ in range(2))
+    do = torch.randn((b, s, hk, g, d), generator=gen, device=cuda).to(torch.bfloat16)
+    kw = dict(sm_scale=d ** -0.5, chunk=256)
+    o = L.flash_attention(q, k, v, **kw)
+    o_ref = L.chunked_attention(q, k, v, **kw)
+    assert o.dtype == torch.bfloat16 and _allclose(o, o_ref, 2e-2)
+    for a, w in zip(torch.autograd.grad(o, (q, k, v), do), torch.autograd.grad(o_ref, (q, k, v), do)):
+        assert _rel(a, w) <= 2e-2
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2-1.5b"])
+def test_family_engine_streams_equal_cpu(cuda, arch):
+    """fp32 sparse smoke models of smollm-360m (G = 3) and qwen2-1.5b
+    (QKV bias), the same seeded weights: equal greedy streams on the card
+    and on the CPU, with a max_len whose decode schedule skips pages."""
+    cfg = registry.get_smoke(arch, sparse=True)
+    page = cfg.attn_block
+    rng = np.random.default_rng(2)
+    work = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), g)
+            for n, g in [(40, 6), (5 * page + 9, 8), (2 * page + 1, 5), (7 * page, 4)]]
+
+    def serve(device):
+        eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=2, max_len=8 * page), device=device)
+        uids = {eng.submit(p, n): i for i, (p, n) in enumerate(work)}
+        return {uids[f.uid]: f.tokens.tolist() for f in eng.drain(max_steps=200)}
+
+    assert serve("cuda") == serve("cpu")
 
 
 def test_engine_streams_equal_cpu(cuda):

@@ -88,9 +88,14 @@ def test_plain_matches_oracle_and_interpret(shape, causal, dtype, tol):
     _close(got, jops.block_sparse_attention(jq, jk, jv, jsched, causal=causal, impl="interpret"), tol)
 
 
-@pytest.mark.parametrize("g", [2, 4])
+@pytest.mark.parametrize("g", [2, 3, 4, 6, 8])
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_gqa_matches_sparse_attention_jnp(g, dtype, tol):
+    """The grouped layout at every GQA group of the dense-family configs
+    (3: smollm-360m, 6: qwen2-1.5b, 8: deepseek-67b) against
+    ``sparse_attention_jnp`` and the Pallas kernel in interpret mode, the
+    latter on K/V repeated to every query head (query head h = hk * G + g
+    reads kv head hk)."""
     b, hk, s, d, blk = 2, 2, 512, 64, 128
     _, sched, jsched = _schedule(s, blk, local=2, glob=1)
     (jq, jk, jv), (tq, tk, tv) = _arrays(
@@ -103,6 +108,10 @@ def test_gqa_matches_sparse_attention_jnp(g, dtype, tol):
     )
     assert got.dtype == getattr(torch, dtype)
     _close(got, want, tol)
+    heads = lambda a: a.reshape(b, s, hk * g, d).transpose(0, 2, 1, 3)  # (B, H, S, D)
+    rep = lambda a: heads(jnp.repeat(a[:, :, :, None], g, axis=3))
+    pallas = jops.block_sparse_attention(heads(jq), rep(jk), rep(jv), jsched, causal=True, impl="interpret")
+    _close(got, pallas.transpose(0, 2, 1, 3).reshape(b, s, hk, g, d), tol)
 
 
 def test_full_mask_equals_dense():
@@ -129,4 +138,4 @@ def test_dense_prefill_branch_matches_flash_jnp(s):
     hk, g, d = 2, 2, 32
     (jq, jk, jv), (tq, tk, tv) = _arrays([(2, s, hk, g, d), (2, s, hk, d), (2, s, hk, d)], seed=4)
     want = JL.flash_attention_jnp(jq, jk, jv, causal=True, chunk=128, sm_scale=d ** -0.5)
-    _close(L.flash_attention(tq, tk, tv, sm_scale=d ** -0.5), want, 2e-5)
+    _close(L.flash_attention(tq, tk, tv, sm_scale=d ** -0.5, chunk=128), want, 2e-5)

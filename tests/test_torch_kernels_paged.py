@@ -80,7 +80,7 @@ def test_schedule_equals_reference_exactly(seed, local, glob):
         np.testing.assert_array_equal(g_.numpy(), np.asarray(w_).astype(np.int32))
 
 
-@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("impl", [None, "interpret"])
 def test_dense_paged_read(g, dtype, impl):
@@ -90,7 +90,7 @@ def test_dense_paged_read(g, dtype, impl):
     _close(got, want, TOL[dtype])
 
 
-@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("impl", [None, "interpret"])
 def test_sparse_paged_read(g, dtype, impl):
@@ -172,7 +172,7 @@ def _split_combine(q, k, v, phys, logical, keep, pos, *, sm_scale, fold=8):
 
 
 @pytest.mark.parametrize("schedule", ["sparse", "dense"])
-@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6])
 @pytest.mark.parametrize("impl", [None, "interpret"])
 @pytest.mark.parametrize("fold", [8, 2])  # 2: several rounds, rescaled between
 def test_split_combine_equals_reference(schedule, g, impl, fold):

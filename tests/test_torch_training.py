@@ -263,6 +263,28 @@ def test_train_step_matches_jax(case):
     _check_step(cfg, opt, opt.lr, jgrads, jstate, jm, model, state, m, flips=flips)
 
 
+def test_microbatches_must_divide_the_batch():
+    """B = 5 rows do not split into k = 2 microbatches: the JAX package's
+    step raises on its reshape, and the port's raises ``ValueError``
+    before it computes anything, leaving the parameters and the optimizer
+    state as they were (exact). B = 4, k = 2 is held to JAX's step by
+    ``test_train_step_matches_jax[microbatches=2]``."""
+    jcfg, cfg, params, model = _pair()
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = _batch(cfg, b=5)
+    jstate = {"params": params, "opt": jopt.init_opt_state(jopt.OptConfig(**opt.__dict__), params)}
+    with pytest.raises(TypeError):
+        jloop.make_train_step(jcfg, jopt.OptConfig(**opt.__dict__), microbatches=2)(
+            jstate, jax.tree.map(jnp.asarray, batch))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = init_opt_state(opt, dict(model.named_parameters()))
+    with pytest.raises(ValueError, match="5 rows"):
+        make_train_step(cfg, opt, microbatches=2)(model, state, batch)
+    assert state["step"] == 0
+    for n, p in model.named_parameters():
+        assert torch.equal(p, before[n])
+
+
 def test_resumed_step_matches_jax():
     """A step taken from a bridged JAX state (params after one JAX step
     and ``opt_state_from_jax`` of its optimizer state, step 1) equals the
