@@ -81,8 +81,28 @@ Phases; any failure raises and the script exits non-zero:
    dense against pixelfly training for qwen3-1.7b (B = 4) and smollm-360m
    (B = 8) at S = 2048: step times, speedup, parameter ratio, each arm's
    device busy share and top device kernels.
-9. The kernels line (with each kernel's launches in phases 5, 6, 7 and 8),
-   the script's wall time, then the last line
+9. The serve CLI and observability. (a) ``repro_torch.launch.serve.main``
+   serves full-width sparse qwen3-1.7b: 24 requests of 512 tokens (a
+   256-token shared prefix), 64 new each, temperature 0.7, top-p 0.9,
+   8 slots, the prefix cache, a 60 s deadline, SLO target 0.99, a 30 s
+   window, with the trace, the Prometheus snapshot and the flight
+   recorder written under ``build/chip_smoke_serve`` and ``--listen
+   127.0.0.1:0`` scraped on all four routes by a thread while it drains,
+   the kernels' counts set to 0 just before. Checks: every route answered
+   200, the trace validates and holds one decode_step and one prefill
+   span per decode step and prefill call, the snapshot agrees with
+   ``stats_summary()``, the allocator's bytes in use cover the parameters
+   and the KV pool, every kernel launched. (b) ``--legacy-server``: at
+   smoke width its grid equals the engine's; at full width (8 x 128, 16
+   new) ``bsr_matmul`` launches and the share of tokens equal to the
+   engine's is reported. (c) What observability costs: a bare and a
+   fully observed full-width engine on one state dict serve the same 8
+   greedy requests in turns off, on, on, off (decode-step p50, host us a
+   ``_observe_step``, tracer ns an event, host_sync's share of a decode
+   step from the trace). (d) A ``workloads.poisson_burst`` replay through
+   the observed engine: goodput and the SLO state after each step.
+10. The kernels line (with each kernel's launches in phases 5, 6, 7, 8
+   and 9), the script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -91,6 +111,8 @@ It imports nothing of JAX and nothing of the JAX package ``src/repro``.
 from __future__ import annotations
 
 import argparse
+import collections
+import itertools
 import json
 import math
 import statistics
@@ -408,9 +430,8 @@ def smoke_workloads(smoke, seed):
                 fins += eng.step()
             uids[eng.submit(unrelated[2], 6, schedule=ScheduleParams(priority=1))] = -1
         fins += eng.drain(max_steps=500)
-        st = eng.stats
         return {"streams": {uids[f.uid]: f.tokens.tolist() for f in fins},
-                "prefix_hits": st["prefix_hits"], "preemptions": st["preemptions"]}
+                "prefix_hits": eng.stats.prefix_hits, "preemptions": eng.stats.preemptions}
 
     def sampled(device):
         return run(device, unrelated + shared, 8, {})
@@ -450,6 +471,24 @@ def smoke_greedy_streams(cfg, work, seed, device):
 def p50(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2] if xs else None
+
+
+def engine_stats(eng) -> dict:
+    """What the phases read from an engine's stats: counts from
+    ``stats_summary()`` and the raw per-step and per-request samples and
+    sums of its metrics registry."""
+    s, reg = eng.stats_summary(), eng.metrics
+    return {
+        **{k: s[k] for k in ("decode_steps", "prefill_calls", "prefill_tokens")},
+        **{k: s["preemption"][k] for k in ("preemptions", "resumes")},
+        "prefix_hits": s["prefix_cache"]["hits"],
+        "prefix_hit_tokens": s["prefix_cache"]["hit_tokens"],
+        "prefix_prompt_tokens": s["prefix_cache"]["prompt_tokens"],
+        "prefill_s": reg["repro_serve_prefill_seconds_total"].value,
+        "decode_tokens": reg["repro_serve_decode_tokens_total"].value,
+        "decode_step_s": list(reg["repro_serve_step_latency_seconds"].samples),
+        "ttft_s": list(reg["repro_serve_ttft_seconds"].samples),
+    }
 
 
 def full_width_features(full, state_dict, kernels, rng, seed, smi, profiled, timer):
@@ -510,7 +549,7 @@ def full_width_features(full, state_dict, kernels, rng, seed, smi, profiled, tim
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
-    st, sw = eng.stats, eng.swap.stats
+    st, sw = engine_stats(eng), eng.swap.stats
     by = {uids[f.uid]: f for f in fins}
     if sorted(by) != list(range(18)) or any(f.finish_reason != "length" or len(f.tokens) != gen
                                             for f in by.values()):
@@ -607,7 +646,7 @@ def full_width_features(full, state_dict, kernels, rng, seed, smi, profiled, tim
             eng.submit(p, 21, sampling=sp(2 * i + 1) if sampled else None)
         eng.reset_stats()
         eng.drain(max_steps=50)
-        return 1e3 * p50(eng.stats["decode_step_s"])
+        return 1e3 * p50(engine_stats(eng)["decode_step_s"])
 
     pairs = {"greedy": [], "sampled": []}
     for kind in ("greedy", "sampled", "sampled", "greedy"):
@@ -1182,7 +1221,7 @@ def family_full_width(arch, seed, smi, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     serve_launches = {name: k.launches for name, k in kernels.items()}
-    st = eng.stats
+    st = engine_stats(eng)
     if len(fins) != 8 or any(f.finish_reason != "length" or len(f.tokens) != 32 for f in fins):
         raise AssertionError(f"{arch}: not every request finished with 32 tokens: "
                              f"{[(f.finish_reason, len(f.tokens)) for f in fins]}")
@@ -1279,6 +1318,310 @@ def dense_vs_pixelfly(seed):
         log(f"[8d] {arch}: dense {res['dense']['step_ms_median']:.1f} ms, pixelfly {res['sparse']['step_ms_median']:.1f} "
             f"ms a step: speedup {res['speedup']:.3f}x, parameter ratio {res['param_ratio']:.3f} ({res['card']})")
     return out
+
+
+# ----------------------------------------------------------------------
+# phase 9: the serve CLI, the Server oracle, and what observability costs
+# ----------------------------------------------------------------------
+
+CLI_FULL = ["--arch", "qwen3-1.7b", "--sparse"]
+
+
+def _get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def serve_cli_full_width(full, kernels, smi):
+    """(a) ``repro_torch.launch.serve.main`` at full width with every
+    observability output on, while a thread scrapes the four routes. The
+    kernels' counts are set to 0 just before and read just after."""
+    import shutil
+    import threading
+    import urllib.error
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import validate_trace_file
+    from repro_torch.obs.prom import parse
+
+    out_dir = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    trace, prom, flight = out_dir / "trace.json", out_dir / "metrics.prom", out_dir / "incidents"
+    argv = CLI_FULL + [
+        "--batch", "24", "--slots", "8", "--prompt-len", "512", "--gen", "64",
+        "--prefix-cache", "--shared-prefix", "256", "--temperature", "0.7", "--top-p", "0.9",
+        "--deadline", "60", "--slo-target", "0.99", "--monitor", "30",
+        "--trace-out", str(trace), "--metrics-out", str(prom), "--flight-dir", str(flight),
+        "--listen", "127.0.0.1:0",
+    ]
+    statuses = {r: [] for r in ("/metrics", "/healthz", "/vars", "/slo")}
+    errors, threads = [], []
+    real_listen = serve._maybe_listen
+
+    def scrape(url, engine):
+        # host objects only: the registry, the window and the SLO monitor
+        while not engine.scheduler.idle:
+            for route in statuses:
+                try:
+                    code, body = _get(url + route)
+                except (urllib.error.URLError, ConnectionError) as e:
+                    if not engine.scheduler.idle:  # the server stops after the drain
+                        errors.append(f"{route}: {e!r}")
+                    return
+                statuses[route].append(code)
+                if route == "/metrics":
+                    parse(body)
+                elif route != "/healthz":
+                    json.loads(body)
+            time.sleep(0.25)
+
+    def listen_and_scrape(engine, args):
+        srv = real_listen(engine, args)
+        t = threading.Thread(target=scrape, args=(srv.url, engine), daemon=True)
+        t.start()
+        threads.append(t)
+        return srv
+
+    for k in kernels.values():
+        k.launches = 0
+    serve._maybe_listen = listen_and_scrape
+    try:
+        t0 = time.perf_counter()
+        served = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        serve._maybe_listen = real_listen
+        for t in threads:
+            t.join(timeout=60)
+    launches = {name: k.launches for name, k in kernels.items()}
+    eng = served.engine
+    s = eng.stats_summary()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"scrape thread: {errors}")
+    if not all(codes and set(codes) == {200} for codes in statuses.values()):
+        raise AssertionError(f"not every route answered 200: {statuses}")
+    rep = validate_trace_file(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    tracks = {(e["pid"], e["tid"]): e["args"]["name"] for e in events if e["ph"] == "M"}
+    ends = collections.Counter(
+        (tracks[(e["pid"], e["tid"])], e["name"]) for e in events if e["ph"] == "E"
+    )
+    if ends[("engine:decode", "decode_step")] != s["decode_steps"] or \
+            ends[("engine:prefill", "prefill")] != s["prefill_calls"]:
+        raise AssertionError(f"trace spans {ends} disagree with decode steps {s['decode_steps']}, "
+                             f"prefill calls {s['prefill_calls']}")
+    got = parse(prom.read_text())
+    pairs = {
+        "repro_serve_requests_finished_total": s["requests_finished"],
+        "repro_serve_generated_tokens_total": s["generated_tokens"],
+        "repro_serve_decode_steps_total": s["decode_steps"],
+        "repro_serve_prefill_tokens_total": s["prefill_tokens"],
+        "repro_serve_step_latency_seconds_count": s["decode_steps"],
+        "repro_serve_host_syncs_total": s["dispatch_guard"]["host_syncs"],
+        "repro_serve_prefix_hit_tokens_total": s["prefix_cache"]["hit_tokens"],
+        "repro_serve_slo_met_total": s["slo"]["met"],
+    }
+    wrong = {k: (got.get(k), v) for k, v in pairs.items() if got.get(k) != v}
+    if wrong:
+        raise AssertionError(f"Prometheus snapshot disagrees with stats_summary(): {wrong}")
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in itertools.chain(eng.model.parameters(), eng.model.buffers()))
+    in_use = eng.metrics["repro_mem_device_bytes_in_use"].value
+    if in_use < param_bytes + eng.kv.memory_bytes():
+        raise AssertionError(f"device_bytes_in_use {in_use} below parameters {param_bytes} + "
+                             f"KV pool {eng.kv.memory_bytes()}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was never launched through the serve CLI")
+    if len(served.tokens) != 24 or any(len(t) != 64 for t in served.tokens):
+        raise AssertionError(f"not every request finished with 64 tokens: {[len(t) for t in served.tokens]}")
+    out = {
+        "argv": " ".join(argv),
+        "wall_s": wall,
+        "drain_s": served.wall_s,
+        "served_tok_s": sum(len(t) for t in served.tokens) / served.wall_s,
+        "decode_steps": s["decode_steps"],
+        "prefill_calls": s["prefill_calls"],
+        "decode_step_ms": {"p50": s["p50_token_latency_ms"], "p95": s["p95_token_latency_ms"]},
+        "ttft_ms_p95": s["ttft_ms"]["p95_ms"],
+        "prefix_hit_rate": s["prefix_cache"]["hit_rate"],
+        "slo_attainment": s["slo"]["attainment"],
+        "slo_state": eng.slo_state()["state"],
+        "bundles": serve.incident_kinds(eng),
+        "trace": rep,
+        "scrapes": {r: len(c) for r, c in statuses.items()},
+        "device_bytes_in_use": in_use,
+        "param_bytes": param_bytes,
+        "kv_bytes": eng.kv.memory_bytes(),
+        "step_compiles": s["dispatch_guard"]["step_compiles"],
+        "launches": launches,
+        "card": smi,
+    }
+    del served, eng
+    torch.cuda.empty_cache()
+    log(f"[9a] serve CLI, full-width qwen3-1.7b sparse (24 requests, prompt 512 with a 256-token shared "
+        f"prefix, 64 new, temperature 0.7, top-p 0.9, 8 slots) on {smi}: served {out['served_tok_s']:.1f} "
+        f"tok/s over the {out['drain_s']:.2f} s drain ({out['wall_s']:.2f} s with the build), decode step "
+        f"p50 {out['decode_step_ms']['p50']:.2f} ms p95 {out['decode_step_ms']['p95']:.2f} ms, TTFT p95 "
+        f"{out['ttft_ms_p95']:.1f} ms, prefix hit rate {out['prefix_hit_rate']:.4f}, SLO attainment "
+        f"{out['slo_attainment']:.4f}, burn-rate state {out['slo_state']}, bundles {out['bundles']}")
+    log(f"[9a] trace {rep}; scrapes {out['scrapes']} all 200; device bytes in use {in_use / 1e9:.3f} GB "
+        f">= parameters {param_bytes / 1e9:.3f} GB + KV pool {out['kv_bytes'] / 1e9:.3f} GB; step "
+        f"compiles {out['step_compiles']}; launches {launches}")
+    return out
+
+
+def legacy_server(kernels, smi):
+    """(b) ``--legacy-server``: at smoke width (fp32) its grid equals the
+    engine's on the card; at full width (8 x prompt 128 x 16 new) it runs
+    ``bsr_matmul``, and the share of tokens equal to the engine's is
+    reported (bf16 argmax ties may part)."""
+    from repro_torch.launch import serve
+
+    smoke = ["--arch", "qwen3-1.7b", "--sparse", "--smoke", "--batch", "4", "--prompt-len", "32",
+             "--gen", "16"]
+    eng_grid = np.stack(serve.main(smoke).tokens)
+    legacy_grid = np.stack(serve.main(smoke + ["--legacy-server"]).tokens)
+    if not np.array_equal(eng_grid, legacy_grid):
+        raise AssertionError(f"smoke legacy grid differs from the engine's:\n{legacy_grid}\n{eng_grid}")
+    full = CLI_FULL + ["--batch", "8", "--prompt-len", "128", "--gen", "16"]
+    for k in kernels.values():
+        k.launches = 0
+    legacy = serve.main(full + ["--legacy-server"])
+    launches = {name: k.launches for name, k in kernels.items()}
+    if launches["bsr_matmul"] <= 0:
+        raise AssertionError("bsr_matmul was never launched by the full-width Server")
+    engine = serve.main(full)
+    a, b = np.stack(legacy.tokens), np.stack(engine.tokens)
+    del engine
+    torch.cuda.empty_cache()
+    out = {"smoke_grids_equal": True, "full_equal_share": float((a == b).mean()),
+           "full_first_token_equal_share": float((a[:, 0] == b[:, 0]).mean()),
+           "server_generate_s": legacy.wall_s, "server_tok_s": a.size / legacy.wall_s,
+           "launches": launches, "card": smi}
+    log(f"[9b] --legacy-server: smoke-width fp32 grid (4 x 16) equal to the engine's on the card; full width "
+        f"8 x 16 tokens in {legacy.wall_s:.2f} s ({out['server_tok_s']:.1f} tok/s), equal to the engine's "
+        f"on {out['full_equal_share']:.3f} of tokens ({out['full_first_token_equal_share']:.3f} of first "
+        f"tokens; reported, not gated); launches {launches}")
+    return out
+
+
+def observability_cost(full, seed, smi):
+    """(c) Two full-width engines on one state dict, one with trace,
+    monitor, SLO and flight recorder on, the other bare, serve the same 8
+    greedy requests (prompt 256, 32 new) in turns off, on, on, off. Per
+    turn: decode-step p50; on the traced engine: host us per
+    ``_observe_step`` and the p50 of host_sync's share of decode_step from
+    its trace; and the tracer's ns per event. (d) uses the traced engine."""
+    from repro_torch.obs import SloConfig, Tracer
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    flight = ROOT / "build" / "chip_smoke_obs" / "incidents"
+    obs = dict(trace=True, monitor=30.0, slo=SloConfig(target=0.99), flight_dir=str(flight))
+    engines = {False: Engine(full, engine_cfg=EngineConfig(max_slots=8, max_len=2048), seed=seed,
+                             device="cuda")}
+    engines[True] = Engine(full, engine_cfg=EngineConfig(max_slots=8, max_len=2048, **obs),
+                           params=engines[False].model.state_dict(), device="cuda")
+    observe = {"n": 0, "s": 0.0}
+    on_eng = engines[True]
+    real_observe = on_eng._observe_step
+
+    def timed_observe(*a):
+        t0 = time.perf_counter()
+        real_observe(*a)
+        observe["s"] += time.perf_counter() - t0
+        observe["n"] += 1
+
+    on_eng._observe_step = timed_observe
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, full.vocab_size, 256).astype(np.int32) for _ in range(8)]
+    for eng in engines.values():  # warm-up, not counted
+        eng.submit(prompts[0], 4)
+        eng.drain(max_steps=50)
+    turns = []
+    for on in (False, True, True, False):
+        eng = engines[on]
+        eng.reset_stats()
+        observe.update(n=0, s=0.0)
+        for p in prompts:
+            eng.submit(p, 32)
+        eng.drain(max_steps=200)
+        turn = {"traced": on, "decode_step_ms_p50": eng.stats_summary()["p50_token_latency_ms"]}
+        if on:
+            turn["observe_step_us"] = 1e6 * observe["s"] / observe["n"]
+            ev = eng.tracer.events()
+            begins = {}
+            spans = {"decode_step": [], "host_sync": []}
+            for e in ev:
+                if e["name"] in spans:
+                    if e["kind"] == 0:
+                        begins[e["name"]] = e["ts_ns"]
+                    elif e["kind"] == 1:
+                        spans[e["name"]].append(e["ts_ns"] - begins.pop(e["name"]))
+            shares = [h / d for h, d in zip(spans["host_sync"], spans["decode_step"])]
+            turn["host_sync_share_p50"] = statistics.median(shares)
+            turn["trace_events"] = eng.tracer.n_recorded
+        turns.append(turn)
+    tr = Tracer(capacity=1 << 16)
+    tk, nm = tr.track("t"), tr.name("n")
+    n = 200_000
+    t0 = time.perf_counter_ns()
+    for i in range(n):
+        tr.instant(tk, nm, i)
+    instant_ns = (time.perf_counter_ns() - t0) / n
+    t0 = time.perf_counter_ns()
+    for i in range(n // 2):
+        tr.begin(tk, nm, i)
+        tr.end(tk, nm, i)
+    span_ns = (time.perf_counter_ns() - t0) / n
+    del engines[False]
+    torch.cuda.empty_cache()
+    out = {"turns": turns, "tracer_ns_per_instant": instant_ns, "tracer_ns_per_span_event": span_ns,
+           "card": smi}
+    log(f"[9c] observability cost, 8 greedy requests (prompt 256, 32 new), on {smi}: decode step p50 "
+        + " / ".join(f"{t['decode_step_ms_p50']:.2f} ms ({'on' if t['traced'] else 'off'})" for t in turns)
+        + "; _observe_step " + " / ".join(f"{t['observe_step_us']:.1f}" for t in turns if t["traced"])
+        + f" us; tracer {instant_ns:.0f} ns per instant, {span_ns:.0f} ns per B/E event; host_sync / "
+        f"decode_step p50 " + " / ".join(f"{t['host_sync_share_p50']:.3f}" for t in turns if t["traced"]))
+    return out, on_eng
+
+
+def burst_replay(full, eng, step_s, smi):
+    """(d) A ``poisson_burst`` trace replayed through the traced, monitored
+    engine: 8 background requests fill the slots, then 4 priority-5
+    requests with a deadline of 24 steps land; ``step_s`` turns steps
+    into seconds. Prints goodput and the SLO state after each step."""
+    from repro_torch.serving import workloads
+
+    items = workloads.poisson_burst(
+        np.random.default_rng(10), vocab=full.vocab_size, page=full.attn_block, n_background=8,
+        n_burst=4, burst_step=8, background_gen=64, burst_gen=8, deadline_steps=24,
+    )
+    eng.reset_stats()
+    trail = []
+    real_step = eng.step
+
+    def step():
+        fins = real_step()
+        trail.append(eng.slo_state()["state"])
+        return fins
+
+    eng.step = step
+    fins, wall, steps = workloads.replay(eng, items, step_s=step_s)
+    eng.step = real_step
+    g = workloads.goodput(fins, eng.stats_summary())
+    runs = [[k, len(list(grp))] for k, grp in itertools.groupby(trail)]
+    if len(fins) != len(items):
+        raise AssertionError(f"replay finished {len(fins)} of {len(items)} requests")
+    out = {"goodput": g, "wall_s": wall, "steps": steps, "step_s": step_s, "slo_trail": runs, "card": smi}
+    log(f"[9d] poisson_burst replay ({len(items)} requests, {steps} steps, {wall:.2f} s, step_s "
+        f"{step_s * 1e3:.1f} ms) on {smi}: goodput {g}; SLO state trail {runs}")
+    return out
+
 
 
 # ----------------------------------------------------------------------
@@ -1438,7 +1781,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
-    st = eng.stats
+    st = engine_stats(eng)
     if len(fins) != 12 or any(f.finish_reason != "length" or len(f.tokens) != 32 for f in fins):
         raise AssertionError(f"not every request finished with 32 tokens: "
                              f"{[(f.finish_reason, len(f.tokens)) for f in fins]}")
@@ -1615,7 +1958,19 @@ def main(argv=None) -> int:
     report["family"] = family
     log(f"[8] phase 8 took {family['wall_s']:.1f} s")
 
-    # ---- 9. report -------------------------------------------------
+    # ---- 9. the serve CLI, the Server oracle, observability ---------
+    t9 = time.perf_counter()
+    cli = {"cli": serve_cli_full_width(full, kernels, smi), "legacy": legacy_server(kernels, smi)}
+    cli["cost"], traced = observability_cost(full, args.seed, smi)
+    step_s = statistics.median(t["decode_step_ms_p50"] for t in cli["cost"]["turns"] if t["traced"]) / 1e3
+    cli["replay"] = burst_replay(full, traced, step_s, smi)
+    del traced
+    torch.cuda.empty_cache()
+    cli["wall_s"] = time.perf_counter() - t9
+    report["serve"] = cli
+    log(f"[9] phase 9 took {cli['wall_s']:.1f} s")
+
+    # ---- 10. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -1663,8 +2018,9 @@ def main(argv=None) -> int:
             "library_ms": attn_main["library_ms"],
         },
     ]}
-    for k in line["kernels"]:  # the launches of phases 6, 7 and 8, counted apart
+    for k in line["kernels"]:  # the launches of phases 6, 7, 8 and 9, counted apart
         k["launches_phase6"] = report["features"]["launches"][k["name"]]
+        k["launches_phase9"] = cli["cli"]["launches"][k["name"]]
         k["launches_training"] = report["training"]["full_width"]["launches"][k["name"]]
         k["launches_phase8"] = sum(family[a][part]["launches"][k["name"]]
                                    for a in FAMILY for part in ("serving", "training"))
@@ -1677,7 +2033,7 @@ def main(argv=None) -> int:
                              f"SDPA's {paged_main['library_ms']:.4f} ms on the same inputs")
     report["wall_s"] = time.perf_counter() - T_START
     out.write_text(json.dumps(report, indent=1))
-    log(f"[9] chip_smoke.py took {report['wall_s']:.1f} s")
+    log(f"[10] chip_smoke.py took {report['wall_s']:.1f} s")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -8,6 +8,10 @@ source is rebuilt and an unchanged one is loaded as it is. Nothing is built
 when a module is imported: ``build()`` runs at a kernel's first launch, or
 when a caller asks for it, and then compiles every missing source at once,
 one ``nvcc`` process each.
+
+Every ``nvcc`` run and every ``ctypes`` load of a library is counted in
+``events_total()``: the port's counterpart of a backend compile in the JAX
+package, read by ``analysis.guards.compile_events_total``.
 """
 
 from __future__ import annotations
@@ -17,11 +21,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "CudaKernel", "check_aligned", "dtype_code"]
+__all__ = [
+    "SOURCES", "BUILD_DIR", "build", "events_total", "CudaKernel", "check_aligned",
+    "dtype_code",
+]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -31,6 +39,23 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
 )
+# kernel-library builds and loads in this process (the libraries are
+# process-wide, as the JAX package's compile cache is)
+_events = 0
+_events_lock = threading.Lock()
+
+
+def _count_event() -> None:
+    global _events
+    with _events_lock:
+        _events += 1
+
+
+def events_total() -> int:
+    """Kernel-library builds (``nvcc`` runs) and loads (``ctypes``) so far
+    in this process."""
+    with _events_lock:
+        return _events
 
 
 def _nvcc() -> str:
@@ -72,6 +97,7 @@ def build(sources: tuple[str, ...] = SOURCES) -> dict[str, Path]:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
         running.append((source, lib, tmp, proc))
+        _count_event()
     failed = []
     for source, lib, tmp, proc in running:
         log, _ = proc.communicate()
@@ -124,6 +150,7 @@ class CudaKernel:
 
     def _load(self) -> None:
         lib = ctypes.CDLL(str(build((self.source,))[self.source]))
+        _count_event()
         fn = getattr(lib, self.symbol)
         fn.argtypes = [*self.argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int

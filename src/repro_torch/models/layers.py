@@ -39,6 +39,8 @@ __all__ = [
     "prefill_schedule",
     "sparse_prefill_attention",
     "prefix_flash_attention",
+    "decode_attention",
+    "sparse_decode_attention",
     "paged_sparse_schedule",
     "paged_dense_schedule",
     "DecodeIndex",
@@ -356,6 +358,73 @@ def prefix_flash_attention(
 
 
 # ----------------------------------------------------------------------
+# Decode attention over a contiguous cache (the fixed-batch Server's path)
+# ----------------------------------------------------------------------
+
+
+def _decode_softmax_out(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ok: torch.Tensor, sm_scale: float
+) -> torch.Tensor:
+    """q (B,1,Hk,G,D) against k, v (B,Sk,Hk,D) where ``ok`` (Sk,) is True:
+    fp32 scores and P @ V with P rounded to v's dtype, as the JAX
+    package's grouped einsums with an fp32 preferred type. A row with no
+    visible key gives 0."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * sm_scale
+    s = s.masked_fill(~ok, float("-inf"))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return o.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: int,
+    *,
+    sm_scale: float,
+) -> torch.Tensor:
+    """Single-token decode, the JAX package's ``decode_attention_jnp``: q
+    (B,1,Hk,G,D) against the cache (B,S,Hk,D) at positions <= ``pos``.
+    Plain torch ops: the JAX package computes it in jnp, with no kernel."""
+    ok = torch.arange(k_cache.shape[1], device=q.device) <= pos
+    return _decode_softmax_out(q, k_cache, v_cache, ok, sm_scale)
+
+
+def sparse_decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: int,
+    *,
+    sm_scale: float,
+    block: int,
+    local_blocks: int,
+    global_blocks: int,
+) -> torch.Tensor:
+    """Pixelfly-sparse decode over a contiguous cache, the JAX package's
+    ``sparse_decode_attention_jnp``: the query reads only the key blocks
+    of its global, local and butterfly schedule. The contiguous cache is
+    the paged layout with an identity page table, so the schedule is
+    ``paged_sparse_schedule``'s; a block listed twice (an XOR collision)
+    is read once."""
+    b, _, hk, _, d = q.shape
+    nb = k_cache.shape[1] // block
+    table = torch.arange(nb, dtype=torch.int32, device=q.device)[None]
+    pos_t = torch.full((1,), pos, dtype=torch.int32, device=q.device)
+    idx, _, first = paged_sparse_schedule(
+        table, pos_t, block, local_blocks=local_blocks, global_blocks=global_blocks
+    )
+    idx, first = idx[0].long(), first[0].bool()  # (w,)
+    w = idx.shape[0]
+    kg = k_cache.reshape(b, nb, block, hk, d)[:, idx].reshape(b, w * block, hk, d)
+    vg = v_cache.reshape(b, nb, block, hk, d)[:, idx].reshape(b, w * block, hk, d)
+    kpos = (idx[:, None] * block + torch.arange(block, device=q.device)[None]).reshape(-1)
+    ok = (kpos <= pos) & first.repeat_interleave(block)
+    return _decode_softmax_out(q, kg, vg, ok, sm_scale)
+
+
+# ----------------------------------------------------------------------
 # Paged decode attention
 # ----------------------------------------------------------------------
 
@@ -575,7 +644,7 @@ def apply_attention(
     mode: str,
     cache: dict[str, torch.Tensor] | None = None,
     index: DecodeIndex | None = None,
-    pos: torch.Tensor | None = None,
+    pos: torch.Tensor | int | None = None,
     prefix_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
     """Returns (y, fresh K/V). x (B, S, d_model); cos/sin from
@@ -596,6 +665,13 @@ def apply_attention(
     prefix keys and their own causal window (``prefix_flash_attention``);
     the fresh suffix (k, v) are returned for the caller's page scatter and
     the shared prefix pages are only read.
+
+    ``mode="decode"``: one token per row at the shared position ``pos``
+    (an int) against a contiguous cache ``{"k", "v"}`` (B, S_max, Hk, D):
+    the token's K/V are written at ``pos`` in place, then read with
+    ``sparse_decode_attention`` when the model has sparse attention and
+    S_max is a multiple of at least two attention blocks, else
+    ``decode_attention`` (the JAX package's ``decode``/``decode_sparse``).
 
     ``mode="decode_paged"``: one token per slot (S = 1). ``cache`` holds
     this layer's pools ``k``/``v`` (n_pages, page, Hk, D); the token's K/V
@@ -653,6 +729,18 @@ def apply_attention(
             index.phys, index.logical, index.keep, pos,
             sm_scale=scale,
         )
+    elif mode == "decode":
+        kc, vc = cache["k"], cache["v"]
+        kc[:, pos] = k[:, 0].to(kc.dtype)
+        vc[:, pos] = v[:, 0].to(vc.dtype)
+        smax = kc.shape[1]
+        if c.sparse_attention and smax % c.attn_block == 0 and smax >= 2 * c.attn_block:
+            o = sparse_decode_attention(
+                qg, kc, vc, pos, sm_scale=scale, block=c.attn_block,
+                local_blocks=c.attn_local_blocks, global_blocks=c.attn_global_blocks,
+            )
+        else:
+            o = decode_attention(qg, kc, vc, pos, sm_scale=scale)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
     y = attn.wo(o.reshape(b, s, c.q_dim))

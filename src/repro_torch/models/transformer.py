@@ -8,6 +8,9 @@ layer i reads and writes ``pool[i]`` in place.
 
 Entry points:
   init_model(cfg, seed=, device=, params=)         -> LM
+  init_cache(cfg, batch, max_len, device=)         -> [{"k", "v"}] per group
+  prefill(cfg, model, batch)       -> ((B, V) last-token logits, caches)
+  decode_step(cfg, model, caches, tokens, pos)     -> ((B, V) logits, caches)
   init_paged_cache(cfg, n_pages, page, device=)    -> [{"k", "v"}] per group
   prefill_paged(cfg, model, tokens, plens, caches, page_rows,
                 prefix_rows=, prefix_lens=, full_tokens=, full_plens=,
@@ -20,7 +23,9 @@ Entry points:
                                      or (tokens (B,), caches, presence)
   forward_train(cfg, model, batch) -> (loss, {"nll", "lb_loss"})
 Every entry point runs on the card unless the caller passes another device.
-The two serving entry points build no autograd graph (``torch.no_grad``);
+``init_cache``/``prefill``/``decode_step`` are the contiguous-cache path
+of the fixed-batch ``launch.serve.Server``. The serving entry points
+build no autograd graph (``torch.no_grad``);
 ``forward_train`` does, and recomputes each layer in the backward when
 ``cfg.remat`` is set.
 """
@@ -40,6 +45,9 @@ __all__ = [
     "Block",
     "LM",
     "init_model",
+    "init_cache",
+    "prefill",
+    "decode_step",
     "init_paged_cache",
     "prefill_paged",
     "decode_step_paged",
@@ -126,6 +134,22 @@ def init_model(
     return model
 
 
+def init_cache(
+    cfg: ModelConfig, batch: int, max_len: int, *, device: str | torch.device | None = None
+) -> list[dict[str, torch.Tensor]]:
+    """Contiguous per-row caches, one ``{"k", "v"}`` per layer group, each
+    (count, batch, max_len, Hk, D) in the model dtype, zeros."""
+    dev = resolve_device(device)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return [
+        {
+            name: torch.zeros((g.count, *shape), dtype=cfg.torch_dtype, device=dev)
+            for name in ("k", "v")
+        }
+        for g in cfg.layer_groups()
+    ]
+
+
 def init_paged_cache(
     cfg: ModelConfig, n_pages: int, page: int, *, device: str | torch.device | None = None
 ) -> list[dict[str, torch.Tensor]]:
@@ -144,11 +168,62 @@ def init_paged_cache(
 
 
 def _layer_pools(cfg: ModelConfig, caches: list) -> list[dict[str, torch.Tensor]]:
-    """Per-layer views ``{"k": pool[i], "v": pool[i]}`` in layer order."""
+    """Per-layer views ``{"k": pool[i], "v": pool[i]}`` in layer order
+    (paged pools or contiguous caches alike)."""
     out = []
     for g, pool in zip(cfg.layer_groups(), caches):
         out.extend({"k": pool["k"][i], "v": pool["v"][i]} for i in range(g.count))
     return out
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, model: LM, batch: dict) -> tuple[torch.Tensor, list]:
+    """Full-sequence inference pass, the JAX package's ``prefill``: batch
+    {"tokens": (B, S)} (a tensor or numpy, moved to the model's device) ->
+    (logits of the last token (B, V), caches [{"k", "v"}] per layer group,
+    each (count, B, S, Hk, D))."""
+    tokens = torch.as_tensor(batch["tokens"], device=model.embed.tok.device).long()
+    x = L.embed_tokens(model.embed, tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    fresh = []
+    for blk in model.layers:
+        h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
+        y, kv = L.apply_attention(cfg, blk.attn, h, cos, sin, mode="prefill")
+        fresh.append(kv)
+        x = x + y
+        x = x + L.apply_mlp(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, x, cfg.norm_eps))
+    x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
+    logits = L.lm_logits(cfg, model.head, model.embed, x[:, -1])
+    caches, i = [], 0
+    for g in cfg.layer_groups():
+        group = fresh[i : i + g.count]
+        caches.append({
+            name: torch.stack([kv[j] for kv in group]) for j, name in enumerate(("k", "v"))
+        })
+        i += g.count
+    return logits, caches
+
+
+@torch.no_grad()
+def decode_step(
+    cfg: ModelConfig, model: LM, caches: list, tokens: torch.Tensor, pos: int
+) -> tuple[torch.Tensor, list]:
+    """One decode step over contiguous caches, the JAX package's
+    ``decode_step``: tokens (B,), every row at position ``pos`` (an int).
+    Each layer writes its K/V at ``pos`` in place (the JAX package returns
+    new caches). Returns (logits (B, V), caches)."""
+    x = L.embed_tokens(model.embed, tokens.long()[:, None])
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.long, device=x.device)
+    cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    for blk, cache in zip(model.layers, _layer_pools(cfg, caches)):
+        h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
+        y, _ = L.apply_attention(cfg, blk.attn, h, cos, sin, mode="decode", cache=cache, pos=pos)
+        x = x + y
+        x = x + L.apply_mlp(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, x, cfg.norm_eps))
+    x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
+    return L.lm_logits(cfg, model.head, model.embed, x[:, 0]), caches
 
 
 @torch.no_grad()

@@ -35,24 +35,49 @@ resume with the same stream later. Requests that could never fit are
 rejected (``REJECT_TOO_LARGE``), and queue-wait timeouts give
 ``REJECT_TIMEOUT``.
 
-Not ported yet, and refused with ``NotImplementedError``: tracing, live
-monitoring, SLO shedding and the flight recorder.
+Observability (``repro_torch.obs``, the JAX package's ``obs``): the
+stats are ``ServeStats``/``SwapStats``/``PrefixStats`` views over one
+metrics registry with the JAX package's metric names; with
+``EngineConfig(trace=)`` a span tracer records the admission, prefill,
+decode-step and host-fetch phases of every step and each slot's
+lifecycle (Perfetto export); ``monitor``/``slo``/``flight_dir`` add the
+live plane: a rolling window ticked once per step (``windowed_vars``,
+``/vars``), a burn-rate SLO monitor that may shed queued requests, and
+incident bundles on step-time spikes, kernel-library builds after
+warm-up and SLO CRITICAL transitions. All of it runs on the host after
+the step's one fetch; with every option off the step pays one no-op
+tracer call a site and never reads the tracer's clock.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import threading
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.guards import compile_events_total
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.obs import (
+    NULL_TRACER,
+    BurnRateMonitor,
+    FlightRecorder,
+    MetricsRegistry,
+    SloConfig,
+    SpikeDetector,
+    Tracer,
+    WindowedView,
+)
+from repro_torch.obs.slo import CRITICAL
 from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving.kv_cache import PagedKVCache
-from repro_torch.serving.prefix import PrefixCache
+from repro_torch.serving.prefix import PrefixCache, PrefixStats
 from repro_torch.serving.request import (
+    REJECT_SHED,
     REJECT_TIMEOUT,
     REJECT_TOO_LARGE,
     FinishedRequest,
@@ -62,7 +87,8 @@ from repro_torch.serving.request import (
 )
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import Scheduler
-from repro_torch.serving.swap import SwapManager, SwapRecord
+from repro_torch.serving.stats import ServeStats
+from repro_torch.serving.swap import SwapManager, SwapRecord, SwapStats
 
 __all__ = ["Engine", "EngineConfig"]
 
@@ -78,7 +104,16 @@ class EngineConfig:
     the sampler's candidate cap C (0 -> the whole vocabulary; requests may
     not ask for top_k beyond it); ``prefix_cache`` radix-tree prefix reuse;
     ``preemption`` and its hysteresis ``preempt_min_steps``.
-    ``spike_factor`` is kept for the interface and not used."""
+
+    ``trace``: span tracing (True for the default ring of 65536 events,
+    an int for an explicit capacity). ``monitor``: the live plane, True
+    for a 30 s rolling window, a float for a window in seconds. ``slo``:
+    a ``repro_torch.obs.SloConfig`` burn-rate monitor (implies monitoring
+    and widens the window to its slow timescale). ``flight_dir``: incident
+    bundles under that directory when a decode step takes more than
+    ``spike_factor`` times its warm EWMA, when a kernel library is built
+    or loaded after the first clean step, and on SLO CRITICAL
+    transitions. All default off."""
 
     def __init__(
         self,
@@ -113,8 +148,16 @@ class EngineConfig:
         if preempt_min_steps < 1:
             raise ValueError("preempt_min_steps must be >= 1")
         self.preempt_min_steps = preempt_min_steps
+        if trace is not True and trace is not False and int(trace) < 0:
+            raise ValueError("trace must be a bool or a capacity >= 0")
         self.trace = trace
+        # identity checks, not equality: 1.0 == True in Python, and a
+        # 1-second window must not be mistaken for the bool default
+        if monitor is not True and monitor is not False and float(monitor) <= 0:
+            raise ValueError("monitor must be a bool or a window in seconds > 0")
         self.monitor = monitor
+        if slo is not None and not isinstance(slo, SloConfig):
+            raise TypeError("slo must be a repro_torch.obs.SloConfig or None")
         self.slo = slo
         self.flight_dir = flight_dir
         if spike_factor <= 1.0:
@@ -130,14 +173,17 @@ class EngineConfig:
             raise ValueError("sampler_candidates must be >= 0")
         self.sampler_candidates = sampler_candidates or None
 
-    def unported(self) -> list[str]:
-        """The options set here that the port's engine does not serve yet,
-        each with the ROADMAP item that brings it."""
-        return [
-            f"{name} (ROADMAP Queue 1 item 4)"
-            for name in ("trace", "monitor", "slo", "flight_dir")
-            if getattr(self, name) not in (False, None)
-        ]
+    @property
+    def monitor_window_s(self) -> float | None:
+        """Rolling-window retention in seconds (None = the live plane is
+        off); ``slo`` implies monitoring and widens the window to cover
+        its slow burn timescale."""
+        if self.monitor is False and self.slo is None:
+            return None
+        w = 30.0 if self.monitor is True or self.monitor is False else float(self.monitor)
+        if self.slo is not None:
+            w = max(w, self.slo.slow_window_s)
+        return w
 
     def rounded(self, page: int) -> "EngineConfig":
         """A copy with ``max_len`` rounded up to a whole page."""
@@ -182,11 +228,6 @@ class Engine:
         and dtype match); without it the weights are random from ``seed``
         (``transformer.init_model``)."""
         ecfg = (engine_cfg or EngineConfig()).rounded(cfg.attn_block)
-        unported = ecfg.unported()
-        if unported:
-            raise NotImplementedError(
-                "not ported to the PyTorch engine yet: " + ", ".join(unported)
-            )
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = T.resolve_device(device)
@@ -195,7 +236,20 @@ class Engine:
             cfg, ecfg.max_slots, ecfg.max_len, n_pages=ecfg.n_pages,
             device=self.device,
         )
-        self.scheduler = Scheduler(ecfg.max_slots)
+        # one metrics registry (ServeStats, SwapStats and PrefixStats are
+        # views over it) and a span tracer; with trace off the no-op
+        # tracer keeps every call site branch-free
+        self.metrics = MetricsRegistry()
+        if ecfg.trace:
+            self.tracer = Tracer(capacity=(1 << 16) if ecfg.trace is True else int(ecfg.trace))
+        else:
+            self.tracer = NULL_TRACER
+        self._intern_trace_ids()
+        self.scheduler = Scheduler(
+            ecfg.max_slots,
+            on_event=self._sched_event if self.tracer.enabled else None,
+        )
+        self.stats = ServeStats(self.metrics)
         # Slot-indexed sampling state: host rows written at admission,
         # uploaded once per change (``_samp_dev``) and read by the sampler
         # on the device; ``presence`` ((slots, V+1) bool, column V absorbs
@@ -219,10 +273,11 @@ class Engine:
         # slots whose request needs the sampler (noise or presence); an
         # empty set keeps the step on the plain argmax
         self._fancy_slots: set[int] = set()
-        self._prefix = PrefixCache(self.kv) if ecfg.prefix_cache else None
+        self._prefix = PrefixCache(self.kv, metrics=self.metrics) if ecfg.prefix_cache else None
         self.swap = SwapManager(
             self.kv,
             page_in_tree=self._prefix.page_in_tree if self._prefix else None,
+            metrics=self.metrics,
         )
         # uid -> (state, record) of swapped-out sequences; their requests
         # wait in the queue and resume (swap in) instead of prefilling
@@ -242,50 +297,70 @@ class Engine:
         self._cow_reserve: dict[int, int] = {}
         self._uid = 0
         self._step_idx = 0
-        self.stats = self._fresh_stats()
+        # ---- live plane (all opt-in; see EngineConfig) ---------------
+        window_s = ecfg.monitor_window_s
+        # re-reads self.metrics every tick, so the view follows
+        # reset_stats()'s registry swap (the window restarts from zero)
+        self._window = (
+            WindowedView(lambda: self.metrics, window_s=window_s)
+            if window_s is not None
+            else None
+        )
+        # serialises window ticks and reads between the step loop and
+        # the scrape thread (obs.http handlers), which touch host objects
+        # only, never a device tensor
+        self._obs_lock = threading.Lock()
+        self._slo_mon = BurnRateMonitor(self._window, ecfg.slo) if ecfg.slo is not None else None
+        self._flight = FlightRecorder(ecfg.flight_dir) if ecfg.flight_dir else None
+        self._spike = SpikeDetector(factor=ecfg.spike_factor) if self._flight is not None else None
+        # kernel-library captures arm after the first clean step: the
+        # first launches of each kernel build or load its library
+        self._flight_armed = False
 
-    @staticmethod
-    def _fresh_stats() -> dict:
-        return {
-            "finished": 0,
-            "rejected": 0,
-            "generated_tokens": 0,
-            "prefill_calls": 0,
-            "prefill_tokens": 0,
-            "prefill_s": 0.0,
-            "decode_steps": 0,
-            "decode_tokens": 0,
-            "decode_step_s": [],
-            "ttft_s": [],
-            # device-to-host fetches (the one per prefill call and per
-            # decode step)
-            "host_fetches": 0,
-            # sampling kind -> {"requests", "tokens"} of finished requests
-            "by_sampler": {},
-            "pages_reclaimed_early": 0,
-            # prefix cache: admissions looked up and those that hit, the
-            # prompt tokens they held, tokens and pages served from the
-            # cache, decode-written pages indexed at finish, copy-on-write
-            # splits
-            "prefix_lookups": 0,
-            "prefix_hits": 0,
-            "prefix_prompt_tokens": 0,
-            "prefix_hit_tokens": 0,
-            "prefix_hit_pages": 0,
-            "decode_indexed_pages": 0,
-            "cow_copies": 0,
-            "preemptions": 0,
-            "resumes": 0,
+    @property
+    def paged_impl(self) -> str:
+        """The paged decode read: the CUDA kernel on the card, the plain
+        gather on the CPU (``kernels.ops`` picks by device)."""
+        return "cuda" if self.device.type == "cuda" else "plain"
+
+    # ---- observability -----------------------------------------------
+    def _intern_trace_ids(self) -> None:
+        """Resolve every track and name id the engine records, so the hot
+        path does no string work (the no-op tracer returns 0 for all)."""
+        tr = self.tracer
+        self._tk_admission = tr.track("engine:admission")
+        self._tk_prefill = tr.track("engine:prefill")
+        self._tk_decode = tr.track("engine:decode")
+        self._tk_sync = tr.track("engine:host_sync")
+        self._tk_queue = tr.track("queue")
+        self._tk_slot = [tr.track(f"slot{i}") for i in range(self.ecfg.max_slots)]
+        self._nm_admission = tr.name("admission")
+        self._nm_prefill = tr.name("prefill")
+        self._nm_decode_step = tr.name("decode_step")
+        self._nm_host_sync = tr.name("host_sync")
+        self._nm_queued = tr.name("queued")
+        self._nm_decode = tr.name("decode")
+        self._nm_finished = tr.name("finished")
+        self._nm_rejected = tr.name("rejected")
+        self._nm_swap_out = tr.name("swap_out")
+        self._nm_swap_in = tr.name("swap_in")
+        self._nm_preempt = tr.name("preempt")
+        self._nm_cow = tr.name("cow_split")
+        self._nm_prefix_match = tr.name("prefix_match")
+        # counter lanes, one sample each a step: pool occupancy, queue
+        # depth, running slots
+        self._tk_counters = tr.track("counters")
+        self._nm_ctr_live = tr.name("pool_live_pages")
+        self._nm_ctr_queue = tr.name("queue_depth")
+        self._nm_ctr_running = tr.name("running_slots")
+        self._sched_names = {
+            kind: tr.name(kind) for kind in ("submit", "admit", "resume", "remove")
         }
 
-    def reset_stats(self) -> None:
-        """Zero the per-run counters; the radix tree's contents stay."""
-        self.stats = self._fresh_stats()
-
-    def _fetch(self, t: torch.Tensor) -> np.ndarray:
-        """The engine's one way to read the device: a counted fetch."""
-        self.stats["host_fetches"] += 1
-        return t.cpu().numpy()
+    def _sched_event(self, kind: str, req: Request) -> None:
+        """Scheduler hook -> queue-track instants (bound only when tracing
+        is on)."""
+        self.tracer.instant(self._tk_queue, self._sched_names[kind], req.uid)
 
     # ---- request intake ----------------------------------------------
     def submit(
@@ -333,7 +408,14 @@ class Engine:
         return self._uid
 
     def _reject(self, req: Request, reason: str) -> FinishedRequest:
-        self.stats["rejected"] += 1
+        self.stats.record_reject(
+            reason,
+            # shed requests are left out of SLO accounting: shedding is the
+            # burn-rate monitor's response to misses, and counting sheds
+            # as new misses would latch CRITICAL
+            had_deadline=req.schedule.deadline_s is not None and reason != REJECT_SHED,
+        )
+        self.tracer.instant(self._tk_queue, self._nm_rejected, req.uid)
         return FinishedRequest(
             uid=req.uid,
             prompt=req.prompt,
@@ -446,7 +528,8 @@ class Engine:
             if self._cow_reserve.get(slot, 0) > 0:
                 self._cow_reserve[slot] -= 1
                 self._page_need[slot] -= 1
-            self.stats["cow_copies"] += 1
+            self.stats.record_cow()
+            self.tracer.instant(self._tk_slot[slot], self._nm_cow, p)
 
     def _reserved_pages(self) -> int:
         """Pages promised to active sequences but not yet allocated."""
@@ -599,7 +682,13 @@ class Engine:
         """Swap one running sequence out to host memory and re-queue its
         request."""
         slot = state.slot
+        uid = state.request.uid
+        # close the slot's decode span before its pages move; a1 = 1 marks
+        # the close as a preemption, not a finish
+        self.tracer.end(self._tk_slot[slot], self._nm_decode, uid, 1)
+        self.tracer.instant(self._tk_slot[slot], self._nm_preempt, uid)
         record = self.swap.swap_out(slot, max_pin=(state.plen - 1) // self.kv.page)
+        self.tracer.instant(self._tk_slot[slot], self._nm_swap_out, uid, record.n_host)
         self.scheduler.evict(slot)
         self._page_need.pop(slot, None)
         self._cow_reserve.pop(slot, None)
@@ -608,7 +697,7 @@ class Engine:
         self._swapped[state.request.uid] = (state, record)
         self._pending_swaps.append(record)
         self.scheduler.submit(state.request)
-        self.stats["preemptions"] += 1
+        self.stats.record_preemption()
 
     def _resume(self, req: Request, pages: list[int]) -> SequenceState:
         """Swap a preempted sequence back in: adopt the re-matched resident
@@ -621,6 +710,8 @@ class Engine:
         if self.scheduler.resume(state, request=req) is None:
             raise RuntimeError("resume planned without a free slot")
         slot = state.slot
+        self.tracer.instant(self._tk_slot[slot], self._nm_swap_in, req.uid, record.n_host)
+        self.tracer.begin(self._tk_slot[slot], self._nm_decode, req.uid)
         reserve = 1 if pages else 0
         self._page_need[slot] = self._lifetime_pages(req) + reserve
         self._cow_reserve[slot] = reserve
@@ -637,7 +728,7 @@ class Engine:
             seen = np.concatenate([req.prompt, np.asarray(state.generated, np.int32)])
             self._presence[slot] = False
             self._presence[slot, torch.from_numpy(seen).long().to(self.device)] = True
-        self.stats["resumes"] += 1
+        self.stats.record_resume()
         return state
 
     # ---- prefill -----------------------------------------------------
@@ -663,11 +754,24 @@ class Engine:
         full_tokens = np.zeros((nb, npre * self.kv.page + s), np.int32)
         full_plens = np.empty((nb,), np.int32)
         states = []
+        t_admit = time.perf_counter()
         for i, (req, pages) in enumerate(plans):
             state = self.scheduler.admit(self._step_idx, request=req)
             state.resume_step = self._step_idx
             hit = len(pages) * self.kv.page
             state.prefix_hit_tokens = hit
+            # queue wait: submit -> this admission pass, an X span on the
+            # queue track (perf_counter and perf_counter_ns share a clock)
+            wait = t_admit - req.submit_s
+            self.stats.record_queue_wait(wait)
+            self.tracer.complete(
+                self._tk_queue, self._nm_queued,
+                int(req.submit_s * 1e9), int(wait * 1e9), req.uid,
+            )
+            if pages:
+                self.tracer.instant(
+                    self._tk_slot[state.slot], self._nm_prefix_match, req.uid, len(pages)
+                )
             reserve = 1 if pages else 0
             self._page_need[state.slot] = self._lifetime_pages(req) + reserve
             self._cow_reserve[state.slot] = reserve
@@ -683,15 +787,10 @@ class Engine:
             pre_lens[i] = hit
             full_tokens[i, : state.plen] = req.prompt
             full_plens[i] = state.plen
-            if self._prefix is not None:
-                st = self.stats
-                st["prefix_lookups"] += 1
-                st["prefix_hits"] += bool(pages)
-                st["prefix_prompt_tokens"] += state.plen
-                st["prefix_hit_tokens"] += hit
-                st["prefix_hit_pages"] += len(pages)
+            self.stats.record_prefix_lookup(hit, state.plen, len(pages))
             states.append(state)
         t0 = time.perf_counter()
+        t0_ns = self.tracer.begin(self._tk_prefill, self._nm_prefill, s, nb)
         dev = self.device
         args = (
             self.cfg,
@@ -723,17 +822,25 @@ class Engine:
             logits, self.kv.buffers = T.prefill_paged(*args, **kw)
             toks_dev = torch.argmax(logits, dim=-1)
         # the one batched fetch of this group's first tokens
-        toks = self._fetch(toks_dev)
+        toks = toks_dev.cpu().numpy()
+        dt = time.perf_counter() - t0
+        self.tracer.end(self._tk_prefill, self._nm_prefill, s, nb)
+        self.stats.record_host_sync()
         now = time.perf_counter()
-        st = self.stats
-        st["prefill_calls"] += 1
-        st["prefill_tokens"] += int(plens.sum())
-        st["prefill_s"] += now - t0
+        self.stats.record_prefill(
+            int(plens.sum()), dt, emitted=len(states), batch=len(states), bucket=(nb, s)
+        )
+        dur_ns = int(dt * 1e9)
         for i, state in enumerate(states):
             state.generated.append(int(toks[i]))
             state.pos = state.plen
             state.first_token_s = now
-            st["ttft_s"].append(now - state.request.submit_s)
+            self.stats.record_ttft(now - state.request.submit_s)
+            # the slot's prefill interval, then its decode span, open
+            # until finish or preemption
+            slot_track = self._tk_slot[state.slot]
+            self.tracer.complete(slot_track, self._nm_prefill, t0_ns, dur_ns, s, nb)
+            self.tracer.begin(slot_track, self._nm_decode, state.request.uid)
             if self._prefix is not None:
                 # index the prompt's full pages (hits refresh their LRU
                 # tick; new full pages become matchable now their contents
@@ -748,16 +855,27 @@ class Engine:
         preempting) -> resume swapped sequences -> decode -> evict. Runs
         under ``torch.no_grad()``: the model's parameters are trainable,
         and no step (prefill, decode, sampler, swap) keeps an autograd
-        graph."""
+        graph.
+
+        On the card the launches are asynchronous: the ``decode_step``
+        span covers the host's launches and the wait inside its
+        ``host_sync`` span, where the fetch of the next-token row is the
+        step's one synchronisation."""
         finished: list[FinishedRequest] = list(self._rejected)
         self._rejected.clear()
         self._expire_waiting(finished)
+        # each phase span carries the kernel-library builds and loads seen
+        # while it ran (a1 of its E event): 0 after warm-up
+        c0 = compile_events_total()
+        tr = self.tracer
+        tr.begin(self._tk_admission, self._nm_admission)
         plan = self._plan_admission()
         if self._maybe_preempt(plan):
             # the resources changed: recompute the whole pass so the
             # blocked high-priority request plans first
             self._unplan(plan)
             plan = self._plan_admission()
+        n_admitted = len(plan.resumes)
         for req, pages in plan.resumes:
             self._resume(req, pages)
         cap = self.ecfg.max_prefill_batch
@@ -767,9 +885,12 @@ class Engine:
                 # greedy power-of-two chunks: 3 -> 2 + 1
                 n = 1 << (min(len(plans) - i, cap).bit_length() - 1)
                 for state in self._admit_group(plans[i : i + n], s, npre):
+                    n_admitted += 1
                     if state.done:  # max_new_tokens == 1 or instant EOS
                         finished.append(self._finish(state))
                 i += n
+        c1 = compile_events_total()
+        tr.end(self._tk_admission, self._nm_admission, n_admitted, c1 - c0)
 
         # a prompt that already fills its slot cannot take a decode step
         for st_ in list(self.scheduler.active()):
@@ -777,6 +898,7 @@ class Engine:
                 finished.append(self._finish(st_, reason="capacity"))
 
         active = self.scheduler.active()
+        decode_dt: float | None = None
         if active:
             tokens = np.zeros((self.ecfg.max_slots,), np.int32)
             positions = np.zeros((self.ecfg.max_slots,), np.int32)
@@ -786,6 +908,7 @@ class Engine:
                 tokens[st_.slot] = st_.generated[-1]
                 positions[st_.slot] = st_.pos
             t0 = time.perf_counter()
+            tr.begin(self._tk_decode, self._nm_decode_step, len(active))
             dev = self.device
             pos_dev = torch.from_numpy(positions).to(dev)
             args = (
@@ -813,11 +936,16 @@ class Engine:
                 logits, self.kv.buffers = T.decode_step_paged(*args)
                 toks_dev = torch.argmax(logits, dim=-1)
             # THE one host fetch per decode step: every slot's next token
-            nxt = self._fetch(toks_dev)
-            st = self.stats
-            st["decode_step_s"].append(time.perf_counter() - t0)
-            st["decode_steps"] += 1
-            st["decode_tokens"] += len(active)
+            tr.begin(self._tk_sync, self._nm_host_sync)
+            nxt = toks_dev.cpu().numpy()
+            tr.end(self._tk_sync, self._nm_host_sync, len(active))
+            dt = decode_dt = time.perf_counter() - t0
+            tr.end(
+                self._tk_decode, self._nm_decode_step, len(active),
+                compile_events_total() - c1,
+            )
+            self.stats.record_host_sync()
+            self.stats.record_decode_step(len(active), self.ecfg.max_slots, dt)
             for st_ in active:
                 st_.pos += 1
                 st_.generated.append(int(nxt[st_.slot]))
@@ -830,8 +958,201 @@ class Engine:
         for record in self._pending_swaps:
             self.swap.finalize(record)
         self._pending_swaps.clear()
+        step_compiles = compile_events_total() - c0
+        self.stats.record_step_compiles(step_compiles)
         self._step_idx += 1
+        self._observe_step(decode_dt, len(active), step_compiles)
         return finished
+
+    # ---- live telemetry (end of step, on the host) -------------------
+    def _observe_step(
+        self, decode_dt: float | None, n_active: int, step_compiles: int
+    ) -> None:
+        """End-of-step observability, after the step's one fetch. With
+        tracing, monitoring and the flight recorder all off this is three
+        no-op tracer calls and an early return: no clock read."""
+        tr = self.tracer
+        kv = self.kv
+        live = kv.n_pages - kv.free_pages - kv.cached_pages
+        tr.counter(self._tk_counters, self._nm_ctr_live, live)
+        tr.counter(self._tk_counters, self._nm_ctr_queue, len(self.scheduler.waiting))
+        tr.counter(self._tk_counters, self._nm_ctr_running, n_active)
+        if self._flight is not None:
+            if step_compiles == 0:
+                self._flight_armed = True
+            elif self._flight_armed:
+                # a kernel library was built or loaded mid-traffic
+                self._capture_incident("dispatch_guard_trip", {"step_compiles": step_compiles})
+            if decode_dt is not None:
+                baseline = self._spike.baseline
+                if self._spike.observe(decode_dt):
+                    self._capture_incident(
+                        "step_time_spike",
+                        {
+                            "decode_step_s": decode_dt,
+                            "baseline_s": baseline,
+                            "factor": self.ecfg.spike_factor,
+                        },
+                    )
+        if self._window is None:
+            return
+        self._sample_memory(live)
+        with self._obs_lock:
+            self._window.tick()
+            status = self._slo_mon.evaluate() if self._slo_mon is not None else None
+        if status is None:
+            return
+        self.stats.record_slo_state(status["state_code"], status["fast_burn"], status["slow_burn"])
+        if status["state"] == CRITICAL and self.ecfg.slo.shed:
+            self._shed_queued(self.ecfg.slo.shed_max_per_tick)
+        if status["transitioned_to"] == CRITICAL and self._flight is not None:
+            self._capture_incident("slo_critical", {"slo": status})
+
+    def _device_bytes_in_use(self) -> int:
+        """The caching allocator's bytes in use on the card; 0 on the CPU,
+        which has no allocator statistics (as the JAX package reports 0
+        where its backend has none)."""
+        if self.device.type != "cuda":
+            return 0
+        return int(torch.cuda.memory_stats(self.device)["allocated_bytes.all.current"])
+
+    def _sample_memory(self, live_pages: int) -> None:
+        """Per-step memory gauges: pool occupancy and fragmentation, the
+        copy-on-write reserve, host-swap residency, and the allocator's
+        bytes in use."""
+        host_bytes = sum(rec.n_host for _, rec in self._swapped.values()) * self.swap.page_bytes
+        self.stats.record_memory(
+            n_pages=self.kv.n_pages,
+            live_pages=live_pages,
+            cached_pages=self.kv.cached_pages,
+            reserved_pages=self._reserved_pages(),
+            cow_reserve_pages=sum(self._cow_reserve.values()),
+            host_swap_bytes=host_bytes,
+            device_bytes_in_use=self._device_bytes_in_use(),
+        )
+
+    def _shed_queued(self, max_n: int) -> int:
+        """CRITICAL-state load shed: reject up to ``max_n`` waiting
+        requests of the lowest priority class present, newest first.
+        Swapped-out sequences are exempt (they always resume). Sheds are
+        structured ``REJECT_SHED`` results delivered by the next
+        ``step()``."""
+        cands = [r for r in self.scheduler.waiting if r.uid not in self._swapped]
+        if not cands:
+            return 0
+        lowest = min(r.schedule.priority for r in cands)
+        shed = [r for r in cands if r.schedule.priority == lowest]
+        shed = shed[-max_n:][::-1]
+        for req in shed:
+            self.scheduler.remove(req)
+            self._rejected.append(self._reject(req, REJECT_SHED))
+        return len(shed)
+
+    def _capture_incident(self, kind: str, context: dict) -> str | None:
+        path = self._flight.capture(
+            kind,
+            tracer=self.tracer,
+            metrics=self.metrics,
+            config=self._config_dict(),
+            context={**context, "step": self._step_idx},
+        )
+        if path is not None:
+            self.stats.record_flight_incident(kind)
+        return path
+
+    def _config_dict(self) -> dict:
+        e = self.ecfg
+        return {
+            "max_slots": e.max_slots,
+            "max_len": e.max_len,
+            "n_pages": self.kv.n_pages,
+            "lookahead": e.lookahead,
+            "max_prefill_batch": e.max_prefill_batch,
+            "prefix_cache": e.prefix_cache,
+            "preemption": e.preemption,
+            "paged_impl": self.paged_impl,
+            "spike_factor": e.spike_factor,
+            "slo": dataclasses.asdict(e.slo) if e.slo else None,
+        }
+
+    def windowed_vars(self, span_s: float | None = None) -> dict:
+        """Live rolling-window stats (the ``/vars`` endpoint). Safe from
+        the scrape thread: ticks and reads under the obs lock. A window
+        covering the whole run agrees with ``stats_summary()``'s
+        percentiles."""
+        if self._window is None:
+            return {"enabled": False}
+        with self._obs_lock:
+            w = self._window
+            w.tick()
+
+            def pcts(name: str) -> dict:
+                return {
+                    f"p{q}_ms": round(w.percentile(name, q, span_s) * 1e3, 3)
+                    for q in (50, 95, 99)
+                }
+
+            out = {
+                "enabled": True,
+                "window_s": w.window_s,
+                "covered_s": round(w.covered_s, 3),
+                "ttft_ms": pcts("repro_serve_ttft_seconds"),
+                "queue_wait_ms": pcts("repro_serve_queue_wait_seconds"),
+                "token_latency_ms": pcts("repro_serve_step_latency_seconds"),
+                "tok_s": round(w.rate("repro_serve_generated_tokens_total", span_s), 2),
+                "admitted_per_s": round(w.rate("repro_serve_prefill_requests_total", span_s), 3),
+                "finished_per_s": round(w.rate("repro_serve_requests_finished_total", span_s), 3),
+                "rejected_per_s": round(w.rate("repro_serve_rejected_total", span_s), 3),
+                "queue_depth": len(self.scheduler.waiting),
+                "running_slots": len(self.scheduler.active()),
+                "memory": {
+                    "pool_pages": w.gauge("repro_mem_pool_pages"),
+                    "live_pages": w.gauge("repro_mem_pool_live_pages"),
+                    "cached_pages": w.gauge("repro_mem_pool_cached_pages"),
+                    "reserved_pages": w.gauge("repro_mem_pool_reserved_pages"),
+                    "fragmentation": w.gauge("repro_mem_pool_fragmentation_ratio"),
+                    "host_swap_bytes": w.gauge("repro_mem_host_swap_bytes"),
+                    "device_bytes_in_use": w.gauge("repro_mem_device_bytes_in_use"),
+                },
+            }
+            if self._slo_mon is not None:
+                out["slo"] = dict(self._slo_mon.last)
+            return out
+
+    def window_samples(self, name: str, span_s: float | None = None) -> list[float]:
+        """Raw window samples of one histogram, read under the obs lock."""
+        if self._window is None:
+            return []
+        with self._obs_lock:
+            self._window.tick()
+            return self._window.samples(name, span_s)
+
+    def slo_state(self) -> dict:
+        """Read-only burn-rate status (the ``/slo`` endpoint). The step
+        loop is the only evaluator: a scrape returns the last result and
+        never consumes a state transition."""
+        if self._slo_mon is None:
+            return {"enabled": False}
+        return {"enabled": True, **self._slo_mon.last}
+
+    def roofline(self) -> dict:
+        """The JAX package's roofline record with ``available: False``.
+        There it parses the compiled decode step's HLO against a TPU's
+        peaks; the port has neither, and an H100 roofline of the decode
+        step waits for ROADMAP Queue 1 item 10. The keys and zeros are
+        the JAX package's, so a reader of ``stats_summary()`` sees the
+        same schema."""
+        return {
+            "available": False,
+            "flops": 0.0,
+            "bytes_accessed": 0.0,
+            "collective_bytes": 0.0,
+            "arithmetic_intensity": 0.0,
+            "bottleneck": "unknown",
+            "compute_s": 0.0,
+            "memory_s": 0.0,
+            "collective_s": 0.0,
+        }
 
     def _finish(
         self, state: SequenceState, *, reason: str | None = None
@@ -840,9 +1161,11 @@ class Engine:
         # touched go back to the admission budget with the need entry
         need = self._page_need.pop(state.slot, 0)
         self._cow_reserve.pop(state.slot, None)
-        self.stats["pages_reclaimed_early"] += max(
-            0, need - self.kv.pages_owned(state.slot)
-        )
+        reclaimed = max(0, need - self.kv.pages_owned(state.slot))
+        # close the slot's decode span (opened at admission or resume)
+        slot_track = self._tk_slot[state.slot]
+        self.tracer.end(slot_track, self._nm_decode, state.request.uid, len(state.generated))
+        self.tracer.instant(slot_track, self._nm_finished, state.request.uid)
         if self._prefix is not None:
             # index the decode-written pages too (full blocks only): the
             # next turn of a conversation prompts with this history. The
@@ -850,8 +1173,8 @@ class Engine:
             written = np.concatenate(
                 [state.request.prompt, np.asarray(state.generated[:-1], np.int32)]
             )
-            self.stats["decode_indexed_pages"] += self._prefix.insert(
-                written, self.kv.page_table[state.slot]
+            self.stats.record_decode_indexed(
+                self._prefix.insert(written, self.kv.page_table[state.slot])
             )
         self.scheduler.evict(state.slot)
         # indexed pages are parked instead of freed: a future prompt
@@ -861,6 +1184,8 @@ class Engine:
             keep=None if self._prefix is None else self._prefix.page_in_tree,
         )
         self._fancy_slots.discard(state.slot)
+        if reclaimed:
+            self.stats.record_reclaimed(reclaimed)
         if reason is None:
             eos = state.request.eos_id
             reason = (
@@ -869,13 +1194,7 @@ class Engine:
                 else "length"
             )
         req = state.request
-        st = self.stats
-        st["finished"] += 1
-        st["generated_tokens"] += len(state.generated)
-        kind = st["by_sampler"].setdefault(req.sampling.kind, {"requests": 0, "tokens": 0})
-        kind["requests"] += 1
-        kind["tokens"] += len(state.generated)
-        return FinishedRequest(
+        fin = FinishedRequest(
             uid=req.uid,
             prompt=req.prompt,
             tokens=np.asarray(state.generated, np.int32),
@@ -892,6 +1211,10 @@ class Engine:
             e2e_s=time.perf_counter() - req.submit_s,
             schedule=req.schedule,
         )
+        self.stats.record_finish(
+            kind=req.sampling.kind, tokens=len(state.generated), slo_met=fin.slo_met
+        )
+        return fin
 
     def drain(self, max_steps: int | None = None) -> list[FinishedRequest]:
         """Step until every submitted request has finished (including
@@ -904,3 +1227,39 @@ class Engine:
             if max_steps is not None and steps >= max_steps and not self.scheduler.idle:
                 raise RuntimeError(f"drain did not converge in {max_steps} steps")
         return out
+
+    def reset_stats(self) -> None:
+        """Zero the per-run counters; the radix tree's contents stay.
+
+        The registry and the tracer ring reset together: a fresh registry
+        is built and every stats view rebinds to it (one attribute store
+        each, so a concurrent scrape renders the old or the new registry,
+        never a mix), and the tracer closes its open spans (counted as
+        truncated; their later ``end()`` calls are no-ops) before
+        clearing its ring."""
+        reg = MetricsRegistry()
+        self.stats = ServeStats(reg)
+        self.swap.stats = SwapStats(reg)
+        if self._prefix is not None:
+            self._prefix.stats = PrefixStats(reg)
+        self.metrics = reg
+        self.tracer.reset()
+
+    def stats_summary(self) -> dict:
+        """``ServeStats.summary()`` with the swap counters, the prefix
+        cache's tree counters (when on) and the roofline record."""
+        out = self.stats.summary()
+        out["preemption"].update(self.swap.stats.snapshot())
+        if self._prefix is not None:
+            out["prefix_cache"].update(self._prefix.stats.snapshot())
+            out["prefix_cache"]["enabled"] = True
+            out["prefix_cache"]["cached_pages"] = self.kv.cached_pages
+            # keep the prom gauge in step with the pool
+            self._prefix.stats.set_cached_pages(self.kv.cached_pages)
+        out["roofline"] = self.roofline()
+        return out
+
+    def export_perfetto(self, path: str) -> int:
+        """Write the trace ring as Chrome trace-event JSON (needs
+        ``EngineConfig(trace=...)``); returns the events written."""
+        return self.tracer.export_perfetto(path)

@@ -33,6 +33,7 @@ import heapq
 
 import numpy as np
 
+from repro_torch.obs import MetricsRegistry
 from repro_torch.serving.kv_cache import PagedKVCache
 
 __all__ = ["PrefixCache", "PrefixStats"]
@@ -50,12 +51,38 @@ class _Node:
 
 
 class PrefixStats:
-    """Tree-side counters (plain ints); the engine's stats hold the
-    per-admission hit numbers."""
+    """Tree-side counters, a view over the engine's metrics registry with
+    the JAX package's metric names; ``ServeStats`` holds the per-admission
+    hit numbers."""
 
-    def __init__(self):
-        self.inserted_pages = 0
-        self.evicted_pages = 0
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry if registry is not None else MetricsRegistry()
+        self.registry = reg
+        self._inserted = reg.counter(
+            "repro_prefix_inserted_pages_total",
+            "pages indexed into the radix tree",
+        )
+        self._evicted = reg.counter(
+            "repro_prefix_evicted_pages_total",
+            "radix-indexed pages evicted",
+        )
+        # live tree size; the engine refreshes it from the kv pool in
+        # ``stats_summary``
+        self._cached = reg.gauge(
+            "repro_prefix_cached_pages", "pages currently radix-indexed"
+        )
+
+    inserted_pages = property(lambda self: self._inserted.value)
+    evicted_pages = property(lambda self: self._evicted.value)
+
+    def record_inserted(self, n: int) -> None:
+        self._inserted.inc(n)
+
+    def record_evicted(self, n: int = 1) -> None:
+        self._evicted.inc(n)
+
+    def set_cached_pages(self, n: int) -> None:
+        self._cached.set(n)
 
     def snapshot(self) -> dict:
         return {
@@ -65,12 +92,12 @@ class PrefixStats:
 
 
 class PrefixCache:
-    def __init__(self, kv: PagedKVCache):
+    def __init__(self, kv: PagedKVCache, *, metrics: MetricsRegistry | None = None):
         self.kv = kv
         self._root = _Node(page=-1, parent=None, key=b"")
         self._by_page: dict[int, _Node] = {}
         self._tick = 0
-        self.stats = PrefixStats()
+        self.stats = PrefixStats(metrics)
 
     # ---- keying ------------------------------------------------------
     def _block_key(self, prompt: np.ndarray, i: int) -> bytes:
@@ -125,7 +152,7 @@ class PrefixCache:
                 new += 1
             child.tick = self._tick
             node = child
-        self.stats.inserted_pages += new
+        self.stats.record_inserted(new)
         return new
 
     # ---- eviction ----------------------------------------------------
@@ -168,4 +195,4 @@ class PrefixCache:
         del node.parent.children[node.key]
         del self._by_page[node.page]
         self.kv.release_cached(node.page)
-        self.stats.evicted_pages += 1
+        self.stats.record_evicted(1)

@@ -10,8 +10,9 @@ sampling knobs shape *what* a request decodes, scheduling knobs shape
 is willing to wait in the queue before giving up. The engine's admission
 loop orders the waiting queue by (priority desc, deadline asc, FCFS).
 
-A host-only copy of the JAX package's ``serving/request.py``. The port's
-engine takes priority 0 only so far, so it never preempts.
+It may *preempt* (swap out) a running lower-priority sequence to make
+room for a higher-priority one (``repro_torch.serving.swap``). A
+host-only copy of the JAX package's ``serving/request.py``.
 """
 
 from __future__ import annotations

@@ -35,6 +35,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.obs import MetricsRegistry
 from repro_torch.serving.kv_cache import PagedKVCache
 
 __all__ = ["SwapManager", "SwapRecord", "SwapStats"]
@@ -62,23 +63,71 @@ class SwapRecord:
 
 
 class SwapStats:
-    """Plain counters of swap traffic; ``out_s`` and ``in_s`` are host wall
-    seconds in ``swap_out`` + ``finalize`` and in ``swap_in``."""
+    """View over the engine's metrics registry (``repro_torch.obs``), with
+    the JAX package's metric names. ``out_s`` and ``in_s``, host wall
+    seconds in ``swap_out`` + ``finalize`` and in ``swap_in``, are plain
+    floats beside it: the JAX package has no such metric."""
 
-    def __init__(self):
-        self.swap_outs = 0
-        self.swap_ins = 0
-        self.out_pages = 0
-        self.in_pages = 0
-        self.out_bytes = 0
-        self.in_bytes = 0
-        # shared pages pinned in place of a copy
-        self.pinned_pages = 0
+    def __init__(self, registry: MetricsRegistry | None = None):
+        reg = registry if registry is not None else MetricsRegistry()
+        self.registry = reg
+        self._swap_outs = reg.counter(
+            "repro_swap_outs_total", "sequences swapped out to host"
+        )
+        self._swap_ins = reg.counter(
+            "repro_swap_ins_total", "sequences swapped back in"
+        )
+        self._out_pages = reg.counter(
+            "repro_swap_out_pages_total", "pages copied device->host"
+        )
+        self._in_pages = reg.counter(
+            "repro_swap_in_pages_total", "pages copied host->device"
+        )
+        self._out_bytes = reg.counter(
+            "repro_swap_out_bytes_total", "bytes copied device->host"
+        )
+        self._in_bytes = reg.counter(
+            "repro_swap_in_bytes_total", "bytes copied host->device"
+        )
+        # shared pages spared the copy
+        self._pinned_pages = reg.counter(
+            "repro_swap_pinned_pages_total",
+            "shared pages pinned in place of a copy",
+        )
         self.out_s = 0.0
         self.in_s = 0.0
 
+    swap_outs = property(lambda self: self._swap_outs.value)
+    swap_ins = property(lambda self: self._swap_ins.value)
+    out_pages = property(lambda self: self._out_pages.value)
+    in_pages = property(lambda self: self._in_pages.value)
+    out_bytes = property(lambda self: self._out_bytes.value)
+    in_bytes = property(lambda self: self._in_bytes.value)
+    pinned_pages = property(lambda self: self._pinned_pages.value)
+
+    def record_out(self, pages: int, bytes_: int, pinned: int) -> None:
+        self._swap_outs.inc()
+        self._out_pages.inc(pages)
+        self._out_bytes.inc(bytes_)
+        self._pinned_pages.inc(pinned)
+
+    def record_in(self, pages: int, bytes_: int) -> None:
+        self._in_pages.inc(pages)
+        self._in_bytes.inc(bytes_)
+
+    def record_swap_in(self) -> None:
+        self._swap_ins.inc()
+
     def snapshot(self) -> dict:
-        return dict(vars(self))
+        return {
+            "swap_outs": self.swap_outs,
+            "swap_ins": self.swap_ins,
+            "out_pages": self.out_pages,
+            "in_pages": self.in_pages,
+            "out_bytes": self.out_bytes,
+            "in_bytes": self.in_bytes,
+            "pinned_pages": self.pinned_pages,
+        }
 
 
 class SwapManager:
@@ -87,12 +136,14 @@ class SwapManager:
         kv: PagedKVCache,
         *,
         page_in_tree: Callable[[int], bool] | None = None,
+        metrics: MetricsRegistry | None = None,
     ):
         """``page_in_tree``: the prefix cache's membership probe (None when
-        the cache is off), used as ``free_slot``'s keep hook."""
+        the cache is off), used as ``free_slot``'s keep hook; ``metrics``:
+        the engine's shared registry (the stats view binds to it)."""
         self.kv = kv
         self.page_in_tree = page_in_tree
-        self.stats = SwapStats()
+        self.stats = SwapStats(metrics)
         # bytes one page occupies across every layer pool
         self.page_bytes = sum(
             buf[:, 0].numel() * buf.element_size()
@@ -144,12 +195,10 @@ class SwapManager:
         for p in pin_pages:
             kv.incref(p)  # survives until swap_in/discard releases it
         kv.free_slot(slot, keep=self.page_in_tree)
-        st = self.stats
-        st.swap_outs += 1
-        st.out_pages += len(host_pages)
-        st.out_bytes += len(host_pages) * self.page_bytes
-        st.pinned_pages += n_pin
-        st.out_s += time.perf_counter() - t0
+        self.stats.record_out(
+            len(host_pages), len(host_pages) * self.page_bytes, n_pin
+        )
+        self.stats.out_s += time.perf_counter() - t0
         return record
 
     def finalize(self, record: SwapRecord) -> None:
@@ -205,13 +254,11 @@ class SwapManager:
                     for name, buf in pool.items():
                         up = hpool[name].to(buf.device, non_blocking=True)
                         buf[:, dst] = up[:, sel]
-            st = self.stats
-            st.in_pages += len(rows)
-            st.in_bytes += len(rows) * self.page_bytes
+            self.stats.record_in(len(rows), len(rows) * self.page_bytes)
         for p in record.pin_pages:
             kv.unpin(p)
         record.host = None
-        self.stats.swap_ins += 1
+        self.stats.record_swap_in()
         self.stats.in_s += time.perf_counter() - t0
 
     def discard(self, record: SwapRecord) -> None:

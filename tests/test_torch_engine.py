@@ -51,9 +51,10 @@ def test_streams_equal_reference_engine(sparse):
     got = _serve(eng, work)
     assert got == want
     assert got[len(work) - 1][:2] == ("rejected", REJECT_TOO_LARGE)
-    assert eng.stats["finished"] == len(work) - 1
-    assert eng.stats["generated_tokens"] == sum(gens)
-    assert eng.stats["prefill_calls"] >= 3
+    s = eng.stats_summary()
+    assert s["requests_finished"] == len(work) - 1
+    assert s["generated_tokens"] == sum(gens)
+    assert s["prefill_calls"] >= 3
 
 
 def _small_engine(**kw):
@@ -92,18 +93,28 @@ def test_queue_timeout_rejects():
     assert fins[uid].reject_reason == REJECT_TIMEOUT
 
 
-def test_unported_options_raise():
-    """Only the observability options are still refused; sampling, the
-    prefix cache and priorities are served (their own tests hold them
-    against the JAX engine)."""
+def test_unported_options_raise(tmp_path):
+    """Sampling, the prefix cache, priorities and, since the observability
+    slice, the four observability options are served; what still needs
+    distribution (tensor parallelism, replicas) is refused by the CLI."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import SloConfig
+
     cfg, eng = _small_engine(max_slots=1, max_len=128)
     eng.submit(np.arange(4), 2, sampling=SamplingParams(temperature=0.7))
     eng.submit(np.arange(4), 2, schedule=ScheduleParams(priority=1))
     assert len(eng.drain(max_steps=30)) == 2
     Engine(cfg, engine_cfg=EngineConfig(max_slots=1, max_len=128, prefix_cache=True), device="cpu")
-    for kw in ({"trace": True}, {"monitor": True}, {"slo": object()}, {"flight_dir": "x"}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            Engine(cfg, engine_cfg=EngineConfig(max_slots=1, max_len=128, **kw), device="cpu")
+    obs = {"trace": True, "monitor": True, "slo": SloConfig(), "flight_dir": str(tmp_path / "fl")}
+    for kw in [{k: v} for k, v in obs.items()] + [obs]:
+        eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=1, max_len=128, **kw), device="cpu")
+        eng.submit(np.arange(4), 3)
+        assert len(eng.drain(max_steps=30)) == 1
+    assert eng.tracer.n_recorded > 0 and eng.windowed_vars()["enabled"] and eng.slo_state()["enabled"]
+    smoke = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu"]
+    for flag in (["--tp", "2"], ["--replicas", "2"]):
+        with pytest.raises(SystemExit, match="Queue 1 item 9"):
+            serve.main(smoke + flag)
 
 
 def test_paged_cache_accounting_and_rollback():

@@ -4,7 +4,10 @@ card against the CPU's (greedy, and sampled with the prefix cache and a
 preemption), and the serving pieces that run as plain torch ops on the
 card: the threefry noise and the sampler (equal to the CPU's), the
 copy-on-write page copy and the swap round trip through pinned memory,
-and the partial-prefill attention (1e-5 fp32, 2e-2 bf16). bf16 takes the tensor-core paths
+the partial-prefill attention (1e-5 fp32, 2e-2 bf16), and the engine's
+observability on the card (a valid trace, streams equal with tracing on
+and off, the allocator's bytes in use, no kernel-library build or load
+after warm-up), and the fixed-batch ``Server`` against the engine. bf16 takes the tensor-core paths
 (and, for bsr at M <= 16, the cluster-reduced decode kernel), float32 the
 SIMT kernels; tolerances: bsr 2e-2 bf16 / 1e-4 fp32, attention 2e-2 /
 2e-4, paged decode 1e-2 / 1e-5.
@@ -22,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis.guards import compile_events_total
 from repro_torch.configs import registry
 from repro_torch.core import attn_pattern as ap
 from repro_torch.core import butterfly as bf
@@ -29,8 +33,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bsr_attention import block_sparse_attention_cuda
 from repro_torch.kernels.bsr_matmul import bsr_matmul_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+from repro_torch.launch.serve import Server
 from repro_torch.models import layers as L
 from repro_torch.models.layers import linear_spec, paged_dense_schedule, paged_sparse_schedule
+from repro_torch.obs import SloConfig, validate_trace_file
 from repro_torch.serving import sampling as S
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.kv_cache import PagedKVCache
@@ -432,6 +438,80 @@ def test_engine_streams_equal_cpu(cuda):
     assert serve("cuda") == serve("cpu")
 
 
+def _obs_work(cfg):
+    rng = np.random.default_rng(3)
+    page = cfg.attn_block
+    return [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), g)
+            for n, g in [(40, 6), (3 * page + 9, 8), (2 * page + 1, 5), (page, 7), (9, 6)]]
+
+
+def test_traced_engine_on_card_valid_trace_equal_streams(cuda, tmp_path):
+    """Tracing, the live window, the SLO monitor and the flight recorder
+    on the card: the streams equal the bare engine's, the trace
+    validates with one decode_step span a decode step, and the allocator
+    reports the bytes in use."""
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    work = _obs_work(cfg)
+    streams, engines = {}, {}
+    for on in (False, True):
+        obs = dict(trace=True, monitor=30.0, slo=SloConfig(), flight_dir=str(tmp_path / "fl")) if on else {}
+        eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=2, max_len=8 * cfg.attn_block, **obs),
+                     device=cuda)
+        uids = {eng.submit(p, n, schedule=ScheduleParams(deadline_s=600.0)): i
+                for i, (p, n) in enumerate(work)}
+        streams[on] = {uids[f.uid]: f.tokens.tolist() for f in eng.drain(max_steps=200)}
+        engines[on] = eng
+    assert streams[True] == streams[False]
+    eng = engines[True]
+    out = tmp_path / "trace.json"
+    n = eng.export_perfetto(str(out))
+    rep = validate_trace_file(str(out))
+    s = eng.stats_summary()
+    assert rep["events"] == n and rep["slot_tracks"] == 2 and rep["counter_series"] == 3
+    ends = [e for e in eng.tracer.events() if e["kind"] == 1]
+    assert sum(e["name"] == "decode_step" for e in ends) == s["decode_steps"]
+    assert sum(e["name"] == "host_sync" for e in ends) == s["decode_steps"]
+    in_use = eng.metrics["repro_mem_device_bytes_in_use"].value
+    assert in_use >= eng.kv.memory_bytes() > 0
+    assert eng.windowed_vars()["memory"]["device_bytes_in_use"] == in_use
+    assert s["slo"]["met"] == s["slo"]["with_deadline"] == len(work)
+
+
+def test_no_kernel_library_build_or_load_after_warm_up(cuda):
+    """compile_events_total() moves only while a kernel library is first
+    built or loaded: after the first request's steps, every step reads 0,
+    and each step's count is on its spans and in the registry."""
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=2, max_len=8 * cfg.attn_block, trace=True),
+                 device=cuda)
+    eng.submit(np.arange(3 * cfg.attn_block, dtype=np.int32) % cfg.vocab_size, 3)
+    eng.drain(max_steps=50)  # warm-up: every kernel's library is loaded by now
+    eng.reset_stats()
+    for p, n in _obs_work(cfg):
+        eng.submit(p, n)
+    steps = 0
+    while not eng.scheduler.idle:
+        before = compile_events_total()
+        eng.step()
+        assert compile_events_total() == before
+        steps += 1
+    assert steps > 0 and eng.stats_summary()["dispatch_guard"]["step_compiles"] == 0
+    spans = [e for e in eng.tracer.events() if e["kind"] == 1 and e["name"] in ("admission", "decode_step")]
+    assert spans and all(e["a1"] == 0 for e in spans)
+
+
+def test_server_on_card_equals_engine_grid(cuda):
+    """The fixed-batch oracle on the card: its greedy grid equals the
+    engine's at fp32 smoke width (the verify recipe's check)."""
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    grid = Server(cfg, device=cuda).generate(prompts, 16)
+    eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=4, max_len=32 + 16 + 1), device=cuda)
+    uids = [eng.submit(p, 16) for p in prompts]
+    by = {f.uid: f.tokens for f in eng.drain(max_steps=100)}
+    np.testing.assert_array_equal(grid, np.stack([by[u] for u in uids]))
+
+
 def test_engine_sampled_prefix_preemption_streams_equal_cpu(cuda):
     """Sampled and greedy requests on a shared prefix, prefix cache on,
     and a priority request that preempts a full pool: the same streams
@@ -454,7 +534,7 @@ def test_engine_sampled_prefix_preemption_streams_equal_cpu(cuda):
             fins += eng.step()
         uids[eng.submit(work[0][:9], 6, schedule=ScheduleParams(priority=1))] = 9
         fins += eng.drain(max_steps=300)
-        assert eng.stats["preemptions"] >= 1
+        assert eng.stats.preemptions >= 1
         return {uids[f.uid]: (f.tokens.tolist(), f.prefix_hit_tokens) for f in fins}
 
     assert serve("cuda") == serve("cpu")

@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.launch.serve import Server
+from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Engine
 
@@ -47,3 +49,7 @@ def test_entry_points_default_to_the_card():
         Engine(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         T.init_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Server(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(["--arch", "qwen3-1.7b", "--smoke", "--batch", "1"])

@@ -173,7 +173,7 @@ def test_preempted_streams_bit_exact_greedy_and_sampled():
     assert sum(f.preemptions for f in got.values()) >= 1
     sw = eng.swap.stats
     assert sw.swap_outs >= 1 and sw.out_bytes > 0 and sw.swap_ins == sw.swap_outs
-    assert eng.stats["preemptions"] == eng.stats["resumes"] == sw.swap_outs
+    assert eng.stats.preemptions == eng.stats.resumes == sw.swap_outs
     for ub, ug in zip(base_uids, got_uids):
         np.testing.assert_array_equal(base[ub].tokens, got[ug].tokens)
     vip = got[got_uids[2]]
@@ -193,18 +193,18 @@ def test_priority_request_preempts_full_pool():
                     schedule=ScheduleParams(priority=3, deadline_s=120.0))
     fins += eng.drain(max_steps=500)
     by_uid = {f.uid: f for f in fins}
-    assert eng.stats["preemptions"] >= 1
+    assert eng.stats.preemptions >= 1
     assert all(by_uid[hi].finish_step < by_uid[b].finish_step for b in bg)
     assert all(len(by_uid[b].tokens) == 60 for b in bg)
     # equal priority never preempts
-    pre = eng.stats["preemptions"]
+    pre = eng.stats.preemptions
     for _ in range(2):
         eng.submit(rng.integers(1, 127, 8).astype(np.int32), 30)
     for _ in range(6):
         eng.step()
     eng.submit(rng.integers(1, 127, 8).astype(np.int32), 4)
     eng.drain(max_steps=500)
-    assert eng.stats["preemptions"] == pre
+    assert eng.stats.preemptions == pre
     kv = eng.kv  # page conservation after the swap traffic
     assert kv.free_pages + kv.cached_pages == kv.n_pages - 1
     assert (kv._ref[1:] == 0).sum() == kv.n_pages - 1
@@ -220,7 +220,7 @@ def test_hysteresis_blocks_preemption_of_fresh_sequences():
         eng.step()
     eng.submit(rng.integers(1, 127, 8).astype(np.int32), 4, schedule=ScheduleParams(priority=9))
     fins = eng.drain(max_steps=300)
-    assert eng.stats["preemptions"] == 0 and all(f.preemptions == 0 for f in fins)
+    assert eng.stats.preemptions == 0 and all(f.preemptions == 0 for f in fins)
 
 
 def test_preemption_pins_shared_prefix_pages():
@@ -265,7 +265,7 @@ def test_structured_rejections_and_drain_delivery():
     rej = by_uid[impatient]
     assert rej.rejected and rej.reject_reason == REJECT_TIMEOUT and rej.slo_met is False
     assert all(len(by_uid[b].tokens) == 40 for b in bg)
-    assert eng.stats["rejected"] == 2
+    assert eng.stats_summary()["rejected"]["total"] == 2
 
 
 def test_engine_preemption_equals_jax_engine():

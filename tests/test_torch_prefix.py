@@ -309,8 +309,8 @@ def test_engine_prefix_hit_prefills_only_suffix(monkeypatch):
     assert f1.prefix_hit_tokens == 2 * page
     assert calls == [((1, page), (1, 2))]  # one partial prefill: 1 suffix page, 2 prefix pages
     st = eng.stats
-    assert st["prefill_tokens"] == 9
-    assert st["prefix_hit_tokens"] == 2 * page and st["prefix_prompt_tokens"] == 2 * page + 9
+    assert st.prefill_tokens == 9
+    assert st.prefix_hit_tokens == 2 * page and st.prefix_prompt_tokens == 2 * page + 9
 
 
 def test_engine_decode_pages_indexed_for_multi_turn_chat():
@@ -321,10 +321,10 @@ def test_engine_decode_pages_indexed_for_multi_turn_chat():
     user1 = rng.integers(0, cfg.vocab_size, page).astype(np.int32)
     eng.submit(user1, page + 1)
     f1 = eng.drain(max_steps=200)[0]
-    assert eng.stats["decode_indexed_pages"] == 1
+    assert eng.stats.decode_indexed_pages == 1
     eng.submit(np.concatenate([user1, f1.tokens, rng.integers(0, cfg.vocab_size, page).astype(np.int32)]), 4)
     assert eng.drain(max_steps=40)[0].prefix_hit_tokens == 2 * page
-    assert eng.stats["prefix_hit_pages"] == 2
+    assert eng.stats.prefix_hit_pages == 2
 
 
 def test_engine_prefix_eviction_never_blocks_admission():
@@ -358,7 +358,7 @@ def test_engine_cow_guard_preserves_stream():
     shared = int(eng.kv.page_table[slot, 1])  # the partial write page
     eng.kv.incref(shared)  # phantom second owner
     eng.step()  # the next decode write targets the shared page -> copy
-    assert eng.stats["cow_copies"] == 1
+    assert eng.stats.cow_copies == 1
     assert int(eng.kv.page_table[slot, 1]) != shared and eng.kv.refcount(shared) == 1
     np.testing.assert_array_equal(eng.drain(max_steps=20)[0].tokens, ref)
     eng.kv.unpin(shared)
@@ -388,7 +388,7 @@ def test_cow_reserve_survives_oversubscribed_pool():
     shared = int(eng.kv.page_table[slot, 1])
     eng.kv.incref(shared)
     eng.step()
-    assert eng.stats["cow_copies"] == 1
+    assert eng.stats.cow_copies == 1
     assert eng._cow_reserve[slot] == 0 and eng._page_need[slot] == 2
     fins = {f.uid: f for f in eng.drain(max_steps=60)}
     eng.kv.unpin(shared)

@@ -272,7 +272,7 @@ def test_temperature_zero_exact_greedy_parity():
     want = [f.tokens.tolist() for f in sorted(plain.drain(max_steps=50), key=lambda f: f.uid)]
     got = [f.tokens.tolist() for f in sorted(knobs.drain(max_steps=50), key=lambda f: f.uid)]
     assert got == want
-    assert knobs.stats["by_sampler"] == {"greedy": {"requests": 3, "tokens": 15}}
+    assert knobs.stats_summary()["by_sampler"] == {"greedy": {"requests": 3, "tokens": 15}}
 
 
 def test_seeded_determinism_across_admission_and_buckets():
@@ -296,7 +296,7 @@ def test_seeded_determinism_across_admission_and_buckets():
     fins_b += eng_b.drain(max_steps=120)
     toks_b = {uids_b[f.uid]: f.tokens.tolist() for f in fins_b}
     assert toks_a == toks_b and sorted(toks_a) == list(range(len(reqs)))
-    assert list(eng_a.stats["by_sampler"]) == ["temperature+top_k+top_p"]
+    assert list(eng_a.stats_summary()["by_sampler"]) == ["temperature+top_k+top_p"]
 
 
 def test_sampled_decode_same_host_fetches_as_greedy():
@@ -312,11 +312,12 @@ def test_sampled_decode_same_host_fetches_as_greedy():
         for b in range(3):
             eng.submit(prompts[b], 6, sampling=sampling)
         assert len(eng.drain(max_steps=40)) == 3
-        st = eng.stats
-        return {k: st[k] for k in ("host_fetches", "prefill_calls", "decode_steps")}
+        st = eng.stats_summary()
+        return {"host_syncs": st["dispatch_guard"]["host_syncs"],
+                **{k: st[k] for k in ("prefill_calls", "decode_steps")}}
 
     greedy = serve(None)
-    assert greedy["host_fetches"] == greedy["prefill_calls"] + greedy["decode_steps"]
+    assert greedy["host_syncs"] == greedy["prefill_calls"] + greedy["decode_steps"]
     real_item = torch.Tensor.item
     calls = []
     try:
@@ -343,12 +344,12 @@ def test_eos_early_finish_reclaims_budget_pages():
         return fins[ua], fins[ub], eng.stats
 
     fin_a, fin_b, st = run(None)
-    assert st["pages_reclaimed_early"] == 0
+    assert st.pages_reclaimed_early == 0
     eos = int(fin_a.tokens[1])
     k = [int(t) for t in fin_a.tokens].index(eos)
     fin_a2, fin_b2, st2 = run(eos)
     assert fin_a2.finish_reason == "eos" and len(fin_a2.tokens) == k + 1
-    assert st2["pages_reclaimed_early"] == 1
+    assert st2.pages_reclaimed_early == 1
     assert fin_b2.admit_step < fin_b.admit_step
 
 
@@ -379,4 +380,4 @@ def test_engine_sampled_mix_equals_jax_engine():
     uids = {eng.submit(p, g, sampling=params(i, SamplingParams)): i for i, (p, g) in enumerate(work)}
     got = {uids[f.uid]: f.tokens.tolist() for f in eng.drain(max_steps=200)}
     assert got == want
-    assert set(eng.stats["by_sampler"]) == {"temperature+top_k+top_p+rep_pen", "greedy", "greedy+rep_pen"}
+    assert set(eng.stats_summary()["by_sampler"]) == {"temperature+top_k+top_p+rep_pen", "greedy", "greedy+rep_pen"}
