@@ -101,8 +101,26 @@ Phases; any failure raises and the script exits non-zero:
    ``_observe_step``, tracer ns an event, host_sync's share of a decode
    step from the trace). (d) A ``workloads.poisson_burst`` replay through
    the observed engine: goodput and the SLO state after each step.
-10. The kernels line (with each kernel's launches in phases 5, 6, 7, 8
-   and 9), the script's wall time, then the last line
+10. Vision and the paper's other benchmarks. (a) ``bsr_matmul`` at
+   b = 32 (ViT-B/16's qkv, proj, fc1, fc2), 16 (the ablation example's
+   linears) and 8 (ViT-B/16's MLP at block 8), fp32 and bf16, forward and
+   dX on the transposed pattern, at M in {1, 8, 16, 17} and the path's M
+   (128 x 197, or 8 x 64), against the plain version with phase 3's
+   tolerances; timed at M = 8 and the path's M beside the bound, the plain
+   version and ``x @ bsr_to_dense``. (b) ViT and Mixer at the JAX script's
+   bench width, sparse fp32: logits, every gradient and one SGD step on
+   the card equal the CPU's (logits 1e-4, gradients 1e-4 of each leaf's
+   largest entry, loss 1e-5, parameters 1e-6). (c) ``repro_torch.bench.vision_speedup``
+   at the B/16 widths, bf16, B = 128, dense and pixelfly, ViT and Mixer
+   (2 warm-up, 3 timed, 1 traced step each; finite losses; 2 bsr_matmul
+   launches a step per sparse linear), the counts set to 0 just before.
+   (d) flat vs product, the block microbenchmark, LRA attention and the
+   NTK distances at their defaults. (e) ``repro_torch.examples.
+   sparsity_ablation --smoke`` (the Trainer at linear block 16), the
+   counts set to 0 just before.
+11. The kernels line (with each kernel's launches in phases 5, 6, 7, 8,
+   9 and 10, and a row for the b = 32 tensor-core path at ViT-B/16's
+   shapes), the script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -226,10 +244,39 @@ def digest(t: torch.Tensor) -> str:
 # ----------------------------------------------------------------------
 
 
+def bsr_row(timer, x, blocks, cols, n_in, slots, tol, label, timed=True):
+    """One ``bsr_matmul_cuda`` call against its plain version (its digest
+    says whether two runs gave the same bits), and, if ``timed``, its time
+    beside its bound, the plain version's and ``x @ bsr_to_dense``.
+    ``slots`` is the number of b x b products the pattern needs per row
+    (the forward's, also for dX)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bsr_matmul import bsr_matmul_cuda
+
+    m, b = x.shape[0], blocks.shape[-1]
+    y = bsr_matmul_cuda(x, blocks, cols)
+    torch.cuda.synchronize()
+    dtype = str(x.dtype).split(".")[1]
+    row = {"case": label, "shape": f"M={m} n_in={n_in} nb_out={blocks.shape[0]} r={blocks.shape[1]} b={b}",
+           "dtype": dtype, "tol": tol,
+           "max_abs_err": check_close(f"bsr_matmul {label} M={m} {dtype}", y, ref.bsr_matmul_gather(x, blocks, cols), tol),
+           "out_sha256": digest(y)}
+    if timed:
+        dense = ref.bsr_to_dense(blocks, cols, n_in)
+        nbytes = (x.numel() + blocks.numel() + y.numel()) * x.element_size() + cols.numel() * 4
+        b_ms, b_by = bound_ms(nbytes, 2.0 * m * slots * b * b, dtype)
+        row.update(ms=timer.ms(lambda: bsr_matmul_cuda(x, blocks, cols)),
+                   plain_ms=timer.ms(lambda: ref.bsr_matmul_gather(x, blocks, cols)),
+                   library_ms=timer.ms(lambda: x @ dense), bound_ms=b_ms, bound_by=b_by)
+    return row
+
+
 def bsr_case(timer, lin_spec, m, dtype, seed, tol):
+    """``bsr_row`` for one linear's pattern at M rows, on inputs drawn from
+    ``seed``, with the host time of one call of the wrapper and of
+    ``BsrMatmul`` (what a linear of the serving path pays on the host)."""
     from repro_torch.core.pixelfly import linear_tables
     from repro_torch.kernels import autograd as AG
-    from repro_torch.kernels import ref
     from repro_torch.kernels.bsr_matmul import bsr_matmul_cuda
 
     pat = lin_spec.pattern()
@@ -240,31 +287,12 @@ def bsr_case(timer, lin_spec, m, dtype, seed, tol):
         / math.sqrt(pat.r * pat.block)
     ).to(dtype)
     cols = torch.as_tensor(pat.cols, device="cuda")
-    y = bsr_matmul_cuda(x, blocks, cols)
-    torch.cuda.synchronize()
-    err = check_close(f"bsr_matmul {lin_spec.in_features}->{lin_spec.out_features} M={m}",
-                      y, ref.bsr_matmul_gather(x, blocks, cols), tol)
-    dense = ref.bsr_to_dense(blocks, cols, lin_spec.in_features)
-    es = x.element_size()
-    nbytes = (m * lin_spec.in_features + blocks.numel() + m * lin_spec.out_features) * es + cols.numel() * 4
-    flops = 2.0 * m * pat.nb_out * pat.r * pat.block * pat.block
-    b_ms, b_by = bound_ms(nbytes, flops, str(dtype).split(".")[1])
-    return {
-        "shape": f"M={m} n_in={lin_spec.in_features} nb_out={pat.nb_out} r={pat.r} b={pat.block}",
-        "dtype": str(dtype).split(".")[1],
-        "max_abs_err": err,
-        "tol": tol,
-        "ms": timer.ms(lambda: bsr_matmul_cuda(x, blocks, cols)),
-        "host_us": host_us(lambda: bsr_matmul_cuda(x, blocks, cols)),
-        # what a linear of the serving path pays on the host for the same
-        # launch: the tables' lookup and BsrMatmul.apply under no_grad
-        "function_host_us": function_host_us(
-            lambda: AG.bsr_matmul(x, blocks, linear_tables(lin_spec, x.device))),
-        "plain_ms": timer.ms(lambda: ref.bsr_matmul_gather(x, blocks, cols)),
-        "library_ms": timer.ms(lambda: x @ dense),
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-    }
+    row = bsr_row(timer, x, blocks, cols, lin_spec.in_features, pat.nb_out * pat.r, tol,
+                  f"{lin_spec.in_features}->{lin_spec.out_features}")
+    row["host_us"] = host_us(lambda: bsr_matmul_cuda(x, blocks, cols))
+    row["function_host_us"] = function_host_us(
+        lambda: AG.bsr_matmul(x, blocks, linear_tables(lin_spec, x.device)))
+    return row
 
 
 def paged_case(timer, *, b, hk, g, d, page, pps, dtype, seed, tol, full=False, schedule="sparse"):
@@ -1625,6 +1653,235 @@ def burst_replay(full, eng, step_s, smi):
 
 
 # ----------------------------------------------------------------------
+# phase 10: vision, the paper's other benchmarks, bsr_matmul at b = 8, 16, 32
+# ----------------------------------------------------------------------
+
+def small_block_linears():
+    """{block: ({label: spec}, Ms)} of the sparse linears at each new block,
+    built from the configs that run them: ViT-B/16's four at b = 32 and
+    the B/16 training M (128 x 197 rows); the ablation example's at b = 16
+    and its M (8 x 64); ViT-B/16's MLP at block 8 (where the block halves
+    that far) at the B/16 M. Each is checked at M in {1, 8, 16, 17} too."""
+    import dataclasses
+
+    from repro_torch.bench import vision_speedup as VS
+    from repro_torch.examples import sparsity_ablation as SA
+    from repro_torch.models.layers import linear_spec
+
+    vit = VS.b16_config("vit", True)
+    d, f = vit.d_model, vit.d_ff
+    vit8 = dataclasses.replace(vit, sparse_block=8)
+    ab = SA.config(0.4, 0.25)
+    vit_m, ab_m = VS.BATCH["b16"] * (vit.num_patches + 1), SA.BATCH * SA.SEQ
+    return {
+        32: ({"qkv": vit.lin(d, 3 * d), "proj": vit.lin(d, d), "fc1": vit.lin(d, f), "fc2": vit.lin(f, d)},
+             (1, 8, 16, 17, vit_m)),
+        16: ({label: linear_spec(ab, n_in, n_out, False) for label, (n_in, n_out) in
+              {"q/o": (ab.d_model, ab.q_dim), "k/v": (ab.d_model, ab.kv_dim), "gate/up": (ab.d_model, ab.d_ff),
+               "down": (ab.d_ff, ab.d_model)}.items()},
+             (1, 8, 16, 17, ab_m)),
+        8: ({"fc1": vit8.lin(d, f), "fc2": vit8.lin(f, d)}, (1, 8, 16, 17, vit_m)),
+    }
+
+
+def small_block_kernels(timer, seed):
+    """(a) ``bsr_matmul`` at b = 32, 16 and 8 against its plain version on
+    the card, fp32 (1e-4) and bf16 (2e-2), at M in {1, 8, 16, 17} and the
+    path's M (ViT-B/16 training: 128 x 197 rows; the ablation: 8 x 64):
+    each linear's forward, and its dX (the kernel on the transposed
+    pattern, as ``BsrMatmul`` runs it). bf16 at b = 16, 32 and M > 16 is the
+    tensor-core kernel; the rest at these blocks is SIMT. The rows at
+    M = 8 and the path's M are timed."""
+    from repro_torch.kernels import autograd as AG
+
+    rows = []
+    for block, (specs, ms) in small_block_linears().items():
+        for label, spec in specs.items():
+            n_in, n_out = spec.in_features, spec.out_features
+            pat = spec.pattern()
+            if pat.block != block:
+                raise AssertionError(f"{label}: LinearSpec gave block {pat.block}, not {block}")
+            tables = AG.bsr_tables(pat.cols, pat.nb_in, "cuda")
+            gen = torch.Generator(device="cuda").manual_seed(seed + block)
+            w32 = torch.randn((pat.nb_out, pat.r, block, block), generator=gen, device="cuda") / math.sqrt(pat.r * block)
+            for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+                blocks = w32.to(dtype)
+                bt = AG.transposed_blocks(blocks, tables)
+                for m in ms:
+                    x = torch.randn((m, n_in), generator=gen, device="cuda").to(dtype)
+                    dy = torch.randn((m, n_out), generator=gen, device="cuda").to(dtype)
+                    for kind, args in (("forward", (x, blocks, tables.cols, n_in)),
+                                       ("dX", (dy, bt, tables.cols_t, n_out))):
+                        row = bsr_row(timer, *args, pat.nb_out * pat.r, tol, f"b{block} {label} {kind}",
+                                      timed=m in (8, ms[-1]))
+                        row.update({"block": block, "linear": label, "pass": kind, "m": m})
+                        rows.append(row)
+                        if "ms" in row:
+                            log(f"[10a] bsr_matmul {row['case']:22s} {row['dtype']:8s} {row['shape']}: err "
+                                f"{row['max_abs_err']:.2e} (tol {tol:g}) kernel {row['ms']:.4f} ms plain "
+                                f"{row['plain_ms']:.4f} ms x@dense {row['library_ms']:.4f} ms bound "
+                                f"{row['bound_ms']:.4f} ms ({row['bound_by']}) digest {row['out_sha256']}")
+    log(f"[10a] bsr_matmul at b = 32, 16, 8: {len(rows)} calls within tolerance of the plain version")
+    return rows
+
+
+def vision_smoke(seed):
+    """(b) ViT and Mixer at the JAX script's bench width, sparse, fp32: the
+    same seeded weights (a random head for the ViT, whose own starts at
+    zero) and data on the CPU and the card; the logits within 1e-4, every
+    parameter's gradient within 1e-4 of its largest entry, then one SGD
+    step's loss within 1e-5 relative and every parameter after it within
+    1e-6 (the tolerances of the CPU tests and the card tests)."""
+    from repro_torch.bench import vision_speedup as VS
+    from repro_torch.models import vision as V
+
+    out = {}
+    for kind in ("vit", "mixer"):
+        cfg = VS.bench_config(kind, True)
+        cpu = V.init_vision(cfg, seed=seed, device="cpu")
+        if kind == "vit":
+            with torch.no_grad():
+                cpu.head.w.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(seed))
+        card = V.init_vision(cfg, device="cuda", params=cpu.state_dict())
+        (xc, yc), (xg, yg) = (VS.make_data(cfg, 8, seed, torch.device(d)) for d in ("cpu", "cuda"))
+        logits, grads = {}, {}
+        for name, model, x, y in (("cpu", cpu, xc, yc), ("card", card, xg, yg)):
+            lg = model(x)
+            grads[name] = torch.autograd.grad(torch.nn.functional.cross_entropy(lg, y), list(model.parameters()))
+            logits[name] = lg.detach().cpu()
+        err = check_close(f"{kind} smoke logits", logits["card"], logits["cpu"], 1e-4)
+        grad_err = 0.0
+        for pname, gg, gc in zip(dict(cpu.named_parameters()), grads["card"], grads["cpu"]):
+            rel = (gg.cpu() - gc).abs().max().item() / gc.abs().max().item()
+            if not rel <= 1e-4:
+                raise AssertionError(f"{kind} smoke gradient of {pname}: card differs by {rel:.3e} "
+                                     "of its largest entry")
+            grad_err = max(grad_err, rel)
+        loss_c, loss_g = float(VS.sgd_step(cpu, xc, yc)), float(VS.sgd_step(card, xg, yg))
+        if not abs(loss_g - loss_c) <= 1e-5 * abs(loss_c):
+            raise AssertionError(f"{kind} smoke loss: card {loss_g} cpu {loss_c}")
+        sd = card.state_dict()
+        worst = max((sd[k].cpu() - v).abs().max().item() for k, v in cpu.state_dict().items())
+        if not worst <= 1e-6:
+            raise AssertionError(f"{kind} smoke SGD step: parameters differ by {worst:.3e}")
+        out[kind] = {"logits_max_abs_err": err, "grads_max_rel_err": grad_err, "loss_cpu": loss_c,
+                     "loss_card": loss_g, "params_max_abs_err": worst}
+        log(f"[10b] {kind} bench width, sparse fp32: card logits within {err:.2e} of the CPU's, gradients within "
+            f"{grad_err:.2e} of their largest entries, SGD step loss {loss_g:.6f} (CPU {loss_c:.6f}), "
+            f"parameters within {worst:.2e}")
+    return out
+
+
+def vision_b16(seed, smi, kernels):
+    """(c) ``repro_torch.bench.vision_speedup`` at the B/16 widths, bf16,
+    B = 128: dense and pixelfly ViT and Mixer, 2 warm-up, 3 timed and 1
+    device-traced step each, with every kernel's count set to 0 just before
+    and read just after. The losses must be finite, and the pixelfly arm
+    must launch ``bsr_matmul`` twice a step for each of its sparse linears
+    (the forward and the dX of every one)."""
+    from repro_torch.bench import vision_speedup as VS
+
+    for k in kernels.values():
+        k.launches = 0
+    out = {kind: VS.compare(kind, width="b16", batch=VS.BATCH["b16"], steps=3, warmup=2, seed=seed, device="cuda")
+           for kind in ("vit", "mixer")}
+    out["launches"] = {name: k.launches for name, k in kernels.items()}
+    for kind in ("vit", "mixer"):
+        res = out[kind]
+        for arm in ("dense", "sparse"):
+            a = res[arm]
+            if not np.isfinite(a["loss"]).all():
+                raise AssertionError(f"{kind} B/16 {arm}: loss not finite: {a['loss']}")
+            tr = a["device_trace"]
+            busy = ("the profiler recorded no device time: busy share not measured" if tr["device_busy_ms"] is None
+                    else f"device busy {tr['device_busy_ms']:.1f} ms, idle share {tr['device_idle_share']:.3f}")
+            log(f"[10c] {kind}-B/16 {arm}, B=128 bf16: {a['parameters'] / 1e6:.2f} M parameters, step "
+                f"{', '.join(f'{x:.1f}' for x in a['step_ms'])} ms (median {a['step_ms_median']:.1f} ms, "
+                f"{a['images_s']:.0f} images/s), loss {a['loss'][0]:.4f} -> {a['loss'][-1]:.4f}, peak memory "
+                f"{a['max_memory_allocated_gb']:.2f} GB, bsr_matmul {a['bsr_matmul_launches_per_step']:.0f} "
+                f"launches a step; traced step {tr['window_ms']:.1f} ms, {busy}")
+            for name, ms, n in tr["top"][:6]:
+                log(f"[10c]   {ms:8.3f} ms  x{n:<5d} {name}")
+        sp = res["sparse"]
+        if sp["bsr_matmul_launches_per_step"] != 2 * sp["sparse_linears"]:
+            raise AssertionError(f"{kind} B/16 pixelfly: {sp['bsr_matmul_launches_per_step']} bsr_matmul launches "
+                                 f"a step for {sp['sparse_linears']} sparse linears (want 2 each)")
+        log(f"[10c] {kind}-B/16: dense {res['dense']['step_ms_median']:.1f} ms, pixelfly "
+            f"{sp['step_ms_median']:.1f} ms a step: speedup {res['speedup']:.3f}x, parameter ratio "
+            f"{res['param_ratio']:.3f} ({smi})")
+    if out["launches"]["bsr_matmul"] <= 0:
+        raise AssertionError("bsr_matmul was never launched on the vision path")
+    return out
+
+
+def vision_benches(seed):
+    """(d) The paper's other benchmarks at their defaults on the card:
+    flat vs product, the block microbenchmark, LRA attention (each kernel
+    arm also held against its plain version), and the NTK distances (the
+    card's within 1e-5 of the CPU's)."""
+    from repro_torch.bench import block_microbench, flat_vs_product, lra_attention, ntk_distance
+    from repro_torch.kernels import ops, ref
+
+    out = {}
+    dev = torch.device("cuda")
+    x, arms = flat_vs_product.inputs(1024, 32, 512, dev)
+    for k, _, blocks, cols in arms:
+        check_close(f"flat_vs_product k={k}", ops.bsr_matmul(x, blocks, cols),
+                    ref.bsr_matmul_gather(x, blocks, cols), 1e-4)
+    out["flat_vs_product"] = flat_vs_product.run(device=dev)
+    for r in out["flat_vs_product"]["rows"]:
+        log(f"[10d] flat_vs_product k={r['max_stride']} (n=1024, b=32, batch 512, fp32): flat {r['flat_ms']:.4f} ms "
+            f"(r = {r['r']}), product {r['product_ms']:.4f} ms ({r['factors']} factors), speedup {r['speedup']:.2f}x")
+    out["block_microbench"] = mb = block_microbench.run(device=dev)
+    for r in mb["densities"]:
+        log(f"[10d] block_microbench {r['pattern']} b={r['block']}: expected density {r['expected_density']:.4f}, "
+            f"actual (32-block cover) {r['actual_density']:.4f}")
+    lat = mb["latency"]
+    log(f"[10d] block_microbench latency (n=4096, b=32, batch 256, fp32, density {lat['density']:.4f}): bsr "
+        f"{lat['bsr_ms']:.4f} ms, x @ w {lat['dense_ms']:.4f} ms, bsr speedup {lat['bsr_speedup']:.2f}x")
+    q, k, v = lra_attention.inputs(1024, np.random.default_rng(seed), dev, torch.bfloat16)
+    _, sched = lra_attention.schedule(1024)
+    kv_index, valid = (torch.as_tensor(a, device=dev) for a in (sched.kv_index, sched.valid))
+    check_close("lra_attention sparse S=1024", lra_attention.sparse(q, k, v, kv_index, valid),
+                ref.sparse_attention(q, k, v, kv_index, valid, block=lra_attention.BLOCK, causal=True,
+                                     sm_scale=lra_attention.D ** -0.5), 2e-2)
+    out["lra_attention"] = lra_attention.run(device=dev)
+    for r in out["lra_attention"]["rows"]:
+        log(f"[10d] lra_attention S={r['seq']} (B=2, H=4, D=64, block 128, causal, bf16): sparse kernel "
+            f"{r['sparse_ms']:.4f} ms, flash SDPA {r['dense_ms']:.4f} ms, speedup {r['speedup']:.2f}x, "
+            f"keys per query {r['keys_per_query']:.0f}/{r['seq']}")
+    got, want = ntk_distance.run(seed, dev), ntk_distance.run(seed, "cpu")
+    for name, d in want["rel_ntk_dist"].items():
+        if not abs(got["rel_ntk_dist"][name] - d) <= 1e-5:
+            raise AssertionError(f"ntk_distance {name}: card {got['rel_ntk_dist'][name]} cpu {d}")
+    out["ntk_distance"] = got
+    log("[10d] ntk_distance (card == CPU within 1e-5): " + ", ".join(
+        f"{n} {v:.4f}" for n, v in sorted(got["rel_ntk_dist"].items(), key=lambda kv: kv[1]))
+        + f"; closest to dense: {got['closest_to_dense']}")
+    return out
+
+
+def ablation_smoke(kernels):
+    """(e) ``repro_torch.examples.sparsity_ablation --smoke`` on the card:
+    the Trainer at linear block 16, attention block 64, with the kernels'
+    counts set to 0 just before and read just after; bsr_matmul and
+    block_sparse_attention must launch and the loss be finite."""
+    from repro_torch.examples import sparsity_ablation
+
+    for k in kernels.values():
+        k.launches = 0
+    rows = sparsity_ablation.main(["--smoke", "--device", "cuda"])
+    launches = {name: k.launches for name, k in kernels.items()}
+    if not (launches["bsr_matmul"] > 0 and launches["block_sparse_attention"] > 0):
+        raise AssertionError(f"the ablation did not run both training kernels: {launches}")
+    if not all(np.isfinite(r[2]) for r in rows):
+        raise AssertionError(f"ablation loss not finite: {rows}")
+    log(f"[10e] sparsity_ablation --smoke on the card (block 16): density {rows[0][0]}, split {rows[0][1]}, "
+        f"loss {rows[0][2]:.4f}, {rows[0][3]} parameters; launches {launches}")
+    return {"rows": rows, "launches": launches}
+
+
+# ----------------------------------------------------------------------
 # main
 # ----------------------------------------------------------------------
 
@@ -1702,11 +1959,13 @@ def main(argv=None) -> int:
             log(f"[3] bsr_matmul {label:7s} {row['shape']}: err {row['max_abs_err']:.2e} (tol {row['tol']:g}) "
                 f"kernel {row['ms']:.4f} ms (host {row['host_us']:.1f} us, through BsrMatmul "
                 f"{row['function_host_us']:.1f} us) plain {row['plain_ms']:.4f} ms "
-                f"x@dense {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f"x@dense {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
+                f"digest {row['out_sha256']}")
     smoke = registry.get_smoke("qwen3-1.7b", sparse=True)
     small_bsr = bsr_case(timer, L.linear_spec(smoke, 512, 256, False),
                          37, torch.float32, seed=1, tol=1e-4)
-    log(f"[3] bsr_matmul fp32 {small_bsr['shape']}: err {small_bsr['max_abs_err']:.2e} (tol 1e-4)")
+    log(f"[3] bsr_matmul fp32 {small_bsr['shape']}: err {small_bsr['max_abs_err']:.2e} (tol 1e-4) "
+        f"digest {small_bsr['out_sha256']}")
     # one decode step's layer: q, k, v, o, gate, up, down at M = 8
     by_label = {r["linear"]: r for r in bsr_rows if r["shape"].startswith("M=8 ")}
     layer = [by_label[x] for x in ("q", "k/v", "k/v", "o", "gate/up", "gate/up", "down")]
@@ -1970,7 +2229,20 @@ def main(argv=None) -> int:
     report["serve"] = cli
     log(f"[9] phase 9 took {cli['wall_s']:.1f} s")
 
-    # ---- 10. report ------------------------------------------------
+    # ---- 10. vision, the other benchmarks, bsr_matmul at b < 64 ----
+    t10 = time.perf_counter()
+    vision = {"kernels": small_block_kernels(Timer(iters=10), args.seed), "smoke": vision_smoke(args.seed),
+              "b16": vision_b16(args.seed, smi, kernels), "benches": vision_benches(args.seed),
+              "ablation": ablation_smoke(kernels)}
+    vision["wall_s"] = time.perf_counter() - t10
+    report["vision"] = vision
+    log(f"[10] phase 10 took {vision['wall_s']:.1f} s")
+    # ViT-B/16's four linears at the training M in bf16: forward and dX
+    vit_m = small_block_linears()[32][1][-1]
+    vit_fwd = [r for r in vision["kernels"] if r["block"] == 32 and r["m"] == vit_m
+               and r["dtype"] == "bfloat16" and r["pass"] == "forward"]
+
+    # ---- 11. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -2017,13 +2289,29 @@ def main(argv=None) -> int:
             "bound_by": attn_main["bound_by"],
             "library_ms": attn_main["library_ms"],
         },
+        {
+            "name": "bsr_matmul_b32",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/bsr_matmul.cu",
+            "replaces": "src/repro/kernels/bsr_matmul.py:59",
+            "shape": "ViT-B/16's qkv, proj, fc1, fc2 forward at b=32, M=25216, bf16, summed (the tensor-core "
+                     "kernel for several output blocks a thread block)",
+            "launches": vision["b16"]["launches"]["bsr_matmul"],
+            "max_abs_err": max(r["max_abs_err"] for r in vision["kernels"]),
+            "ms": summed(vit_fwd, "ms"),
+            "plain_ms": summed(vit_fwd, "plain_ms"),
+            "bound_ms": summed(vit_fwd, "bound_ms"),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in vit_fwd) else "operations",
+            "library_ms": summed(vit_fwd, "library_ms"),
+        },
     ]}
-    for k in line["kernels"]:  # the launches of phases 6, 7, 8 and 9, counted apart
+    for k in line["kernels"][:3]:  # the launches of phases 6, 7, 8, 9 and 10, counted apart
         k["launches_phase6"] = report["features"]["launches"][k["name"]]
         k["launches_phase9"] = cli["cli"]["launches"][k["name"]]
         k["launches_training"] = report["training"]["full_width"]["launches"][k["name"]]
         k["launches_phase8"] = sum(family[a][part]["launches"][k["name"]]
                                    for a in FAMILY for part in ("serving", "training"))
+        k["launches_phase10"] = vision["b16"]["launches"][k["name"]] + vision["ablation"]["launches"][k["name"]]
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

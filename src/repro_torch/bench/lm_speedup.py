@@ -34,12 +34,12 @@ import gc
 import json
 import shutil
 import statistics
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from repro_torch.bench.common import card_line, device_trace
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
@@ -62,35 +62,6 @@ def smoke_config(sparse: bool) -> ModelConfig:
         sparse_density=0.2, sparse_block=64, attn_block=64, attn_chunk=128,
         sparse_attention=sparse,
     )
-
-
-def _device_trace(fn) -> dict:
-    """Wall time, device busy time and share, and the top device kernels
-    of one call of fn, traced on the device only."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        torch.cuda.synchronize()
-    window = t0.elapsed_time(t1)
-    rows = sorted((e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA),
-                  key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in rows) / 1e3
-    return {
-        "window_ms": window,
-        "device_busy_ms": busy if busy else None,
-        "device_idle_share": 1.0 - busy / window if busy else None,
-        "top": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in rows[:8] if dev_us(e) > 0],
-    }
 
 
 def run_arm(
@@ -122,7 +93,7 @@ def run_arm(
         device=dev,
     )
     hist = trainer.run(WARMUP + steps)
-    trace = _device_trace(lambda: hist.extend(trainer.run(1))) if on_card else None
+    trace = device_trace(lambda: hist.extend(trainer.run(1))) if on_card else None
     step_ms = [1e3 * h["step_time_s"] for h in hist[WARMUP : WARMUP + steps]]
     med = statistics.median(step_ms)
     out = {
@@ -180,10 +151,7 @@ def compare(
         "param_ratio": sparse["parameters"] / dense["parameters"],
     }
     if dev.type == "cuda":
-        out["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip().splitlines()[0]
+        out["card"] = card_line()
     return out
 
 

@@ -18,13 +18,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import resolve_device
 
-__all__ = ["params_from_jax", "opt_state_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "vision_params_from_jax"]
 
 
 def _leaves(tree, path: tuple[str, ...] = ()) -> Iterator[tuple[tuple[str, ...], np.ndarray]]:
     if isinstance(tree, dict):
         for key, sub in tree.items():
             yield from _leaves(sub, (*path, key))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _leaves(sub, (*path, str(i)))
     else:
         yield path, np.asarray(tree)
 
@@ -78,3 +81,16 @@ def opt_state_from_jax(
         if key in opt_tree:
             out[key] = params_from_jax(opt_tree[key], cfg, device)
     return out
+
+
+def vision_params_from_jax(
+    tree: dict, device: str | torch.device | None = None
+) -> dict[str, torch.Tensor]:
+    """A JAX ViT or Mixer tree (``init_vit``/``init_mixer`` after
+    ``jax.tree.map(np.asarray, ...)``) as the state dict of
+    ``models.vision``: its ``layers`` is a list of per-layer dicts, so
+    ``layers[i]["qkv"]["blocks"]`` becomes ``layers.i.qkv.blocks``; every
+    other leaf keeps its dotted path. On ``device`` (default: the card),
+    each leaf in its own dtype."""
+    dev = resolve_device(device)
+    return {".".join(path): _tensor(leaf, dev) for path, leaf in _leaves(tree)}

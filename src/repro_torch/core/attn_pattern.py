@@ -18,6 +18,7 @@ __all__ = [
     "pixelfly_attention_block_mask",
     "block_schedule",
     "BlockSchedule",
+    "keys_per_query",
 ]
 
 
@@ -99,3 +100,8 @@ def block_schedule(
         kv[i, : len(r)] = r
         valid[i, : len(r)] = 1
     return BlockSchedule(kv_index=kv, valid=valid, block_q=block_q, block_k=block_k)
+
+
+def keys_per_query(block_mask: np.ndarray, block_k: int, seq_k: int) -> float:
+    """Mean number of keys a query attends to (the O(n b log n) claim)."""
+    return float(block_mask.sum(axis=1).mean() * block_k)

@@ -1,12 +1,51 @@
-"""Per-layer split of a density budget into low-rank + flat butterfly
-(paper §3.3 step 2). A numpy-only copy of ``split_sparse_lowrank`` from
-the JAX package's ``core.budget``."""
+"""Compute-budget allocation across layer types (paper §3.3, App. A, I.1):
+give each layer type a share of the budget, then split each layer's share
+~1/4 low rank : ~3/4 flat block butterfly. A copy of the JAX package's
+``core.budget``, plain Python."""
 
 from __future__ import annotations
 
+import dataclasses
+
 from repro_torch.core import butterfly
 
-__all__ = ["split_sparse_lowrank"]
+__all__ = [
+    "LayerSchema",
+    "dense_flops",
+    "Allocation",
+    "split_sparse_lowrank",
+    "allocate",
+    "solve_two_type_closed_form",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSchema:
+    """One row of the model schema {(type, repeats, m, n)} (App. K.2)."""
+
+    kind: str  # e.g. "attn_proj", "mlp", "attention_matrix"
+    repeats: int
+    m: int  # out features (or sequence length for attention matrices)
+    n: int  # in features
+    seq_len: int = 1  # tokens multiplying this GEMM
+
+    def dense_flops_per_token(self) -> float:
+        return 2.0 * self.repeats * self.m * self.n
+
+
+def dense_flops(schema: list[LayerSchema]) -> float:
+    return sum(s.dense_flops_per_token() * s.seq_len for s in schema)
+
+
+@dataclasses.dataclass(frozen=True)
+class Allocation:
+    """The density of one layer type and its split."""
+
+    kind: str
+    density: float
+    lowrank_rank: int
+    max_stride: int
+    block: int
 
 
 def split_sparse_lowrank(
@@ -41,3 +80,50 @@ def split_sparse_lowrank(
         in_features, block, max(sparse_density, block / in_features)
     )
     return rank, max_stride
+
+
+def allocate(
+    schema: list[LayerSchema],
+    total_density: float,
+    *,
+    block: int = 128,
+    lowrank_frac: float = 0.25,
+) -> dict[str, Allocation]:
+    """The rule of thumb (§3.3 step 1): each layer type gets budget in
+    proportion to its dense compute, which under a linear cost model is the
+    same density ``total_density`` for every type; each is then split by
+    ``split_sparse_lowrank`` at its own (m, n)."""
+    out: dict[str, Allocation] = {}
+    for s in schema:
+        rank, max_stride = split_sparse_lowrank(
+            s.m, s.n, total_density, block=block, lowrank_frac=lowrank_frac
+        )
+        out[s.kind] = Allocation(
+            kind=s.kind, density=total_density, lowrank_rank=rank,
+            max_stride=max_stride, block=block,
+        )
+    return out
+
+
+def solve_two_type_closed_form(
+    seq_len: int, d_model: int, param_budget: float
+) -> tuple[float, float]:
+    """App. I.1, Eq. 20: minimise d_a (s^2 + s d) + 2 d_m s d subject to
+    params(d_a, d_m) <= budget, where attention holds 4 d^2 and the MLP
+    8 d^2 parameters per unit density. The cost is linear, so the budget
+    fills the type with the lower cost per parameter first. Returns
+    (d_a, d_m), each in [0, 1]."""
+    cost_a = seq_len * seq_len + seq_len * d_model
+    cost_m = 2 * seq_len * d_model
+    par_a = 4 * d_model * d_model
+    par_m = 8 * d_model * d_model
+    budget = param_budget
+    dens = {"a": 0.0, "m": 0.0}
+    order = sorted([("a", cost_a / par_a, par_a), ("m", cost_m / par_m, par_m)], key=lambda t: t[1])
+    for kind, _, par in order:
+        take = min(1.0, budget / par)
+        dens[kind] = take
+        budget -= take * par
+        if budget <= 0:
+            break
+    return dens["a"], dens["m"]

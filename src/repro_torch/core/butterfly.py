@@ -1,7 +1,6 @@
-"""Flat block butterfly index math (paper §3, Defs 3.1-3.4, App. I.4).
+"""Flat block butterfly index math (paper §3, Defs 3.1-3.4, App. A, I.4).
 
-A numpy copy of the part of the JAX package's ``core.butterfly`` that the
-port uses. Patterns are static: they are fixed when the model is built.
+A numpy copy of the JAX package's ``core.butterfly``. Patterns are static: they are fixed when the model is built.
 
 A flat block butterfly of logical size ``(out, in)`` with block size ``b``
 and maximum stride ``k`` is stored as
@@ -19,6 +18,7 @@ stretch produces are kept (they sum).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
@@ -27,7 +27,12 @@ __all__ = [
     "next_pow2",
     "flat_butterfly_strides",
     "flat_butterfly_cols",
+    "dense_mask_from_cols",
+    "block_cover",
+    "block_cover_density",
+    "butterfly_factor_matrix",
     "max_stride_for_density",
+    "density_for_max_stride",
     "transpose_tables",
     "FlatButterflyPattern",
     "make_pattern",
@@ -73,6 +78,58 @@ def flat_butterfly_cols(
         cs = [gi] + [gi ^ s for s in strides]
         cols[i] = [c * nb_in // g for c in cs]
     return cols
+
+
+def dense_mask_from_cols(
+    nb_out: int, nb_in: int, cols: np.ndarray, b: int
+) -> np.ndarray:
+    """The dense {0, 1} mask (out, in) of a pattern, float32."""
+    mask = np.zeros((nb_out * b, nb_in * b), dtype=np.float32)
+    for i in range(nb_out):
+        for j in cols[i]:
+            mask[i * b : (i + 1) * b, j * b : (j + 1) * b] = 1.0
+    return mask
+
+
+def block_cover(mask: np.ndarray, b1: int, b2: int) -> np.ndarray:
+    """(b1, b2)-block cover of a mask (Def. A.1): a b1 x b2 block of the
+    cover is all ones iff any entry of that block of ``mask`` is nonzero."""
+    m, n = mask.shape
+    if m % b1 or n % b2:
+        raise ValueError("mask dims must be divisible by block dims")
+    any_nz = (mask.reshape(m // b1, b1, n // b2, b2) != 0).any(axis=(1, 3))
+    return np.repeat(np.repeat(any_nz, b1, axis=0), b2, axis=1).astype(mask.dtype)
+
+
+def block_cover_density(mask: np.ndarray, b: int) -> float:
+    """Fraction of the elements a block-``b`` device touches (Table 7)."""
+    return float((block_cover(mask, b, b) != 0).mean())
+
+
+def butterfly_factor_matrix(
+    n: int, k: int, rng: np.random.Generator, block: int = 1
+) -> np.ndarray:
+    """A random block butterfly factor ``B_k^{(n, b)}`` (Def. 3.2), dense,
+    float64, (n*block, n*block) with ``n`` in blocks: blocks (i, i) and
+    (i, i XOR k/2) inside each aligned group of k, each drawn from ``rng``
+    with std 1/sqrt(2*block), in row then column order."""
+    if k < 2:
+        raise ValueError("stride k must be >= 2")
+    out = np.zeros((n * block, n * block), dtype=np.float64)
+    half = k // 2
+    for i in range(n):
+        base = (i // k) * k
+        for j in (i, base + ((i - base) ^ half)):
+            out[i * block : (i + 1) * block, j * block : (j + 1) * block] = (
+                rng.standard_normal((block, block)) / math.sqrt(2 * block)
+            )
+    return out
+
+
+def density_for_max_stride(nb_in: int, max_stride: int, b: int, n_in: int) -> float:
+    """Element density of a flat block butterfly of maximum stride
+    ``max_stride``: (1 + log2 k) * b / n_in."""
+    return (1 + len(flat_butterfly_strides(max_stride))) * b / n_in
 
 
 def max_stride_for_density(n_in: int, b: int, density: float) -> int:
@@ -138,6 +195,13 @@ class FlatButterflyPattern:
     @property
     def nnz(self) -> int:
         return self.nb_out * self.r * self.block * self.block
+
+    @property
+    def density(self) -> float:
+        return self.nnz / (self.out_features * self.in_features)
+
+    def dense_mask(self) -> np.ndarray:
+        return dense_mask_from_cols(self.nb_out, self.nb_in, self.cols, self.block)
 
 
 def make_pattern(

@@ -64,8 +64,8 @@ class LinearSpec:
 
         If the features are not multiples of ``block``, the block is halved
         (down to 8) until they are; if even 8 does not divide, the layer
-        falls back to dense. (The CUDA kernel takes blocks 64 and 128 only,
-        so a halved block below 64 raises on the card.)
+        falls back to dense. The CUDA kernel takes every block this gives
+        (8, 16, 32, 64 and 128).
         """
         while block > 8 and (in_features % block or out_features % block):
             block //= 2

@@ -61,6 +61,31 @@
 // shared-memory tiled kernel, and for M <= 16 a skinny kernel that splits
 // each output block into 32-column strips, stages x one slot at a time and
 // lets each warp stream every 8th weight row.
+//
+// Blocks of 8, 16 and 32 (the layers whose features force LinearSpec's
+// block below 64: every sparse linear of the vision models at b = 32).
+// The kernels above give one output block a thread block, and at b < 64
+// that tile is too narrow to feed the tensor cores or to stage whole
+// 16-byte rows. So here a thread block owns kNB neighbouring output
+// blocks, a tile 64 (SIMT) or 128 (tensor cores) columns wide, and a
+// k-slice is one slot of depth b: slot t stages, side by side, the
+// gathered x[m-tile, cols[i,t]*b : +b] of each of the tile's output
+// blocks i and their weight blocks blocks[i, t] (b rows of the tile's
+// width), and every output block multiplies only its own columns of the
+// two. What bounds it: at b = 32 each gathered x element feeds only b
+// outputs, 2b FLOPs a byte of x read from L2 per row tile (64 in bf16),
+// so like the b >= 64 kernel it is the traffic from L2, now with r slots
+// of x re-read per output block rather than per 64-column slice.
+//   bf16, b in {16, 32}, M > 16: bsr_matmul_tc_small_kernel, 128 x 128
+//   tiles (kNB = 8 or 4 output blocks), 2 x 2 warps of 64 x 64, a
+//   2-stage cp.async ring of one slot each, ldmatrix and mma.sync
+//   m16n8k16 (its k of 16 divides b); 87,040 bytes of shared memory, two
+//   blocks an SM.
+//   Everything else at b < 64 (fp32; bf16 at b = 8, and at M <= 16):
+//   bsr_matmul_small_kernel, SIMT fp32 FMAs, 64 or 16 rows x 64 columns,
+//   each thread 4 neighbouring columns of one output block.
+// Rows past M and output blocks past nb_out are zero-filled and not
+// stored. Every output is a sum over the slots in order, in fp32.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -519,11 +544,290 @@ int launch_bf16(const bf16* x, const bf16* blocks, const int* cols, bf16* y,
   return 0;
 }
 
+// ---- b in {8, 16, 32}: several output blocks a thread block ----------
+
+constexpr int kSmallTN = 64;  // output columns of a SIMT thread block
+
+template <typename T, int BM, int B>
+__global__ void __launch_bounds__(kThreads)
+    bsr_matmul_small_kernel(const T* __restrict__ x,
+                            const T* __restrict__ blocks,
+                            const int* __restrict__ cols, T* __restrict__ y,
+                            int M, int n_in, int nb_out, int r) {
+  constexpr int kNB = kSmallTN / B;  // output blocks of the tile
+  constexpr int RM = BM / 16;        // output rows per thread
+  constexpr int CN = kSmallTN / 16;  // neighbouring output columns per thread
+  static_assert(CN == 4 && B % CN == 0,
+                "a thread's 4 columns (one float4) lie in one output block");
+  __shared__ float xs[BM][kSmallTN + 1];  // slot t's gathered x, side by side
+  __shared__ __align__(16) float ws[B][kSmallTN];  // its weight blocks
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int m0 = blockIdx.x * BM;
+  const int i0 = blockIdx.y * kNB;  // first output block of the tile
+  const int jc = tx * CN / B * B;   // first tile column of this thread's block
+
+  float acc[RM][CN];
+#pragma unroll
+  for (int a = 0; a < RM; ++a)
+#pragma unroll
+    for (int c = 0; c < CN; ++c) acc[a][c] = 0.f;
+
+  for (int t = 0; t < r; ++t) {
+    for (int e = tid; e < BM * kSmallTN; e += kThreads) {
+      const int row = e / kSmallTN;
+      const int c = e % kSmallTN;
+      const int i = i0 + c / B;
+      const int m = m0 + row;
+      xs[row][c] = m < M && i < nb_out
+                       ? repro::to_float(x[static_cast<size_t>(m) * n_in +
+                                           __ldg(cols + i * r + t) * B + c % B])
+                       : 0.f;
+    }
+    for (int e = tid; e < B * kSmallTN; e += kThreads) {
+      const int k = e / kSmallTN;
+      const int c = e % kSmallTN;
+      const int i = i0 + c / B;
+      ws[k][c] = i < nb_out
+                     ? repro::to_float(
+                           blocks[((static_cast<size_t>(i) * r + t) * B + k) * B + c % B])
+                     : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < B; ++k) {
+      float av[RM];
+#pragma unroll
+      for (int a = 0; a < RM; ++a) av[a] = xs[ty * RM + a][jc + k];
+      const float4 bv = *reinterpret_cast<const float4*>(&ws[k][tx * CN]);
+#pragma unroll
+      for (int a = 0; a < RM; ++a) {
+        acc[a][0] = fmaf(av[a], bv.x, acc[a][0]);
+        acc[a][1] = fmaf(av[a], bv.y, acc[a][1]);
+        acc[a][2] = fmaf(av[a], bv.z, acc[a][2]);
+        acc[a][3] = fmaf(av[a], bv.w, acc[a][3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  const size_t n_out = static_cast<size_t>(nb_out) * B;
+  if (i0 + jc / B >= nb_out) return;
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    const int m = m0 + ty * RM + a;
+    if (m < M) {
+#pragma unroll
+      for (int c = 0; c < CN; ++c)
+        y[static_cast<size_t>(m) * n_out + static_cast<size_t>(i0) * B + tx * CN + c] =
+            repro::from_float<T>(acc[a][c]);
+    }
+  }
+}
+
+template <typename T, int B>
+void launch_small_simt(const T* x, const T* blocks, const int* cols, T* y,
+                       int M, int n_in, int nb_out, int r,
+                       cudaStream_t stream) {
+  constexpr int kNB = kSmallTN / B;
+  const int tiles = (nb_out + kNB - 1) / kNB;
+  if (M <= kSkinnyM)
+    bsr_matmul_small_kernel<T, 16, B><<<dim3(1, tiles), kThreads, 0, stream>>>(
+        x, blocks, cols, y, M, n_in, nb_out, r);
+  else
+    bsr_matmul_small_kernel<T, 64, B>
+        <<<dim3((M + 63) / 64, tiles), kThreads, 0, stream>>>(
+            x, blocks, cols, y, M, n_in, nb_out, r);
+}
+
+constexpr int kSmTcTN = 128;    // output columns of a tensor-core thread block
+constexpr int kSmTcStages = 2;  // slots in the shared-memory ring
+
+template <int B>
+struct SmallTcTile {
+  static constexpr int kRow = kSmTcTN + kPad;  // shared row of x and weights
+  static constexpr int kXStage = kTcBM * kRow;
+  static constexpr int kWStage = B * kRow;
+  static constexpr int kSmemBytes =
+      kSmTcStages * (kXStage + kWStage) * static_cast<int>(sizeof(bf16));
+};
+
+template <int B>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    bsr_matmul_tc_small_kernel(const bf16* __restrict__ x,
+                               const bf16* __restrict__ blocks,
+                               const int* __restrict__ cols,
+                               bf16* __restrict__ y, int M, int n_in,
+                               int nb_out, int r) {
+  using S = SmallTcTile<B>;
+  constexpr int kNB = kSmTcTN / B;     // output blocks of the tile
+  constexpr int kWM = kTcBM / 2;       // warp tile rows (2 x 2 warps)
+  constexpr int kWN = kSmTcTN / 2;     // warp tile columns
+  constexpr int kMT = kWM / 16;        // m16 tiles of a warp
+  constexpr int kNT = kWN / 8;         // n8 tiles of a warp
+  constexpr int kJW = kWN / B;         // output blocks of a warp
+  constexpr int kRowChunks = kSmTcTN / 8;           // 16-byte chunks a row
+  constexpr int kXChunks = kTcBM * kRowChunks;
+  constexpr int kWChunks = B * kRowChunks;
+  static_assert(B % 16 == 0, "mma.sync m16n8k16 steps through b by 16");
+  static_assert(kXChunks % kTcThreads == 0 && kWChunks % kTcThreads == 0,
+                "every thread copies the same number of chunks");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ws = xs + kSmTcStages * S::kXStage;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 1;
+  const int wn = warp & 1;
+  const int i0 = blockIdx.x * kNB;  // first output block of the tile
+  const int m0 = blockIdx.y * kTcBM;
+
+  // slot t: tile column c holds x[m, cols[i0 + c/b, t]*b + c%b] and the
+  // weight row k of blocks[i0 + c/b, t] at its column c%b
+  auto load = [&](int t) {
+    bf16* xd = xs + (t % kSmTcStages) * S::kXStage;
+    bf16* wd = ws + (t % kSmTcStages) * S::kWStage;
+#pragma unroll
+    for (int u = 0; u < kXChunks / kTcThreads; ++u) {
+      const int e = tid + u * kTcThreads;
+      const int row = e / kRowChunks;
+      const int c = (e % kRowChunks) * 8;
+      const int i = i0 + c / B;
+      const int m = m0 + row;
+      const bool ok = m < M && i < nb_out;
+      const bf16* src =
+          ok ? x + static_cast<size_t>(m) * n_in + __ldg(cols + i * r + t) * B + c % B
+             : x;
+      repro::cp_async16(xd + row * S::kRow + c, src, ok);
+    }
+#pragma unroll
+    for (int u = 0; u < kWChunks / kTcThreads; ++u) {
+      const int e = tid + u * kTcThreads;
+      const int k = e / kRowChunks;
+      const int c = (e % kRowChunks) * 8;
+      const int i = i0 + c / B;
+      const bool ok = i < nb_out;
+      const bf16* src =
+          ok ? blocks + ((static_cast<size_t>(i) * r + t) * B + k) * B + c % B
+             : blocks;
+      repro::cp_async16(wd + k * S::kRow + c, src, ok);
+    }
+  };
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int a = 0; a < kMT; ++a)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kSmTcStages - 1; ++s) {
+    if (s < r) load(s);
+    repro::cp_async_commit();
+  }
+  for (int t = 0; t < r; ++t) {
+    repro::cp_async_wait<kSmTcStages - 2>();  // slot t has landed
+    // every thread's copies of slot t are visible, and every thread is
+    // done with slot t - 1, whose stage the next load reuses
+    __syncthreads();
+    if (t + kSmTcStages - 1 < r) load(t + kSmTcStages - 1);
+    repro::cp_async_commit();
+
+    const bf16* xt = xs + (t % kSmTcStages) * S::kXStage;
+    const bf16* wt = ws + (t % kSmTcStages) * S::kWStage;
+#pragma unroll
+    for (int jj = 0; jj < kJW; ++jj) {
+      const int jc = wn * kWN + jj * B;  // tile column of this output block
+#pragma unroll
+      for (int k16 = 0; k16 < B; k16 += 16) {
+        unsigned a[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          repro::ldmatrix_x4(
+              a[mt], xt + (wm * kWM + mt * 16 + (lane & 15)) * S::kRow + jc +
+                         k16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < B / 16; ++np) {
+          unsigned b[4];
+          repro::ldmatrix_x4_trans(
+              b, wt + (k16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S::kRow +
+                     jc + np * 16 + (lane >> 4) * 8);
+          const int nt = jj * (B / 8) + 2 * np;
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            repro::mma_bf16_16816(acc[mt][nt], a[mt], b[0], b[1]);
+            repro::mma_bf16_16816(acc[mt][nt + 1], a[mt], b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+  repro::cp_async_wait<0>();
+
+  const size_t n_out = static_cast<size_t>(nb_out) * B;
+  const int g = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm * kWM + mt * 16 + g + half * 8;
+      if (m >= M) continue;
+      bf16* yrow = y + static_cast<size_t>(m) * n_out + static_cast<size_t>(i0) * B;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int c = wn * kWN + nt * 8;
+        if (i0 + c / B < nb_out)
+          *reinterpret_cast<unsigned*>(yrow + c + c2) = repro::pack_bf16(
+              acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+      }
+    }
+  }
+}
+
+template <int B>
+int launch_small(const void* x, const void* blocks, const int* cols, void* y,
+                 int M, int n_in, int nb_out, int r, int dtype,
+                 cudaStream_t stream) {
+  if (dtype == REPRO_F32) {
+    launch_small_simt<float, B>(static_cast<const float*>(x),
+                                static_cast<const float*>(blocks), cols,
+                                static_cast<float*>(y), M, n_in, nb_out, r,
+                                stream);
+    return 0;
+  }
+  const bf16* xt = static_cast<const bf16*>(x);
+  const bf16* bt = static_cast<const bf16*>(blocks);
+  bf16* yt = static_cast<bf16*>(y);
+  if constexpr (B % 16 == 0) {
+    if (M > kSkinnyM) {
+      constexpr int smem = SmallTcTile<B>::kSmemBytes;
+      auto kernel = bsr_matmul_tc_small_kernel<B>;
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      constexpr int kNB = kSmTcTN / B;
+      kernel<<<dim3((nb_out + kNB - 1) / kNB, (M + kTcBM - 1) / kTcBM),
+               kTcThreads, smem, stream>>>(xt, bt, cols, yt, M, n_in, nb_out,
+                                           r);
+      return 0;
+    }
+  }
+  launch_small_simt<bf16, B>(xt, bt, cols, yt, M, n_in, nb_out, r, stream);
+  return 0;
+}
+
 }  // namespace
 
 // x (M, n_in), blocks (nb_out, r, b, b), cols (nb_out, r) int32,
 // y (M, nb_out * b); all contiguous, x/blocks/y of one dtype, b in
-// {64, 128}. bf16 pointers must be 16-byte aligned. Returns
+// {8, 16, 32, 64, 128}. bf16 pointers must be 16-byte aligned. Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int bsr_matmul_launch(const void* x, const void* blocks,
                                  const void* cols, void* y, int M, int n_in,
@@ -531,8 +835,17 @@ extern "C" int bsr_matmul_launch(const void* x, const void* blocks,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ct = static_cast<const int*>(cols);
-  if (b != 64 && b != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != REPRO_F32 && dtype != REPRO_BF16)
+    return static_cast<int>(cudaErrorInvalidValue);
   int rc = 0;
+  if (b == 8 || b == 16 || b == 32) {
+    rc = b == 8    ? launch_small<8>(x, blocks, ct, y, M, n_in, nb_out, r, dtype, s)
+         : b == 16 ? launch_small<16>(x, blocks, ct, y, M, n_in, nb_out, r, dtype, s)
+                   : launch_small<32>(x, blocks, ct, y, M, n_in, nb_out, r, dtype, s);
+    if (rc != 0) return rc;
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (b != 64 && b != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == REPRO_F32) {
     const float* xt = static_cast<const float*>(x);
     const float* bt = static_cast<const float*>(blocks);

@@ -13,7 +13,10 @@ import torch
 
 from repro_torch.kernels._build import CudaKernel, check_aligned, dtype_code
 
-__all__ = ["KERNEL", "bsr_matmul_cuda"]
+__all__ = ["KERNEL", "BLOCKS", "bsr_matmul_cuda"]
+
+# every block ``LinearSpec.pixelfly`` can give: 128 or 64, halved to 8
+BLOCKS = (8, 16, 32, 64, 128)
 
 KERNEL = CudaKernel(
     "bsr_matmul.cu",
@@ -29,7 +32,7 @@ def bsr_matmul_cuda(
 
     x (M, n_in) and blocks (nb_out, r, b, b) of one dtype (float32 or
     bfloat16), cols (nb_out, r) int32, all contiguous on one CUDA device;
-    b must be 64 or 128. bfloat16 x and blocks are read in 16-byte chunks
+    b must be one of ``BLOCKS``. bfloat16 x and blocks are read in 16-byte chunks
     and must be 16-byte aligned. Returns y (M, nb_out * b) in x's dtype.
     """
     if not (x.is_cuda and blocks.device == x.device and cols.device == x.device):
@@ -39,11 +42,8 @@ def bsr_matmul_cuda(
     nb_out, r, b, b2 = blocks.shape
     if b != b2:
         raise ValueError("blocks must be square")
-    if b not in (64, 128):
-        raise ValueError(
-            f"bsr_matmul_cuda takes block sizes 64 and 128, not {b} (a layer "
-            "whose features forced a smaller block has no kernel yet)"
-        )
+    if b not in BLOCKS:
+        raise ValueError(f"bsr_matmul_cuda takes the blocks {BLOCKS}, not {b}")
     m, n_in = x.shape
     if n_in % b:
         raise ValueError(f"n_in {n_in} is not a multiple of the block {b}")

@@ -89,7 +89,7 @@ class LM(nn.Module):
         if cfg.family not in ("dense",):
             raise NotImplementedError(
                 f"family {cfg.family!r}: the port serves the dense decoder "
-                "family so far (ROADMAP Queue 1 item 8)"
+                "family so far (ROADMAP Queue 1 items 6 and 12)"
             )
         self.cfg = cfg
         self.embed = L.Embedding(cfg, gen=gen, device=device)

@@ -64,13 +64,29 @@ def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-@pytest.mark.parametrize("m", [1, 8, 37, 300])
-@pytest.mark.parametrize("block", [64, 128])
+# (in blocks, out blocks, max_stride) of the patterns below: "wide" is
+# 8 -> 4 blocks; "square-ragged"'s 5 output blocks leave the last tile of
+# the several-blocks-a-tile kernels (b < 64) ragged; 2 -> 8 blocks at
+# stride 8 stretches the pattern so that a row repeats a column block
+BSR_PATTERNS = {"wide": (8, 4, 4), "square-ragged": (8, 5, 4), "stretched-repeat-cols": (2, 8, 8)}
+BSR_CASES = [(64, "wide"), (128, "wide")] + [
+    (b, p) for b in (8, 16, 32) for p in ("square-ragged", "stretched-repeat-cols")]
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 37, 300])
+@pytest.mark.parametrize("block,pattern", BSR_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_bsr_matmul_kernel(cuda, m, block, dtype, tol):
+def test_bsr_matmul_kernel(cuda, m, block, pattern, dtype, tol):
+    """Every block the kernel takes: b = 64, 128 (the tensor-core and split
+    kernels), and b = 8, 16, 32, where the SIMT kernel (fp32; bf16 at
+    b = 8 or M <= 16) and the several-blocks-a-tile tensor-core kernel
+    (bf16, b = 16, 32, M > 16) run."""
+    nbi, nbo, k = BSR_PATTERNS[pattern]
     rng = np.random.default_rng(m + block)
-    pat = bf.make_pattern(4 * block, 8 * block, block=block, max_stride=4)
-    x = _t(rng.standard_normal((m, 8 * block)), dtype, cuda)
+    pat = bf.make_pattern(nbo * block, nbi * block, block=block, max_stride=k)
+    if pattern.startswith("stretched"):
+        assert any(len(set(row)) < len(row) for row in pat.cols.tolist())
+    x = _t(rng.standard_normal((m, nbi * block)), dtype, cuda)
     blocks = _t(rng.standard_normal((pat.nb_out, pat.r, block, block)) / np.sqrt(pat.r * block), dtype, cuda)
     cols = torch.as_tensor(pat.cols, device=cuda)
     got = bsr_matmul_cuda(x, blocks, cols)
@@ -100,9 +116,19 @@ def test_bsr_matmul_kernel_main_shapes(cuda, m, label, r, dtype, tol):
     assert _err(got, ref.bsr_matmul_gather(x, blocks, cols)) <= tol
 
 
-@pytest.mark.parametrize("m", [8, 16, 4096])
-def test_bsr_matmul_kernel_same_bits_twice(cuda, m):
-    x, blocks, cols, _ = _main_bsr("down", m, torch.bfloat16, cuda)
+@pytest.mark.parametrize("block,m", [(128, 8), (128, 16), (128, 4096)] + [
+    (b, m) for b in (8, 16, 32) for m in (16, 300)])
+def test_bsr_matmul_kernel_same_bits_twice(cuda, block, m):
+    """bf16 twice on the same inputs gives the same bits: qwen3-1.7b's down
+    at b = 128, a 8 -> 24 block pattern at the small blocks."""
+    if block == 128:
+        x, blocks, cols, _ = _main_bsr("down", m, torch.bfloat16, cuda)
+    else:
+        rng = np.random.default_rng(block)
+        pat = bf.make_pattern(24 * block, 8 * block, block=block, max_stride=4)
+        x = _t(rng.standard_normal((m, 8 * block)), torch.bfloat16, cuda)
+        blocks = _t(rng.standard_normal((pat.nb_out, pat.r, block, block)) / 4, torch.bfloat16, cuda)
+        cols = torch.as_tensor(pat.cols, device=cuda)
     assert torch.equal(bsr_matmul_cuda(x, blocks, cols), bsr_matmul_cuda(x, blocks, cols))
 
 
@@ -118,9 +144,10 @@ def test_bsr_matmul_kernel_refuses_misaligned(cuda):
 
 
 def test_bsr_matmul_kernel_refuses_small_blocks(cuda):
+    """Blocks below 8 (which ``LinearSpec.pixelfly`` never gives) raise."""
     x = torch.zeros((4, 64), device=cuda)
-    with pytest.raises(ValueError, match="64 and 128"):
-        bsr_matmul_cuda(x, torch.zeros((2, 1, 32, 32), device=cuda),
+    with pytest.raises(ValueError, match="takes the blocks"):
+        bsr_matmul_cuda(x, torch.zeros((2, 1, 4, 4), device=cuda),
                         torch.zeros((2, 1), dtype=torch.int32, device=cuda))
 
 
@@ -653,27 +680,41 @@ def _allclose(a, b, tol):
     return bool(((a.float() - b.float()).abs() <= tol + tol * b.float().abs()).all())
 
 
-@pytest.mark.parametrize("label", ["q", "gate", "down"])
+def _grad_pattern(label):
+    """The pattern of a full-width qwen3-1.7b linear (q, gate, down; b = 128)
+    or a ViT-B/16 one (vit-qkv, vit-fc2; b = 32)."""
+    from repro_torch.bench.vision_speedup import b16_config
+
+    if label.startswith("vit-"):
+        vit = b16_config("vit", True)
+        d, f = vit.d_model, vit.d_ff
+        return vit.lin(*{"vit-qkv": (d, 3 * d), "vit-fc2": (f, d)}[label]).pattern()
+    full = registry.get("qwen3-1.7b", sparse=True)
+    n_in, n_out = {"q": (full.d_model, full.q_dim), "gate": (full.d_model, full.d_ff),
+                   "down": (full.d_ff, full.d_model)}[label]
+    return linear_spec(full, n_in, n_out, False).pattern()
+
+
+@pytest.mark.parametrize("label", ["q", "gate", "down", "vit-qkv", "vit-fc2"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_bsr_matmul_grads_on_card(cuda, label, dtype, tol):
     """``BsrMatmul`` on the card (the kernel forward, the kernel dX on the
     transposed tables, the batched dBlocks) against torch autograd of
     ``ref.bsr_matmul_gather`` on the same CUDA tensors, M = 1024, at the
-    full-width q, gate and down patterns (down's transpose is ragged);
-    y and dX within tol (rtol = atol, as phase 3 of ``chip_smoke.py``:
-    dX sums up to 6 x 128 products, magnitudes up to ~8), dBlocks within
-    tol relative to its largest entry."""
+    full-width q, gate and down patterns (down's transpose is ragged) and
+    ViT-B/16's qkv and fc2 at b = 32 (fc2's transpose has 96 input blocks
+    of fan-in 2); y and dX within tol (rtol = atol, as phase 3 of
+    ``chip_smoke.py``: dX sums up to 6 x 128 products, magnitudes up to
+    ~8), dBlocks within tol relative to its largest entry."""
     from repro_torch.kernels import autograd as AG
 
-    full = registry.get("qwen3-1.7b", sparse=True)
-    n_in, n_out = {"q": (full.d_model, full.q_dim), "gate": (full.d_model, full.d_ff),
-                   "down": (full.d_ff, full.d_model)}[label]
-    pat = linear_spec(full, n_in, n_out, False).pattern()
+    pat = _grad_pattern(label)
+    b = pat.block
     rng = np.random.default_rng(5)
-    x = _t(rng.standard_normal((1024, n_in)), dtype, cuda).requires_grad_()
-    blocks = _t(rng.standard_normal((pat.nb_out, pat.r, 128, 128)) / np.sqrt(pat.r * 128),
+    x = _t(rng.standard_normal((1024, pat.nb_in * b)), dtype, cuda).requires_grad_()
+    blocks = _t(rng.standard_normal((pat.nb_out, pat.r, b, b)) / np.sqrt(pat.r * b),
                 dtype, cuda).requires_grad_()
-    dy = _t(rng.standard_normal((1024, n_out)), dtype, cuda)
+    dy = _t(rng.standard_normal((1024, pat.nb_out * b)), dtype, cuda)
     y = AG.bsr_matmul(x, blocks, AG.bsr_tables(pat.cols, pat.nb_in, cuda))
     dx, db = torch.autograd.grad(y, (x, blocks), dy)
     y_ref = ref.bsr_matmul_gather(x, blocks, torch.as_tensor(pat.cols, device=cuda))
@@ -784,3 +825,47 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     for n, p in b.params.items():
         assert torch.equal(p, snap[n]) and torch.equal(b.opt["mu"][n], mu[n]), n
     assert b.run(1)[0]["loss"] == loss3
+
+
+# ----------------------------------------------------------------------
+# vision: ViT and MLP-Mixer on the card (bsr_matmul at b = 32 and 16)
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["vit", "mixer"])
+@pytest.mark.parametrize("block", [32, 16])
+def test_vision_forward_backward_on_card_equals_cpu(cuda, kind, block):
+    """A smoke sparse fp32 ViT or Mixer (2 layers, d_model 128, 64 patches,
+    so the Mixer's token MLP is sparse too), the same weights (a random
+    head) and data on the card and the CPU: logits within 1e-4, the loss
+    within 1e-5 relative, every gradient within 1e-4 relative to its
+    largest entry; the card's backward launches bsr_matmul for the
+    forward and the dX of every sparse linear."""
+    from repro_torch.core.pixelfly import Linear
+    from repro_torch.kernels.bsr_matmul import KERNEL
+    from repro_torch.models import vision as V
+
+    cfg = V.VisionConfig(kind=kind, num_layers=2, d_model=128, num_heads=4, d_ff=256, num_patches=64,
+                         num_classes=10, patch_dim=48, token_ff=64, sparse=True, sparse_density=0.4,
+                         sparse_block=block)
+    cpu = V.init_vision(cfg, seed=0, device="cpu")
+    with torch.no_grad():
+        cpu.head.w.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+    card = V.init_vision(cfg, device=cuda, params=cpu.state_dict())
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 48)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 4))
+    out = {}
+    launches = KERNEL.launches
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        logits = model(x.to(dev))
+        loss = torch.nn.functional.cross_entropy(logits, y.to(dev))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[name] = (logits.detach().cpu(), loss.item(), [g.cpu() for g in grads])
+    (lc, fc, gc), (lg, fg, gg) = out["cpu"], out["card"]
+    assert _allclose(lg, lc, 1e-4)
+    assert abs(fg - fc) <= 1e-5 * abs(fc)
+    for a, w in zip(gg, gc):
+        assert _err(a, w) <= 1e-4 * w.abs().max().item()
+    sparse = sum(isinstance(m, Linear) and m.spec.sparse for m in card.modules())
+    assert KERNEL.launches - launches == 2 * sparse

@@ -24,6 +24,10 @@ CASES = [
     pytest.param((7, 512, 512, 128, 4), id="r3-b128-ragged"),
     pytest.param((8, 256, 512, 64, 4), id="r3-b64-rect"),
     pytest.param((4, 256, 1024, 128, 8), id="stretched-repeat-cols"),
+    pytest.param((5, 128, 160, 32, 4), id="r3-b32-ragged"),
+    pytest.param((17, 256, 128, 16, 8), id="r4-b16-rect"),
+    pytest.param((9, 64, 40, 8, 4), id="r3-b8-odd-nb-out"),
+    pytest.param((3, 32, 256, 32, 8), id="b32-stretched-repeat-cols"),
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
