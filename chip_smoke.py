@@ -118,8 +118,21 @@ Phases; any failure raises and the script exits non-zero:
    NTK distances at their defaults. (e) ``repro_torch.examples.
    sparsity_ablation --smoke`` (the Trainer at linear block 16), the
    counts set to 0 just before.
-11. The kernels line (with each kernel's launches in phases 5, 6, 7, 8,
-   9 and 10, and a row for the b = 32 tensor-core path at ViT-B/16's
+11. The vlm and audio backbones, qwen2-vl-7b (M-RoPE, QKV bias, G = 7,
+   linears 28 and 148 blocks wide) and musicgen-large (multi-head, head
+   dim 64, 48 layers). (a) The three kernels at their shapes against the
+   plain versions, timed as in phase 8a. (b) fp32 sparse smoke models:
+   equal greedy streams on the CPU and the card, ``forward_train`` on
+   embeddings and distinct position streams (loss and gradients), and one
+   train step. (c), (d) Each at full width, sparse, as in phase 8c, the
+   Trainer on ``EmbedsWrapper`` batches (B = 4; B = 2 only if B = 4 runs
+   out of memory or peaks above 72 GB), and one more step traced on the
+   device (busy share). (e) ``repro_torch.bench.serve_engine`` at full
+   width, three repeats. (f) ``repro_torch.examples.serve_lm`` on the card.
+   The kernels' counts are set to 0 just before each of (c)-(f) and read
+   just after.
+12. The kernels line (with each kernel's launches in phases 5, 6, 7, 8,
+   9, 10 and 11, and a row for the b = 32 tensor-core path at ViT-B/16's
    shapes), the script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -877,26 +890,30 @@ def grad_cases(timer, full, seed):
     return {"bsr_grads": rows, "dx": dx_rows, "attention": attn, "attention_forward_train_shape": attn_train}
 
 
-def smoke_step_cpu_vs_card(smoke, tag="7b"):
+def smoke_step_cpu_vs_card(smoke, tag="7b", batch=None):
     """(b) One fp32 ``make_train_step`` step of the smoke model, seed 0, on
     the CPU (plain versions) and on the card (kernels): loss and grad_norm
     within 1e-4 relative; every parameter within 1e-6 where the CPU
     gradient exceeds 1e-5 in magnitude and within 2 * lr elsewhere (a
-    gradient near 0 takes a sign-like first Adam step on either side)."""
+    gradient near 0 takes a sign-like first Adam step on either side).
+    ``batch`` defaults to 4 x 128 tokens of ``SyntheticLM``; a parameter
+    the loss does not reach has a zero gradient."""
     from repro_torch.models import transformer as T
     from repro_torch.training.data import SyntheticLM
     from repro_torch.training.loop import make_train_step
     from repro_torch.training.optimizer import OptConfig, init_opt_state
 
     opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    batch = SyntheticLM(smoke.vocab_size, 128, 4, seed=0).batch(0)
+    if batch is None:
+        batch = SyntheticLM(smoke.vocab_size, 128, 4, seed=0).batch(0)
     out = {}
     for dev in ("cpu", "cuda"):
         model = T.init_model(smoke, seed=0, device=dev)
         params = dict(model.named_parameters())
         if dev == "cpu":
             loss, _ = T.forward_train(smoke, model, batch)
-            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            g = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            grads = {n: torch.zeros_like(p) if x is None else x for (n, p), x in zip(params.items(), g)}
         m = make_train_step(smoke, opt)(model, init_opt_state(opt, params), batch)
         out[dev] = ({k: float(v) for k, v in m.items()}, {n: p.detach().cpu() for n, p in params.items()})
     (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
@@ -1080,60 +1097,10 @@ def family_kernels(timer, seed):
     baseline's attention (PyTorch's flash kernel) against the chunked
     plain version at qwen3-1.7b's training shape."""
     from repro_torch.configs import registry
-    from repro_torch.kernels import autograd as AG
-    from repro_torch.kernels import ref
     from repro_torch.kernels.bsr_attention import block_sparse_attention_cuda
     from repro_torch.models import layers as L
 
-    out = {"block_sparse_attention": [], "paged_decode_attention": [], "bsr_matmul": [], "bsr_matmul_dx": []}
-    for arch, b_train in FAMILY.items():
-        full = registry.get(arch, sparse=True)
-        h, hk, d = full.num_heads, full.num_kv_heads, full.head_dim
-        for b in (1, b_train):
-            row = attention_case(timer, b=b, s=2048, h=h, hk=hk, d=d, block=full.attn_block,
-                                 dtype=torch.bfloat16, seed=seed + b, tol=2e-2)
-            out["block_sparse_attention"].append({"arch": arch, **row})
-        row = paged_case(timer, b=8, hk=hk, g=h // hk, d=d, page=full.attn_block, pps=16,
-                         dtype=torch.bfloat16, seed=seed + 9, tol=1e-2)
-        out["paged_decode_attention"].append({"arch": arch, **row})
-        m_train = b_train * 2048
-        for label, (n_in, n_out) in {"q": (full.d_model, full.q_dim), "kv": (full.d_model, full.kv_dim),
-                                     "gate/up": (full.d_model, full.d_ff),
-                                     "down": (full.d_ff, full.d_model)}.items():
-            spec = L.linear_spec(full, n_in, n_out, False)
-            for m in (8, m_train):
-                row = bsr_case(timer, spec, m, torch.bfloat16, seed=seed + m, tol=2e-2)
-                out["bsr_matmul"].append({"arch": arch, "linear": label, **row})
-            pat = spec.pattern()
-            tables = AG.bsr_tables(pat.cols, pat.nb_in, "cuda")
-            g = torch.Generator(device="cuda").manual_seed(seed + n_out)
-            x = torch.randn((m_train, n_in), generator=g, device="cuda").to(torch.bfloat16)
-            blocks = (torch.randn((pat.nb_out, pat.r, pat.block, pat.block), generator=g, device="cuda")
-                      / math.sqrt(pat.r * pat.block)).to(torch.bfloat16)
-            dy = torch.randn((m_train, n_out), generator=g, device="cuda").to(torch.bfloat16)
-            xr, br = x.clone().requires_grad_(), blocks.clone().requires_grad_()
-            dx = torch.autograd.grad(AG.bsr_matmul(xr, br, tables), xr, dy)[0]
-            dx_ref = torch.autograd.grad(ref.bsr_matmul_gather(xr, br, tables.cols), xr, dy)[0]
-            err = check_close(f"{arch} {label} dX M={m_train}", dx, dx_ref, 2e-2)
-            out["bsr_matmul_dx"].append({"arch": arch, "linear": label, "max_abs_err": err, "tol": 2e-2,
-                                         **dx_case(timer, x, blocks, dy, tables, pat)})
-    for r in out["block_sparse_attention"]:
-        log(f"[8a] {r['arch']} block_sparse_attention bf16 {r['shape']}: err {r['max_abs_err']:.2e} (tol 2e-2) "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    for r in out["paged_decode_attention"]:
-        log(f"[8a] {r['arch']} paged_decode_attention bf16 {r['shape']}: err {r['max_abs_err']:.2e} (tol 1e-2) "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms "
-            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
-    for r in out["bsr_matmul"]:
-        log(f"[8a] {r['arch']} bsr_matmul {r['linear']:7s} {r['shape']}: err {r['max_abs_err']:.2e} kernel "
-            f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms x@dense {r['library_ms']:.4f} ms "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    for r in out["bsr_matmul_dx"]:
-        log(f"[8a] {r['arch']} bsr_matmul {r['linear']:7s} {r['shape']}: err {r['max_abs_err']:.2e} kernel "
-            f"{r['ms']:.4f} ms (+ transposed blocks {r['transpose_blocks_ms']:.4f} ms) plain {r['plain_ms']:.4f} ms "
-            f"dy@W_dense^T {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-            f"dBlocks {r['dblocks_ms']:.4f} ms")
+    out = arch_kernels(timer, seed, FAMILY, "8a")
 
     # G in {1, 2, 4} at phase 3's main shape: digests, and the G = 1 bits
     bits = []
@@ -1177,6 +1144,74 @@ def family_kernels(timer, seed):
     return out
 
 
+def arch_kernels(timer, seed, archs, tag):
+    """The three kernels at the shapes of each full-width sparse arch in
+    ``archs`` (name -> training batch) against their plain versions,
+    timed as in phase 3: bf16 attention at B = 1 and at the training
+    batch, S = 2048; the paged decode read at B = 8, page = the attention
+    block; bsr_matmul forward at M = 8 and the training M for each
+    distinct linear shape, and dX on its transposed pattern at the
+    training M."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+
+    out = {"block_sparse_attention": [], "paged_decode_attention": [], "bsr_matmul": [], "bsr_matmul_dx": []}
+    for arch, b_train in archs.items():
+        full = registry.get(arch, sparse=True)
+        h, hk, d = full.num_heads, full.num_kv_heads, full.head_dim
+        for b in (1, b_train):
+            row = attention_case(timer, b=b, s=2048, h=h, hk=hk, d=d, block=full.attn_block,
+                                 dtype=torch.bfloat16, seed=seed + b, tol=2e-2)
+            out["block_sparse_attention"].append({"arch": arch, **row})
+        row = paged_case(timer, b=8, hk=hk, g=h // hk, d=d, page=full.attn_block, pps=16,
+                         dtype=torch.bfloat16, seed=seed + 9, tol=1e-2)
+        out["paged_decode_attention"].append({"arch": arch, **row})
+        m_train = b_train * 2048
+        shapes = {}  # (n_in, n_out) -> labels: one case a distinct shape
+        for label, shape in {"q": (full.d_model, full.q_dim), "kv": (full.d_model, full.kv_dim),
+                             "gate/up": (full.d_model, full.d_ff), "down": (full.d_ff, full.d_model)}.items():
+            shapes.setdefault(shape, []).append(label)
+        for (n_in, n_out), labels in shapes.items():
+            label = "/".join(labels)
+            spec = L.linear_spec(full, n_in, n_out, False)
+            for m in (8, m_train):
+                row = bsr_case(timer, spec, m, torch.bfloat16, seed=seed + m, tol=2e-2)
+                out["bsr_matmul"].append({"arch": arch, "linear": label, **row})
+            pat = spec.pattern()
+            tables = AG.bsr_tables(pat.cols, pat.nb_in, "cuda")
+            g = torch.Generator(device="cuda").manual_seed(seed + n_out)
+            x = torch.randn((m_train, n_in), generator=g, device="cuda").to(torch.bfloat16)
+            blocks = (torch.randn((pat.nb_out, pat.r, pat.block, pat.block), generator=g, device="cuda")
+                      / math.sqrt(pat.r * pat.block)).to(torch.bfloat16)
+            dy = torch.randn((m_train, n_out), generator=g, device="cuda").to(torch.bfloat16)
+            xr, br = x.clone().requires_grad_(), blocks.clone().requires_grad_()
+            dx = torch.autograd.grad(AG.bsr_matmul(xr, br, tables), xr, dy)[0]
+            dx_ref = torch.autograd.grad(ref.bsr_matmul_gather(xr, br, tables.cols), xr, dy)[0]
+            err = check_close(f"{arch} {label} dX M={m_train}", dx, dx_ref, 2e-2)
+            out["bsr_matmul_dx"].append({"arch": arch, "linear": label, "max_abs_err": err, "tol": 2e-2,
+                                         **dx_case(timer, x, blocks, dy, tables, pat)})
+    for r in out["block_sparse_attention"]:
+        log(f"[{tag}] {r['arch']} block_sparse_attention bf16 {r['shape']}: err {r['max_abs_err']:.2e} (tol 2e-2) "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for r in out["paged_decode_attention"]:
+        log(f"[{tag}] {r['arch']} paged_decode_attention bf16 {r['shape']}: err {r['max_abs_err']:.2e} (tol 1e-2) "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    for r in out["bsr_matmul"]:
+        log(f"[{tag}] {r['arch']} bsr_matmul {r['linear']:7s} {r['shape']}: err {r['max_abs_err']:.2e} kernel "
+            f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms x@dense {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for r in out["bsr_matmul_dx"]:
+        log(f"[{tag}] {r['arch']} bsr_matmul {r['linear']:7s} {r['shape']}: err {r['max_abs_err']:.2e} kernel "
+            f"{r['ms']:.4f} ms (+ transposed blocks {r['transpose_blocks_ms']:.4f} ms) plain {r['plain_ms']:.4f} ms "
+            f"dy@W_dense^T {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"dBlocks {r['dblocks_ms']:.4f} ms")
+    return out
+
+
 def attention_inputs(b, s, hk, g, d, block, seed):
     """bf16 q (B, S, Hk * G, D), k, v (B, S, Hk, D) on the card from
     ``seed``, and the causal pixelfly schedule (2 local, 1 global)."""
@@ -1212,19 +1247,23 @@ def family_smoke(seed):
     return out
 
 
-def family_full_width(arch, seed, smi, kernels):
+def family_full_width(arch, seed, smi, kernels, tag="8c", traced=False):
     """(c) Full-width sparse ``arch``: ``Engine(max_slots=8, max_len=2048)``
     serves 8 requests of 200-1000 prompt tokens from ``seed``, 32 new
     tokens each; then a ``Trainer`` takes 1 warm-up and 2 timed steps at
-    B = 4, S = 2048. The kernels' counts are set to 0 just before each of
-    the two and read just after: all three must launch in serving, the two
-    training kernels in training; every request finishes, loss and grad
-    norm are finite."""
+    B = 4, S = 2048 (on ``EmbedsWrapper`` batches for a backbone that
+    reads embeddings; at B = 2 if B = 4 runs out of memory or peaks above
+    72 GB, and the report says so). The kernels' counts are set to 0 just
+    before each of the two and read just after: all three must launch in
+    serving, the two training kernels in training; every request
+    finishes, loss and grad norm are finite. ``traced``: one more step
+    traced on the device only gives the step's busy share."""
     import shutil
 
+    from repro_torch.bench.common import device_trace
     from repro_torch.configs import registry
     from repro_torch.serving.engine import Engine, EngineConfig
-    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.data import EmbedsWrapper, SyntheticLM
     from repro_torch.training.loop import TrainConfig, Trainer
     from repro_torch.training.optimizer import OptConfig
 
@@ -1272,25 +1311,41 @@ def family_full_width(arch, seed, smi, kernels):
         "launches": serve_launches,
     }
     del eng, fins
-    log(f"[8c] {arch} sparse, full width: served 8 requests ({int(plens.sum())} prompt tokens, 32 new each) in "
+    log(f"[{tag}] {arch} sparse, full width: served 8 requests ({int(plens.sum())} prompt tokens, 32 new each) in "
         f"{wall:.2f} s on {smi}: decode {serving['decode_tok_s']:.1f} tok/s, step p50 "
         f"{serving['decode_step_ms_p50']:.2f} ms, prefill {serving['prefill_tok_s']:.0f} tok/s, TTFT p50 "
         f"{serving['ttft_ms_p50']:.1f} ms, peak memory {serving['max_memory_allocated_gb']:.2f} GB; launches "
         f"{serve_launches}")
 
-    b, s = 4, 2048
+    s = 2048
     ckpt = ROOT / "build" / "chip_smoke_family_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    trainer = Trainer(full, OptConfig(lr=3e-4, warmup_steps=2, total_steps=100),
-                      SyntheticLM(full.vocab_size, s, b, seed=seed),
-                      TrainConfig(ckpt_dir=str(ckpt), ckpt_every=10 ** 9, log_every=10 ** 9, seed=seed),
-                      device="cuda")
-    warm = trainer.run(1)
-    for k in kernels.values():
-        k.launches = 0
-    hist = trainer.run(2)
+    fallback = None
+    for b in (4, 2):
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        data = SyntheticLM(full.vocab_size, s, b, seed=seed)
+        if not full.embed_inputs:
+            data = EmbedsWrapper(data, full.d_model, n_pos_streams=len(full.mrope_sections))
+        trainer = Trainer(full, OptConfig(lr=3e-4, warmup_steps=2, total_steps=100), data,
+                          TrainConfig(ckpt_dir=str(ckpt), ckpt_every=10 ** 9, log_every=10 ** 9, seed=seed),
+                          device="cuda")
+        try:
+            warm = trainer.run(1)
+            for k in kernels.values():
+                k.launches = 0
+            hist = trainer.run(2)
+        except torch.cuda.OutOfMemoryError as e:
+            if b == 2:
+                raise
+            fallback = f"B=4 ran out of memory ({str(e).splitlines()[0]})"
+        else:
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if peak <= 72.0 or b == 2:
+                break
+            fallback = f"B=4 peaked at {peak:.2f} GB, above 72 GB"
+        del trainer
+        log(f"[{tag}] {arch}: {fallback}; training at B=2")
     train_launches = {name: k.launches for name, k in kernels.items()}
     for h in warm + hist:
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
@@ -1310,11 +1365,20 @@ def family_full_width(arch, seed, smi, kernels):
         "train_tok_s": b * s / (med / 1e3),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": train_launches,
+        "batch_fallback": fallback,
     }
+    if traced:
+        tr = device_trace(lambda: trainer.run(1))
+        training["device_trace"] = {k: tr[k] for k in ("window_ms", "device_busy_ms", "device_idle_share", "top")}
+        busy = ("the profiler recorded no device time: busy share not measured" if tr["device_busy_ms"] is None
+                else f"device busy {tr['device_busy_ms']:.1f} ms, idle share {tr['device_idle_share']:.3f}")
+        log(f"[{tag}] {arch} one more step traced on the device: {tr['window_ms']:.1f} ms, {busy}")
+        for name, ms, n in tr["top"][:6]:
+            log(f"[{tag}]   {ms:8.3f} ms  x{n:<5d} {name}")
     del trainer
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt, ignore_errors=True)
-    log(f"[8c] {arch} sparse, full width: Trainer B={b} S={s}: steps {', '.join(f'{x:.1f}' for x in step_ms)} ms "
+    log(f"[{tag}] {arch} sparse, full width: Trainer B={b} S={s}: steps {', '.join(f'{x:.1f}' for x in step_ms)} ms "
         f"(median {med:.1f} ms, {training['train_tok_s']:.0f} train tokens/s), losses "
         f"{', '.join(f'{x:.4f}' for x in training['loss'])}, grad norms "
         f"{', '.join(f'{x:.3f}' for x in training['grad_norm'])}, peak memory "
@@ -1882,6 +1946,130 @@ def ablation_smoke(kernels):
 
 
 # ----------------------------------------------------------------------
+# phase 11: the vlm and audio backbones, the serving bench twin, the example
+# ----------------------------------------------------------------------
+
+# the two backbones of phase 11 and the batch each trains at
+VLM_AUDIO = {"qwen2-vl-7b": 4, "musicgen-large": 4}
+
+
+def embeds_batch(cfg, b, s, seed):
+    """``EmbedsWrapper``'s batch over seeded synthetic tokens; for M-RoPE,
+    distinct t/h/w streams (the token index, and the row and column of an
+    8-wide grid), so a wrong section split would show."""
+    from repro_torch.training.data import EmbedsWrapper, SyntheticLM
+
+    batch = EmbedsWrapper(SyntheticLM(cfg.vocab_size, s, b, seed=seed), cfg.d_model,
+                          n_pos_streams=len(cfg.mrope_sections)).batch(0)
+    if cfg.mrope_sections:
+        t = np.arange(s, dtype=np.int32)
+        batch["positions"] = np.ascontiguousarray(np.broadcast_to(np.stack([t, t // 8, t % 8], -1), (b, s, 3)))
+    return batch
+
+
+def vlm_audio_smoke(seed):
+    """(b) fp32 sparse smoke models of both backbones, the same seeded
+    weights on both devices: equal greedy paged streams (token inputs) on
+    the CPU and the card; ``forward_train`` on embeddings and position
+    streams, loss within 1e-5 relative and every gradient within 1e-4 of
+    its leaf's largest entry (the token table, which the loss does not
+    reach, has none on either device); then one train step held as phase
+    7b holds qwen3's."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch in VLM_AUDIO:
+        cfg = registry.get_smoke(arch, sparse=True)
+        page = cfg.attn_block
+        rng = np.random.default_rng(seed + 11)
+        work = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 6)
+                for n in (9 * page + 20, 2 * page + 1, 40, 14 * page + 3)]
+        got = {dev: smoke_greedy_streams(cfg, work, seed, dev) for dev in ("cpu", "cuda")}
+        if got["cpu"] != got["cuda"]:
+            raise AssertionError(f"{arch} smoke streams differ: cpu {got['cpu']} cuda {got['cuda']}")
+        batch = embeds_batch(cfg, 2, 4 * page, seed)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            model = T.init_model(cfg, seed=seed, device=dev)
+            named = dict(model.named_parameters())
+            loss, _ = T.forward_train(cfg, model, batch)
+            grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+            res[dev] = (loss.item(), {n: None if g is None else g.detach().cpu() for n, g in zip(named, grads)})
+        (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+        if not abs(lg - lc) <= 1e-5 * abs(lc):
+            raise AssertionError(f"{arch} smoke forward_train on embeddings: loss card {lg} cpu {lc}")
+        worst = 0.0
+        for n, g in gc.items():
+            if (g is None) != (gg[n] is None):
+                raise AssertionError(f"{arch} smoke gradient of {n}: present on one device only")
+            if g is not None:
+                worst = max(worst, ((gg[n] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item())
+        if worst > 1e-4:
+            raise AssertionError(f"{arch} smoke gradients: worst relative error {worst:.2e} (tol 1e-4)")
+        unused = sorted(n for n, g in gc.items() if g is None)
+        log(f"[11b] {arch} smoke-width sparse fp32: CPU and card greedy streams equal over {len(work)} requests; "
+            f"forward_train on embeddings and position streams: loss {lc:.6f} / {lg:.6f}, gradients within "
+            f"{worst:.2e} of each leaf's largest entry; no gradient for {unused}")
+        out[arch] = {"requests": len(work), "loss": [lc, lg], "grad_rel_err": worst, "unused": unused,
+                     "train_step": smoke_step_cpu_vs_card(cfg, tag="11b", batch=embeds_batch(cfg, 4, 2 * page, seed))}
+    return out
+
+
+def serve_bench_full_width(kernels, smi):
+    """(e) ``repro_torch.bench.serve_engine`` at full width on the card,
+    three repeats (its own cuts are listed under ``config.reduced``): the
+    overhead floors take the median of three paired ratios; its stream
+    assertions must pass. The kernels'
+    counts are set to 0 just before and read just after: all three must
+    launch."""
+    from repro_torch.bench import serve_engine
+
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = serve_engine.run(device="cuda", out=str(ROOT / "build" / "bench_serve_torch.json"))
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the serving benchmark")
+    good, live = res["goodput"], res["observability_live"]
+    log(f"[11e] bench.serve_engine, full-width qwen3-1.7b sparse, {wall:.1f} s on {smi}: uniform "
+        f"{res['engine_uniform']['tok_s']} tok/s (decode {res['engine_uniform']['decode_tok_s']}), Server "
+        f"{res['server']['tok_s']} tok/s (x{res['speedup_vs_server']}); prefill-heavy x{res['prefill_heavy_speedup']}; "
+        f"sampled/greedy {res['decode_by_sampler']['sampled_vs_greedy']}; prefix admission "
+        f"x{res['prefix_cache']['admission_speedup']} (hit rate {res['prefix_cache']['on']['hit_rate']}); burst SLO "
+        f"{good['burst']['on']['slo_attainment']} on / {good['burst']['off']['slo_attainment']} off, long tail "
+        f"{good['long_tail']['on']['slo_attainment']} / {good['long_tail']['off']['slo_attainment']}, chat turn 2+ hit "
+        f"rate {good['chat']['turn2plus_hit_rate']}; traced/off {res['observability']['traced_vs_off']}, "
+        f"monitored/off {live['monitored_vs_off']}; shed hi attainment {live['slo_shed']['on']['hi_attainment']} on / "
+        f"{live['slo_shed']['off']['hi_attainment']} off; launches {launches}")
+    log(f"[11e]   cuts: {json.dumps(res['config']['reduced'])}")
+    return {"wall_s": wall, "launches": launches, "result": res}
+
+
+def serve_example(kernels):
+    """(f) ``repro_torch.examples.serve_lm`` on the card: six requests of
+    four samplers, two of them late, each to its full length; the three
+    kernels launch (counts set to 0 just before)."""
+    from repro_torch.examples import serve_lm
+
+    for k in kernels.values():
+        k.launches = 0
+    fins = serve_lm.main([])
+    launches = {name: k.launches for name, k in kernels.items()}
+    if [len(f.tokens) for f in fins] != [12, 6, 10, 8, 5, 9]:
+        raise AssertionError(f"serve example: {[(f.finish_reason, len(f.tokens)) for f in fins]}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the serve example")
+    log(f"[11f] examples.serve_lm on the card: {len(fins)} requests, {sum(len(f.tokens) for f in fins)} tokens; "
+        f"launches {launches}")
+    return {"requests": len(fins), "launches": launches}
+
+
+# ----------------------------------------------------------------------
 # main
 # ----------------------------------------------------------------------
 
@@ -2242,7 +2430,20 @@ def main(argv=None) -> int:
     vit_fwd = [r for r in vision["kernels"] if r["block"] == 32 and r["m"] == vit_m
                and r["dtype"] == "bfloat16" and r["pass"] == "forward"]
 
-    # ---- 11. report ------------------------------------------------
+    # ---- 11. the vlm and audio backbones, the bench twin, the example
+    t11 = time.perf_counter()
+    vlm = {"kernels": arch_kernels(timer, args.seed, VLM_AUDIO, "11a"), "smoke": vlm_audio_smoke(args.seed)}
+    for arch in VLM_AUDIO:
+        vlm[arch] = family_full_width(arch, args.seed, smi, kernels, tag="11c" if arch == "qwen2-vl-7b" else "11d",
+                                      traced=True)
+        torch.cuda.empty_cache()
+    vlm["bench"] = serve_bench_full_width(kernels, smi)
+    vlm["example"] = serve_example(kernels)
+    vlm["wall_s"] = time.perf_counter() - t11
+    report["vlm_audio"] = vlm
+    log(f"[11] phase 11 took {vlm['wall_s']:.1f} s")
+
+    # ---- 12. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -2305,13 +2506,16 @@ def main(argv=None) -> int:
             "library_ms": summed(vit_fwd, "library_ms"),
         },
     ]}
-    for k in line["kernels"][:3]:  # the launches of phases 6, 7, 8, 9 and 10, counted apart
+    for k in line["kernels"][:3]:  # the launches of phases 6, 7, 8, 9, 10 and 11, counted apart
         k["launches_phase6"] = report["features"]["launches"][k["name"]]
         k["launches_phase9"] = cli["cli"]["launches"][k["name"]]
         k["launches_training"] = report["training"]["full_width"]["launches"][k["name"]]
         k["launches_phase8"] = sum(family[a][part]["launches"][k["name"]]
                                    for a in FAMILY for part in ("serving", "training"))
         k["launches_phase10"] = vision["b16"]["launches"][k["name"]] + vision["ablation"]["launches"][k["name"]]
+        k["launches_phase11"] = (sum(vlm[a][part]["launches"][k["name"]] for a in VLM_AUDIO
+                                     for part in ("serving", "training"))
+                                 + vlm["bench"]["launches"][k["name"]] + vlm["example"]["launches"][k["name"]])
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -3,8 +3,10 @@
 ``get(name)`` returns the published config; ``get(name, sparse=True)`` its
 pixelfly-sparsified twin (the same overrides as the JAX registry);
 ``get_smoke(name)`` the reduced same-family config. The four
-architectures of the dense decoder family are listed; the others wait for
-their families (ROADMAP Queue 1). The JAX registry's mesh tables
+architectures of the dense decoder family are listed, and the vlm and
+audio backbones (``qwen2-vl-7b``, ``musicgen-large``), whose modality
+frontends are stubs that feed embeddings; the MoE, SSM and hybrid
+families wait for their port (ROADMAP Queue 1). The JAX registry's mesh tables
 (``DEFAULT_STRATEGY``, ``LONG_CONTEXT_*``, ``shapes_for``) wait for the
 port of distribution (ROADMAP Queue 1 item 9). ``deepseek-67b`` (134 GB of
 bf16 weights) does not fit one 80 GB card: the port runs it at smoke
@@ -22,6 +24,8 @@ _MODULES = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
 }
 
 ARCH_NAMES = list(_MODULES)

@@ -231,6 +231,11 @@ def main(argv=None) -> Served:
         if args.smoke
         else registry.get(args.arch, sparse=args.sparse)
     )
+    if not cfg.embed_inputs:
+        raise SystemExit(
+            f"{args.arch} has a stub modality frontend; serve the backbone "
+            "via the dry-run (decode_32k) instead"
+        )
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, size=(args.batch, args.prompt_len), dtype=np.int32)
     if args.shared_prefix:

@@ -7,6 +7,8 @@
 
 With ``--smoke`` the reduced config trains on a 512-token synthetic
 vocabulary; ``--data-file`` trains on the bytes of a local file instead.
+The vlm and audio backbones (``qwen2-vl-7b``, ``musicgen-large``) train on
+the stub frontend's pseudo-embeddings of those tokens (``EmbedsWrapper``).
 """
 
 from __future__ import annotations
@@ -14,20 +16,24 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.configs import registry
-from repro_torch.training.data import SyntheticLM, TextFileLM
+from repro_torch.training.data import EmbedsWrapper, SyntheticLM, TextFileLM
 from repro_torch.training.loop import TrainConfig, Trainer
 from repro_torch.training.optimizer import OptConfig
 
 
 def build_data(cfg, args):
     if args.data_file:
-        return TextFileLM(args.data_file, args.seq, args.batch, seed=args.seed)
-    return SyntheticLM(
-        min(cfg.vocab_size, 512) if args.smoke else cfg.vocab_size,
-        args.seq,
-        args.batch,
-        seed=args.seed,
-    )
+        src = TextFileLM(args.data_file, args.seq, args.batch, seed=args.seed)
+    else:
+        src = SyntheticLM(
+            min(cfg.vocab_size, 512) if args.smoke else cfg.vocab_size,
+            args.seq,
+            args.batch,
+            seed=args.seed,
+        )
+    if not cfg.embed_inputs:
+        src = EmbedsWrapper(src, cfg.d_model, n_pos_streams=len(cfg.mrope_sections))
+    return src
 
 
 def main(argv=None):

@@ -72,13 +72,40 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Te
 
 
 def rope_angles(
-    positions: torch.Tensor, head_dim: int, theta: float
+    positions: torch.Tensor,
+    head_dim: int,
+    theta: float,
+    mrope_sections: tuple[int, ...] = (),
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """positions (B, S) -> cos, sin (B, S, 1, head_dim // 2), fp32."""
+    """positions (B, S) -> cos, sin (B, S, 1, head_dim // 2), fp32.
+
+    M-RoPE (Qwen2-VL): with ``mrope_sections``, positions are (B, S, n)
+    and the half-dim splits into the sections, in order; section i keeps
+    the global frequencies [off, off + sec) and rotates by position stream
+    i (temporal / height / width), as the JAX package's ``apply_rope``.
+    Each angle is the same fp32 product of one position and one
+    frequency, so n equal streams give plain RoPE's bits."""
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
-    ang = positions[..., None].float() * freqs
+    # theta ** exps rounded once to fp32, as the JAX package's frequencies
+    # are (fp32 pow on the CPU is 1 ulp off for a few of them, which moves
+    # an angle by 3e-5 rad at position 4096)
+    theta32 = torch.tensor(theta, dtype=torch.float32).double()
+    freqs = torch.pow(theta32, exps.double()).float()
+    if mrope_sections:
+        if positions.ndim != 3 or positions.shape[-1] != len(mrope_sections):
+            raise ValueError(
+                f"M-RoPE needs positions (B, S, {len(mrope_sections)}), got {tuple(positions.shape)}"
+            )
+        if sum(mrope_sections) != half:
+            raise ValueError(f"mrope_sections {mrope_sections} do not sum to head_dim // 2 = {half}")
+        offs = [sum(mrope_sections[:i]) for i in range(len(mrope_sections) + 1)]
+        ang = torch.cat(
+            [positions[..., i : i + 1].float() * freqs[offs[i] : offs[i + 1]] for i in range(len(mrope_sections))],
+            dim=-1,
+        )  # (B, S, half)
+    else:
+        ang = positions[..., None].float() * freqs
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 

@@ -1,5 +1,5 @@
-"""Decoder LM of the port (the dense/attention family) and its paged
-serving entry points.
+"""Decoder LM of the port (the dense family, and the vlm and audio
+backbones) and its paged serving entry points.
 
 The JAX package scans each layer group with ``lax.scan``; here the layers
 are an ``nn.ModuleList`` walked by a Python loop, and each layer group's
@@ -23,6 +23,11 @@ Entry points:
                                      or (tokens (B,), caches, presence)
   forward_train(cfg, model, batch) -> (loss, {"nll", "lb_loss"})
 Every entry point runs on the card unless the caller passes another device.
+``forward_train`` and ``prefill`` take a batch of ``tokens`` or of
+``embeds`` (B, S, d_model), the stub modality frontends' contract (vlm,
+audio), with optional ``positions``: (B, S), or (B, S, n) M-RoPE streams
+when ``cfg.mrope_sections`` is set. The paged entry points embed tokens and
+give every M-RoPE stream the token's position, as the JAX package does.
 ``init_cache``/``prefill``/``decode_step`` are the contiguous-cache path
 of the fixed-batch ``launch.serve.Server``. The serving entry points
 build no autograd graph (``torch.no_grad``);
@@ -86,10 +91,11 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator, device: torch.device):
         super().__init__()
-        if cfg.family not in ("dense",):
+        if cfg.family not in ("dense", "vlm", "audio"):
             raise NotImplementedError(
-                f"family {cfg.family!r}: the port serves the dense decoder "
-                "family so far (ROADMAP Queue 1 items 6 and 12)"
+                f"family {cfg.family!r}: the port runs the dense decoder "
+                "family and the vlm and audio backbones so far (ROADMAP "
+                "Queue 1 item 12)"
             )
         self.cfg = cfg
         self.embed = L.Embedding(cfg, gen=gen, device=device)
@@ -167,6 +173,35 @@ def init_paged_cache(
     ]
 
 
+def _streams(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions, broadcast to (B, S, n) for the model's n M-RoPE
+    streams when it has them."""
+    if cfg.mrope_sections:
+        return positions[..., None].expand(*positions.shape, len(cfg.mrope_sections))
+    return positions
+
+
+def _angles(cfg: ModelConfig, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return L.rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
+
+
+def _inputs_to_x(cfg: ModelConfig, model: LM, batch: dict) -> torch.Tensor:
+    """The batch's ``embeds`` cast to the model dtype, else its ``tokens``
+    embedded (either a tensor or numpy, moved to the model's device)."""
+    dev = model.embed.tok.device
+    if "embeds" in batch:
+        return torch.as_tensor(batch["embeds"], device=dev).to(cfg.torch_dtype)
+    return L.embed_tokens(model.embed, torch.as_tensor(batch["tokens"], device=dev).long())
+
+
+def _positions(cfg: ModelConfig, batch: dict, b: int, s: int, device: torch.device) -> torch.Tensor:
+    """The batch's ``positions`` if it has them, else 0..S-1 per row (on
+    every M-RoPE stream)."""
+    if "positions" in batch:
+        return torch.as_tensor(batch["positions"], device=device).long()
+    return _streams(cfg, torch.arange(s, device=device)[None].expand(b, s))
+
+
 def _layer_pools(cfg: ModelConfig, caches: list) -> list[dict[str, torch.Tensor]]:
     """Per-layer views ``{"k": pool[i], "v": pool[i]}`` in layer order
     (paged pools or contiguous caches alike)."""
@@ -179,14 +214,12 @@ def _layer_pools(cfg: ModelConfig, caches: list) -> list[dict[str, torch.Tensor]
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: LM, batch: dict) -> tuple[torch.Tensor, list]:
     """Full-sequence inference pass, the JAX package's ``prefill``: batch
-    {"tokens": (B, S)} (a tensor or numpy, moved to the model's device) ->
-    (logits of the last token (B, V), caches [{"k", "v"}] per layer group,
-    each (count, B, S, Hk, D))."""
-    tokens = torch.as_tensor(batch["tokens"], device=model.embed.tok.device).long()
-    x = L.embed_tokens(model.embed, tokens)
+    {"tokens": (B, S)} or {"embeds", "positions"} (tensors or numpy, moved
+    to the model's device) -> (logits of the last token (B, V), caches
+    [{"k", "v"}] per layer group, each (count, B, S, Hk, D))."""
+    x = _inputs_to_x(cfg, model, batch)
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = _angles(cfg, _positions(cfg, batch, b, s, x.device))
     fresh = []
     for blk in model.layers:
         h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
@@ -216,7 +249,7 @@ def decode_step(
     new caches). Returns (logits (B, V), caches)."""
     x = L.embed_tokens(model.embed, tokens.long()[:, None])
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.long, device=x.device)
-    cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = _angles(cfg, _streams(cfg, positions))
     for blk, cache in zip(model.layers, _layer_pools(cfg, caches)):
         h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
         y, _ = L.apply_attention(cfg, blk.attn, h, cos, sin, mode="decode", cache=cache, pos=pos)
@@ -279,7 +312,7 @@ def prefill_paged(
     if prefix_lens is not None:
         mode = "prefill_prefix"
         positions = prefix_lens.long()[:, None] + positions
-    cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = _angles(cfg, _streams(cfg, positions))
     rows = page_rows.long()
     for blk, pool in zip(model.layers, _layer_pools(cfg, caches)):
         h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
@@ -332,7 +365,7 @@ def decode_step_paged(
     pos = positions.to(torch.int32).contiguous()
     page = caches[0]["k"].shape[2]
     index = L.decode_index(cfg, page_table, pos, page)
-    cos, sin = L.rope_angles(pos.long()[:, None], cfg.head_dim, cfg.rope_theta)
+    cos, sin = _angles(cfg, _streams(cfg, pos.long()[:, None]))
     for blk, pool in zip(model.layers, _layer_pools(cfg, caches)):
         h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
         y, _ = L.apply_attention(
@@ -369,9 +402,13 @@ def _train_block(
 def forward_train(
     cfg: ModelConfig, model: LM, batch: dict
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """The JAX package's ``forward_train``: batch {"tokens", "labels"}
-    (B, S) int (tensors or numpy, moved to the model's device) -> (loss,
-    {"nll", "lb_loss"}), differentiable with respect to every parameter.
+    """The JAX package's ``forward_train``: batch {"tokens" | "embeds",
+    "labels"} with optional "positions" (tensors or numpy, moved to the
+    model's device; embeds cast to the model dtype) -> (loss, {"nll",
+    "lb_loss"}), differentiable with respect to every parameter. A
+    parameter the loss does not reach (the token table when a model with
+    an untied head reads embeddings) gets no gradient here;
+    ``training.loop`` gives it zeros, as JAX's ``grad`` does.
 
     The loss is the masked mean next-token NLL over ``labels >= 0``: the
     log-partition by logsumexp over the fp32 logits, the gold logit by an
@@ -387,12 +424,10 @@ def forward_train(
     every layer's forward a third time.
     """
     dev = model.embed.tok.device
-    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     labels = torch.as_tensor(batch["labels"], device=dev).long()
-    x = L.embed_tokens(model.embed, tokens)
+    x = _inputs_to_x(cfg, model, batch)
     b, s, _ = x.shape
-    positions = torch.arange(s, device=dev)[None].expand(b, s)
-    cos, sin = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = _angles(cfg, _positions(cfg, batch, b, s, dev))
     for blk in model.layers:
         if cfg.remat:
             x = checkpoint(_train_block, cfg, blk, x, cos, sin, use_reentrant=False)

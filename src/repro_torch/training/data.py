@@ -8,9 +8,12 @@ only: the same seed and step give the same batches in both packages.
   step)), which makes checkpoint-resume exact.
 - ``TextFileLM``: byte-level tokenization of a local file with the same
   step-addressable contract.
+- ``EmbedsWrapper``: the stub modality frontend of the vlm and audio
+  backbones, mapping a source's token batches to pseudo-embeddings.
 
 Batches are {"tokens", "labels"} (B, S) int32 numpy arrays, with labels
-the next-token shift.
+the next-token shift; ``EmbedsWrapper`` gives {"embeds", "labels"} and,
+for M-RoPE, "positions".
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["SyntheticLM", "TextFileLM"]
+__all__ = ["SyntheticLM", "TextFileLM", "EmbedsWrapper"]
 
 
 @dataclasses.dataclass
@@ -74,3 +77,43 @@ class TextFileLM:
 
     def state(self) -> dict:
         return {"seed": self.seed, "path": self.path}
+
+
+@dataclasses.dataclass
+class EmbedsWrapper:
+    """Stub modality frontend: maps ``inner``'s token batches to
+    deterministic pseudo-embeddings (B, S, d_model) fp32, the [vlm]/[audio]
+    contract, with (B, S, n_pos_streams) int32 positions 0..S-1 on every
+    stream when ``n_pos_streams`` is set (3 for M-RoPE).
+
+    The JAX package's wrapper draws its (V, d_model) table from
+    ``default_rng(0)`` on every batch; this one draws the same table once,
+    at the first batch, and keeps it (2.2 GB at qwen2-vl-7b's width), so
+    the batches are equal bit for bit and a step pays no table draw."""
+
+    inner: object
+    d_model: int
+    n_pos_streams: int = 0
+    _table: np.ndarray | None = dataclasses.field(default=None, init=False, repr=False)
+
+    def table(self) -> np.ndarray:
+        if self._table is None:
+            rng = np.random.default_rng(0)
+            shape = (self.inner.vocab_size, self.d_model)
+            self._table = rng.standard_normal(shape).astype(np.float32) * 0.02
+        return self._table
+
+    def batch(self, step: int) -> dict:
+        b = self.inner.batch(step)
+        toks = b["tokens"]
+        bsz, s = toks.shape
+        out = {"embeds": self.table()[toks], "labels": b["labels"]}
+        if self.n_pos_streams:
+            pos = np.broadcast_to(
+                np.arange(s, dtype=np.int32)[None, :, None], (bsz, s, self.n_pos_streams)
+            )
+            out["positions"] = np.ascontiguousarray(pos)
+        return out
+
+    def state(self) -> dict:
+        return self.inner.state()

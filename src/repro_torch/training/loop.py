@@ -45,7 +45,8 @@ def make_train_step(
     """``train_step(model, opt_state, batch) -> metrics``: one AdamW step
     on ``model``'s parameters and ``opt_state``, in place. The metrics are
     ``loss``, ``nll``, ``lb_loss``, ``grad_norm`` (device scalars) and
-    ``lr``.
+    ``lr``. Every parameter gets a gradient: zeros where the loss does not
+    reach it.
 
     ``microbatches = k > 1`` accumulates gradients over k sequential
     slices of the batch's rows, summed in fp32 and divided by k (so are
@@ -60,7 +61,11 @@ def make_train_step(
         with record_function("train_forward"):
             loss, aux = T.forward_train(model_cfg, model, mb)
         with record_function("train_backward"):
-            grads = torch.autograd.grad(loss, list(params.values()))
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        # a parameter the loss does not reach (the token table of a model
+        # that reads embeddings through an untied head) gets zeros, as
+        # under JAX's grad: AdamW still decays it and its moments
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params.values(), grads)]
         return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}, grads
 
     def train_step(model, opt_state, batch):
@@ -70,12 +75,10 @@ def make_train_step(
             grads = dict(zip(params, g))
         else:
             k = microbatches
-            if len(batch["tokens"]) % k:
-                raise ValueError(
-                    f"a batch of {len(batch['tokens'])} rows does not split into "
-                    f"{k} microbatches"
-                )
-            rows = len(batch["tokens"]) // k
+            n = len(batch["labels"])
+            if n % k:
+                raise ValueError(f"a batch of {n} rows does not split into {k} microbatches")
+            rows = n // k
             gsum = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in params.items()}
             msum = None
             for i in range(k):

@@ -151,7 +151,7 @@ def test_bsr_matmul_kernel_refuses_small_blocks(cuda):
                         torch.zeros((2, 1), dtype=torch.int32, device=cuda))
 
 
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 7])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 def test_paged_decode_kernel(cuda, g, dtype, tol):
     rng = np.random.default_rng(g)
@@ -222,7 +222,7 @@ def _paged_check(args, tol):
 
 
 @pytest.mark.parametrize("schedule", ["sparse", "dense"])
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 8])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 7, 8])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 def test_paged_decode_kernel_main_shapes(cuda, schedule, g, dtype, tol):
     args = _paged_main(g, dtype, cuda, schedule=schedule, seed=g)
@@ -323,8 +323,9 @@ def _attention_inputs(b, s, hk, g, d, block, dtype, dev, seed):
     return q, k, v, kv_index, valid
 
 
-@pytest.mark.parametrize("d,block,s", [(128, 128, 2048), (64, 64, 1024)])
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 8])
+# (64, 128, 2048): musicgen-large's head dim under the block-128 pattern
+@pytest.mark.parametrize("d,block,s", [(128, 128, 2048), (64, 64, 1024), (64, 128, 2048)])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 7, 8])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
 def test_block_sparse_attention_kernel_main_shapes(cuda, d, block, s, g, dtype, tol):
     b, hk = 2, 2
@@ -339,7 +340,7 @@ def test_block_sparse_attention_kernel_main_shapes(cuda, d, block, s, g, dtype, 
 
 
 @pytest.mark.parametrize("d,block", [(64, 128), (128, 128), (64, 64)])
-@pytest.mark.parametrize("g", [2, 3, 4, 6, 8])
+@pytest.mark.parametrize("g", [2, 3, 4, 6, 7, 8])
 def test_block_sparse_attention_groups_equal_one_head_blocks(cuda, d, block, g):
     """bf16: a thread block takes 4, 2 or 1 heads of a GQA group (the
     largest dividing G) and G / that many sub-groups run side by side. A
@@ -368,12 +369,17 @@ def test_block_sparse_attention_kernel_refuses_misaligned(cuda):
         block_sparse_attention_cuda(q, k, v, kv_index, valid, block=32, causal=True, sm_scale=0.125)
 
 
-# the dense-family configs the port added: (arch, linear) -> (n_in, n_out)
+# the configs the port added after qwen3-1.7b: (arch, linear) -> (n_in, n_out)
 FAMILY = {
     "smollm-360m": {"q": ("d_model", "q_dim"), "kv": ("d_model", "kv_dim"),
                     "gate": ("d_model", "d_ff"), "down": ("d_ff", "d_model")},
     "qwen2-1.5b": {"q": ("d_model", "q_dim"), "kv": ("d_model", "kv_dim"),
                    "gate": ("d_model", "d_ff"), "down": ("d_ff", "d_model")},
+    # 28 -> 28, 28 -> 4, 28 -> 148 and 148 -> 28 blocks of 128
+    "qwen2-vl-7b": {"q": ("d_model", "q_dim"), "kv": ("d_model", "kv_dim"),
+                    "gate": ("d_model", "d_ff"), "down": ("d_ff", "d_model")},
+    # multi-head: kv is q's shape
+    "musicgen-large": {"q": ("d_model", "q_dim"), "gate": ("d_model", "d_ff"), "down": ("d_ff", "d_model")},
 }
 FAMILY_CASES = [(a, lin) for a in FAMILY for lin in FAMILY[a]]
 
@@ -431,11 +437,13 @@ def test_dense_attention_flash_equals_chunked(cuda, g, d):
         assert _rel(a, w) <= 2e-2
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2-1.5b", "qwen2-vl-7b", "musicgen-large"])
 def test_family_engine_streams_equal_cpu(cuda, arch):
-    """fp32 sparse smoke models of smollm-360m (G = 3) and qwen2-1.5b
-    (QKV bias), the same seeded weights: equal greedy streams on the card
-    and on the CPU, with a max_len whose decode schedule skips pages."""
+    """fp32 sparse smoke models of smollm-360m (G = 3), qwen2-1.5b (QKV
+    bias), qwen2-vl-7b (M-RoPE, untied head) and musicgen-large
+    (multi-head), the same seeded weights: equal greedy streams on the
+    card and on the CPU, with a max_len whose decode schedule skips
+    pages."""
     cfg = registry.get_smoke(arch, sparse=True)
     page = cfg.attn_block
     rng = np.random.default_rng(2)
@@ -751,26 +759,33 @@ def test_block_sparse_attention_grads_on_card(cuda, dtype, tol):
         assert _rel(a, w) <= tol
 
 
-def test_train_step_on_card_equals_cpu(cuda):
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2-vl-7b", "musicgen-large"])
+def test_train_step_on_card_equals_cpu(cuda, arch):
     """One fp32 ``make_train_step`` step of the smoke model, seed 0, on the
     card (kernels) and on the CPU (plain versions): loss and grad_norm
     within 1e-4 relative; parameters within 1e-6 where the CPU gradient
-    exceeds 1e-5 in magnitude and within 2 * lr elsewhere."""
+    exceeds 1e-5 in magnitude and within 2 * lr elsewhere. The vlm and
+    audio backbones train on ``EmbedsWrapper`` batches, the token table
+    with a zero gradient."""
     from repro_torch.models import transformer as T
-    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.data import EmbedsWrapper, SyntheticLM
     from repro_torch.training.loop import make_train_step
     from repro_torch.training.optimizer import OptConfig, init_opt_state
 
-    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    cfg = registry.get_smoke(arch, sparse=True)
     opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    batch = SyntheticLM(cfg.vocab_size, 128, 4, seed=0).batch(0)
+    data = SyntheticLM(cfg.vocab_size, 128, 4, seed=0)
+    if not cfg.embed_inputs:
+        data = EmbedsWrapper(data, cfg.d_model, n_pos_streams=len(cfg.mrope_sections))
+    batch = data.batch(0)
     out = {}
     for dev in ("cpu", cuda):
         model = T.init_model(cfg, seed=0, device=dev)
         params = dict(model.named_parameters())
         if dev == "cpu":
             loss, _ = T.forward_train(cfg, model, batch)
-            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            g = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            grads = {n: torch.zeros_like(p) if x is None else x for (n, p), x in zip(params.items(), g)}
         m = make_train_step(cfg, opt)(model, init_opt_state(opt, params), batch)
         out[str(dev)] = (m, {n: p.detach().cpu() for n, p in params.items()})
     (mc, pc), (mg, pg) = out["cpu"], out[str(cuda)]
