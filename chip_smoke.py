@@ -131,9 +131,33 @@ Phases; any failure raises and the script exits non-zero:
    width, three repeats. (f) ``repro_torch.examples.serve_lm`` on the card.
    The kernels' counts are set to 0 just before each of (c)-(f) and read
    just after.
-12. The kernels line (with each kernel's launches in phases 5, 6, 7, 8,
-   9, 10 and 11, and a row for the b = 32 tensor-core path at ViT-B/16's
-   shapes), the script's wall time, then the last line
+12. The MoE, SSM and hybrid families. (a) The three kernels at the new
+   shapes against their plain versions, timed as in phase 8a:
+   bsr_matmul forward (M = 8 and 4 x 2048) and dX for every linear shape
+   of deepseek-moe-16b (q/k/v/o, the dense layer's gate/up and down at
+   block 64, the shared experts), zamba2-2.7b (attention, MLP, the SSM's
+   out_proj) and mamba2-130m (out_proj); bf16 attention at deepseek-moe
+   (H = Hk = 16, D = 128) and zamba2 (H = Hk = 32, D = 80), B = 1 and 4,
+   S = 2048, beside SDPA; the paged read at deepseek-moe's heads; head dim
+   80 in fp32 and ``BlockSparseAttention``'s gradients at D = 80. (b)
+   fp32 sparse smoke models of deepseek-moe-16b, kimi-k2-1t-a32b,
+   mamba2-130m and zamba2-2.7b: equal greedy streams on the CPU and the
+   card (the engine for the MoE two, the ``Server`` for the SSM two) and
+   one train step each, held as in 7b. (c) deepseek-moe-16b at full
+   width, sparse: the engine serves as in 8c, then the Trainer steps as in
+   8c, one step traced on the device only and one profiled (the MoE
+   dispatch, expert products and combine by range). (d) zamba2-2.7b and
+   mamba2-130m at full width, sparse: the ``Server`` greedily serves 8
+   prompts of 1024 tokens (one prefill pass), 32 new each, then the same
+   Trainer steps, traced and profiled steps (the SSD scan by range). The
+   kernels' counts are set to 0 just before each of (c) and (d) and read
+   just after: all three launch in deepseek-moe's serving,
+   block_sparse_attention and bsr_matmul in zamba2's serving and
+   training, bsr_matmul in mamba2's. kimi-k2 (344 GB sparse) does not
+   fit the card: the CPU tests cover it.
+13. The kernels line (with each kernel's launches in phases 5 to 12, a
+   row for the b = 32 tensor-core path at ViT-B/16's shapes and one for
+   attention at head dim 80), the script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -162,7 +186,8 @@ HBM_BYTES_PER_S = 3.35e12
 # record_function ranges of the port's plain-torch pieces: serving, and
 # the training step's parts and backward pieces
 RANGES = ("sampler", "prefix_flash_attention", "train_forward", "train_backward", "optimizer",
-          "bsr_matmul_dx", "bsr_matmul_dblocks", "sparse_attention_vjp")
+          "bsr_matmul_dx", "bsr_matmul_dblocks", "sparse_attention_vjp",
+          "moe_dispatch", "moe_experts", "moe_combine", "ssd_scan")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
@@ -250,6 +275,78 @@ def digest(t: torch.Tensor) -> str:
 
     raw = t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
     return hashlib.sha256(raw).hexdigest()[:16]
+
+
+def dev_us(e):
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
+def profiled(label, fn, cpu=True, tag="5"):
+    """Wall time, device busy share and the top device kernels of one
+    window around fn (which ends in a synchronise). With cpu=False only
+    the device is traced (no host ops or ranges), which costs the host
+    less. The port's record_function ranges (``RANGES``) are read apart:
+    the device time of the kernels launched inside each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    # device-side events only: an aten op's row repeats its kernels' time
+    # (the port's record_function ranges are read apart, not summed)
+    averages = prof.key_averages()
+    rows = sorted(
+        (e for e in averages
+         if getattr(e, "device_type", None) == DeviceType.CUDA and e.key not in RANGES),
+        key=dev_us, reverse=True,
+    )
+    busy_us = sum(dev_us(e) for e in rows)
+    # the port's kernels by name prefix (a kernel may launch several)
+    ours = {}
+    for name in ("bsr_matmul", "paged_decode", "block_sparse_attention"):
+        hits = [e for e in rows if f"{name}_" in e.key]
+        ours[name] = {"device_ms": sum(dev_us(e) for e in hits) / 1e3,
+                      "launches": sum(e.count for e in hits),
+                      "kernels": sorted({e.key[:60] for e in hits})}
+    # device time of the kernels launched inside each named range: the
+    # host-side range's total (its children's kernels), else the
+    # device-side annotation's span
+    ranges = {}
+    for name in RANGES:
+        host = [e for e in averages if e.key == name and getattr(e, "device_type", None) != DeviceType.CUDA]
+        span = [e for e in averages if e.key == name and getattr(e, "device_type", None) == DeviceType.CUDA]
+        us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) for e in host)
+        if not us:
+            us = sum(dev_us(e) for e in span)
+        if host or span:
+            ranges[name] = {"device_ms": us / 1e3, "calls": sum(e.count for e in host) or None}
+    out = {
+        "window_ms": window * 1e3,
+        "ranges": ranges,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / window if busy_us else None,
+        "top": [(e.key[:80], dev_us(e) / 1e3, e.count) for e in rows[:8] if dev_us(e) > 0],
+        "ours": ours,
+    }
+    if busy_us:
+        log(f"[{tag}] profiled {label}: {window * 1e3:.1f} ms wall, device busy "
+            f"{busy_us / 1e3:.1f} ms, idle share {out['device_idle_share']:.2f}")
+        for name, ms, n in out["top"]:
+            log(f"[{tag}]   {ms:8.3f} ms  x{n:<5d} {name}")
+        for name, o in ranges.items():
+            log(f"[{tag}]   range {name}: {o['device_ms']:.3f} ms of device time over {o['calls']} calls")
+        for name, o in ours.items():
+            if o["launches"]:
+                log(f"[{tag}]   port kernel {name}: {o['device_ms']:.3f} ms over {o['launches']} device "
+                    f"launches ({1e3 * o['device_ms'] / o['launches']:.1f} us each) {o['kernels']}")
+    else:
+        log(f"[{tag}] profiler recorded no device time for {label}: device busy share not measured")
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -532,7 +629,7 @@ def engine_stats(eng) -> dict:
     }
 
 
-def full_width_features(full, state_dict, kernels, rng, seed, smi, profiled, timer):
+def full_width_features(full, state_dict, kernels, rng, seed, smi, timer):
     """Serve full-width qwen3-1.7b with the prefix cache on, on phase 5's
     weights (shared, not drawn again): 8 requests on one 1024-token system
     prompt (8 pages) with 64-256-token suffixes, 8 unrelated 200-1000-token
@@ -936,7 +1033,7 @@ def smoke_step_cpu_vs_card(smoke, tag="7b", batch=None):
     return {"cpu": mc, "card": mg, "param_err_big_grad": worst_big, "param_err_max": worst}
 
 
-def full_width_training(full, seed, smi, kernels, profiled):
+def full_width_training(full, seed, smi, kernels):
     """(c) Full-width sparse qwen3-1.7b through ``Trainer`` at B = 4,
     S = 2048 (SyntheticLM over the full vocab): 1 warm-up step and 3 timed
     steps with every kernel's count reset before them, then one profiled
@@ -1258,16 +1355,22 @@ def family_full_width(arch, seed, smi, kernels, tag="8c", traced=False):
     serving, the two training kernels in training; every request
     finishes, loss and grad norm are finite. ``traced``: one more step
     traced on the device only gives the step's busy share."""
-    import shutil
-
-    from repro_torch.bench.common import device_trace
     from repro_torch.configs import registry
-    from repro_torch.serving.engine import Engine, EngineConfig
-    from repro_torch.training.data import EmbedsWrapper, SyntheticLM
-    from repro_torch.training.loop import TrainConfig, Trainer
-    from repro_torch.training.optimizer import OptConfig
 
     full = registry.get(arch, sparse=True)
+    serving = engine_serving(full, seed, smi, kernels, tag)
+    training = trainer_steps(full, seed, smi, kernels, tag, traced=traced)
+    return {"serving": serving, "training": training, "card": smi}
+
+
+def engine_serving(full, seed, smi, kernels, tag):
+    """``Engine(max_slots=8, max_len=2048)`` on ``full`` serves 8 requests of
+    200-1000 prompt tokens from ``seed``, 32 new each, the kernels' counts
+    set to 0 just before and read just after: every request finishes and
+    all three kernels launch."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    arch = full.name
     rng = np.random.default_rng(seed + 8)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1316,7 +1419,27 @@ def family_full_width(arch, seed, smi, kernels, tag="8c", traced=False):
         f"{serving['decode_step_ms_p50']:.2f} ms, prefill {serving['prefill_tok_s']:.0f} tok/s, TTFT p50 "
         f"{serving['ttft_ms_p50']:.1f} ms, peak memory {serving['max_memory_allocated_gb']:.2f} GB; launches "
         f"{serve_launches}")
+    return serving
 
+
+def trainer_steps(full, seed, smi, kernels, tag, traced=False, must_launch=("bsr_matmul", "block_sparse_attention"),
+                  profile=False):
+    """A ``Trainer`` on ``full`` takes 1 warm-up and 2 timed steps at B = 4,
+    S = 2048 (on ``EmbedsWrapper`` batches for a backbone that reads
+    embeddings; at B = 2 if B = 4 runs out of memory or peaks above 72 GB,
+    and the report says so), the kernels' counts set to 0 just before the
+    timed steps and read just after: each of ``must_launch`` must launch,
+    loss and grad norm are finite. ``traced``: one more step traced on the
+    device only gives the step's busy share; ``profile``: one more step
+    profiled with its ranges."""
+    import shutil
+
+    from repro_torch.bench.common import device_trace
+    from repro_torch.training.data import EmbedsWrapper, SyntheticLM
+    from repro_torch.training.loop import TrainConfig, Trainer
+    from repro_torch.training.optimizer import OptConfig
+
+    arch = full.name
     s = 2048
     ckpt = ROOT / "build" / "chip_smoke_family_ckpt"
     fallback = None
@@ -1350,7 +1473,7 @@ def family_full_width(arch, seed, smi, kernels, tag="8c", traced=False):
     for h in warm + hist:
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
             raise AssertionError(f"{arch} training step {h['step']}: loss {h['loss']}, grad_norm {h['grad_norm']}")
-    for name in ("bsr_matmul", "block_sparse_attention"):
+    for name in must_launch:
         if train_launches[name] <= 0:
             raise AssertionError(f"{arch}: kernel {name} was never launched in the training steps")
     step_ms = [1e3 * h["step_time_s"] for h in hist]
@@ -1375,6 +1498,9 @@ def family_full_width(arch, seed, smi, kernels, tag="8c", traced=False):
         log(f"[{tag}] {arch} one more step traced on the device: {tr['window_ms']:.1f} ms, {busy}")
         for name, ms, n in tr["top"][:6]:
             log(f"[{tag}]   {ms:8.3f} ms  x{n:<5d} {name}")
+    if profile:
+        training["profiled_step"] = profiled(f"{arch}: one full-width training step (B={b}, S={s})",
+                                             lambda: trainer.run(1), tag=tag)
     del trainer
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1383,7 +1509,7 @@ def family_full_width(arch, seed, smi, kernels, tag="8c", traced=False):
         f"{', '.join(f'{x:.4f}' for x in training['loss'])}, grad norms "
         f"{', '.join(f'{x:.3f}' for x in training['grad_norm'])}, peak memory "
         f"{training['max_memory_allocated_gb']:.2f} GB; launches {train_launches}")
-    return {"serving": serving, "training": training, "card": smi}
+    return training
 
 
 def dense_vs_pixelfly(seed):
@@ -2070,6 +2196,265 @@ def serve_example(kernels):
 
 
 # ----------------------------------------------------------------------
+# phase 12: the MoE, SSM and hybrid families
+# ----------------------------------------------------------------------
+
+# the full-width models of phase 12 and the batch each trains at
+MOE_SSM = {"deepseek-moe-16b": 4, "zamba2-2.7b": 4, "mamba2-130m": 4}
+
+
+def moe_ssm_linears(full):
+    """The distinct pixelfly linear shapes of one layer of each kind of
+    ``full``: label -> LinearSpec, as the model builds them (attention and
+    MLP linears through ``layers.linear_spec``, with the block halved where
+    the width asks; the SSM's ``out_proj`` at the config's block, its
+    ``in_proj`` dense)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as ssm_lib
+
+    c = full
+    shapes = {}
+    if c.num_heads:
+        shapes["q/k/v/o" if c.q_dim == c.kv_dim == c.d_model else "q/o"] = (c.d_model, c.q_dim)
+        if c.kv_dim != c.q_dim:
+            shapes["k/v"] = (c.d_model, c.kv_dim)
+    if c.family == "moe":
+        shapes["dense gate/up"] = (c.d_model, c.moe_dense_ff)
+        shapes["dense down"] = (c.moe_dense_ff, c.d_model)
+        shared = c.moe_num_shared * c.moe_d_ff
+        shapes["shared gate/up"] = (c.d_model, shared)
+        shapes["shared down"] = (shared, c.d_model)
+    elif c.family == "hybrid":
+        shapes["gate/up"] = (c.d_model, c.d_ff)
+        shapes["down"] = (c.d_ff, c.d_model)
+    specs = {label: L.linear_spec(c, n_in, n_out, False) for label, (n_in, n_out) in shapes.items()}
+    if c.family in ("ssm", "hybrid"):
+        specs["out_proj"] = ssm_lib.SsmSpec(c).out_proj
+    return specs
+
+
+def moe_ssm_kernels(timer, seed):
+    """(a) The three kernels at the new shapes against their plain versions,
+    timed as in phase 8a: bsr_matmul forward at M = 8 and the training M
+    (4 x 2048) and dX on each transposed pattern at the training M, for
+    every linear shape of deepseek-moe-16b, zamba2-2.7b and mamba2-130m;
+    bf16 attention at deepseek-moe (H = Hk = 16, D = 128) and zamba2
+    (H = Hk = 32, D = 80), B = 1 and 4, S = 2048, with SDPA beside it; the
+    paged decode read at deepseek-moe's heads. Then head dim 80 in fp32 at
+    zamba2's B = 1 shape, and ``BlockSparseAttention``'s output and
+    gradients (the kernel forward, the plain gradient backward) at D = 80
+    in fp32 and bf16 against autograd of the plain version, the gradients
+    relative to their largest entry."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+
+    out = {"block_sparse_attention": [], "paged_decode_attention": [], "bsr_matmul": [], "bsr_matmul_dx": []}
+    for arch, b_train in MOE_SSM.items():
+        full = registry.get(arch, sparse=True)
+        if full.num_heads:
+            h, hk, d = full.num_heads, full.num_kv_heads, full.head_dim
+            for b in (1, b_train):
+                row = attention_case(timer, b=b, s=2048, h=h, hk=hk, d=d, block=full.attn_block,
+                                     dtype=torch.bfloat16, seed=seed + b, tol=2e-2)
+                out["block_sparse_attention"].append({"arch": arch, **row})
+        if full.family == "moe":
+            row = paged_case(timer, b=8, hk=full.num_kv_heads, g=full.num_heads // full.num_kv_heads,
+                             d=full.head_dim, page=full.attn_block, pps=16, dtype=torch.bfloat16,
+                             seed=seed + 9, tol=1e-2)
+            out["paged_decode_attention"].append({"arch": arch, **row})
+        m_train = b_train * 2048
+        for label, spec in moe_ssm_linears(full).items():
+            for m in (8, m_train):
+                row = bsr_case(timer, spec, m, torch.bfloat16, seed=seed + m, tol=2e-2)
+                out["bsr_matmul"].append({"arch": arch, "linear": label, **row})
+            pat = spec.pattern()
+            n_in, n_out = spec.in_features, spec.out_features
+            tables = AG.bsr_tables(pat.cols, pat.nb_in, "cuda")
+            g = torch.Generator(device="cuda").manual_seed(seed + n_out)
+            x = torch.randn((m_train, n_in), generator=g, device="cuda").to(torch.bfloat16)
+            blocks = (torch.randn((pat.nb_out, pat.r, pat.block, pat.block), generator=g, device="cuda")
+                      / math.sqrt(pat.r * pat.block)).to(torch.bfloat16)
+            dy = torch.randn((m_train, n_out), generator=g, device="cuda").to(torch.bfloat16)
+            xr, br = x.clone().requires_grad_(), blocks.clone().requires_grad_()
+            dx = torch.autograd.grad(AG.bsr_matmul(xr, br, tables), xr, dy)[0]
+            dx_ref = torch.autograd.grad(ref.bsr_matmul_gather(xr, br, tables.cols), xr, dy)[0]
+            err = check_close(f"{arch} {label} dX M={m_train}", dx, dx_ref, 2e-2)
+            out["bsr_matmul_dx"].append({"arch": arch, "linear": label, "max_abs_err": err, "tol": 2e-2,
+                                         **dx_case(timer, x, blocks, dy, tables, pat)})
+    for r in out["block_sparse_attention"]:
+        log(f"[12a] {r['arch']} block_sparse_attention bf16 {r['shape']}: err {r['max_abs_err']:.2e} (tol 2e-2) "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) digest {r['out_sha256']}")
+    for r in out["paged_decode_attention"]:
+        log(f"[12a] {r['arch']} paged_decode_attention bf16 {r['shape']}: err {r['max_abs_err']:.2e} (tol 1e-2) "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    for r in out["bsr_matmul"]:
+        log(f"[12a] {r['arch']} bsr_matmul {r['linear']:14s} {r['shape']}: err {r['max_abs_err']:.2e} kernel "
+            f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms x@dense {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for r in out["bsr_matmul_dx"]:
+        log(f"[12a] {r['arch']} bsr_matmul {r['linear']:14s} {r['shape']}: err {r['max_abs_err']:.2e} kernel "
+            f"{r['ms']:.4f} ms (+ transposed blocks {r['transpose_blocks_ms']:.4f} ms) plain {r['plain_ms']:.4f} ms "
+            f"dy@W_dense^T {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"dBlocks {r['dblocks_ms']:.4f} ms")
+
+    # head dim 80: fp32 (the SIMT kernel) at zamba2's B = 1 shape, untimed
+    zamba = registry.get("zamba2-2.7b", sparse=True)
+    q, k, v, kv_index, valid = attention_inputs(1, 2048, zamba.num_kv_heads, 1, zamba.head_dim, 128, seed)
+    q, k, v = (t.float() for t in (q, k, v))
+    kw = dict(block=128, causal=True, sm_scale=zamba.head_dim ** -0.5)
+    from repro_torch.kernels.bsr_attention import block_sparse_attention_cuda
+
+    got = block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw)
+    torch.cuda.synchronize()
+    b, s, h, d = q.shape
+    want = ref.sparse_attention(q.reshape(b, s, h, 1, d), k, v, kv_index, valid, **kw).reshape(b, s, h, d)
+    out["d80_fp32"] = {"shape": f"B=1 S=2048 H=32 Hk=32 D=80 block=128", "tol": 2e-4,
+                       "max_abs_err": check_close("block_sparse_attention fp32 D=80", got, want, 2e-4)}
+    log(f"[12a] block_sparse_attention fp32 {out['d80_fp32']['shape']}: err {out['d80_fp32']['max_abs_err']:.2e} "
+        f"(tol 2e-4)")
+    # BlockSparseAttention at D = 80: kernel forward, plain gradient backward
+    out["d80_grads"] = []
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        gen = torch.Generator(device="cuda").manual_seed(seed + 80)
+        shape = (1, 1024, 32, 1, 80)
+        qg = torch.randn(shape, generator=gen, device="cuda").to(dtype).requires_grad_()
+        kg, vg = (torch.randn((1, 1024, 32, 80), generator=gen, device="cuda").to(dtype).requires_grad_()
+                  for _ in range(2))
+        do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        kvi, vld = L._schedule_tensors(1024, 128, 2, 0, 1, "cuda")
+        kw = dict(block=128, causal=True, sm_scale=80 ** -0.5)
+        o = AG.block_sparse_attention(qg, kg, vg, kvi, vld, **kw)
+        grads = torch.autograd.grad(o, (qg, kg, vg), do)
+        o_ref = ref.sparse_attention(qg, kg, vg, kvi, vld, **kw)
+        want = torch.autograd.grad(o_ref, (qg, kg, vg), do)
+        err = check_close(f"BlockSparseAttention D=80 {dtype} output", o, o_ref, tol)
+        rel = max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item() for a, w in zip(grads, want))
+        if not rel <= tol:
+            raise AssertionError(f"BlockSparseAttention D=80 {dtype}: gradient error {rel:.2e} of the largest "
+                                 f"entry, beyond {tol:g}")
+        dt = str(dtype).split(".")[1]
+        out["d80_grads"].append({"dtype": dt, "shape": "B=1 S=1024 H=Hk=32 D=80 block=128", "tol": tol,
+                                 "max_abs_err": err, "grad_rel_err": rel})
+        log(f"[12a] BlockSparseAttention {dt} B=1 S=1024 H=Hk=32 D=80: output err {err:.2e}, dq/dk/dv within "
+            f"{rel:.2e} of their largest entry (tol {tol:g})")
+    return out
+
+
+def server_streams(cfg, prompts, gen, seed, device):
+    """Greedy tokens of the fixed-batch ``Server`` (weights from ``seed``)."""
+    from repro_torch.launch.serve import Server
+
+    return Server(cfg, seed=seed, device=device).generate(prompts, gen)
+
+
+def moe_ssm_smoke(seed):
+    """(b) fp32 sparse smoke models of deepseek-moe-16b, kimi-k2-1t-a32b,
+    mamba2-130m and zamba2-2.7b, the same seeded weights on both devices:
+    equal greedy streams on the CPU and the card (the paged engine for the
+    MoE two, ragged prompts whose padding reaches the router; the
+    ``Server`` for the SSM two, which prefills them in one pass);
+    then one train step each, held as phase 7b holds qwen3's."""
+    from repro_torch.configs import registry
+
+    out = {}
+    for arch in ("deepseek-moe-16b", "kimi-k2-1t-a32b", "mamba2-130m", "zamba2-2.7b"):
+        cfg = registry.get_smoke(arch, sparse=True)
+        rng = np.random.default_rng(seed + 12)
+        if cfg.family == "moe":
+            page = cfg.attn_block
+            work = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 6)
+                    for n in (9 * page + 20, 2 * page + 1, 40, 14 * page + 3)]
+            got = {dev: smoke_greedy_streams(cfg, work, seed, dev) for dev in ("cpu", "cuda")}
+            n_req = len(work)
+        else:
+            prompts = rng.integers(0, cfg.vocab_size, (3, 2 * 64 + 5)).astype(np.int32)
+            got = {dev: server_streams(cfg, prompts, 8, seed, dev).tolist() for dev in ("cpu", "cuda")}
+            n_req = len(prompts)
+        if got["cpu"] != got["cuda"]:
+            raise AssertionError(f"{arch} smoke streams differ: cpu {got['cpu']} cuda {got['cuda']}")
+        log(f"[12b] {arch} smoke-width sparse fp32: CPU and card greedy streams equal over {n_req} requests "
+            f"({'paged engine' if cfg.family == 'moe' else 'Server, one prefill pass'})")
+        out[arch] = {"requests": n_req, "train_step": smoke_step_cpu_vs_card(cfg, tag="12b")}
+    return out
+
+
+def server_serving(full, seed, smi, kernels, tag, must_launch):
+    """The fixed-batch ``Server`` on ``full`` greedily serves 8 prompts of
+    1024 tokens from ``seed``, 32 new each, as the serve CLI builds and
+    runs it (an SSM or hybrid config prefills in one pass); the kernels' counts set to 0 just before and read just after:
+    each of ``must_launch`` must launch. Tokens in the vocabulary."""
+    from repro_torch.launch.serve import Server
+
+    arch = full.name
+    rng = np.random.default_rng(seed + 12)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = Server(full, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    srv.generate(rng.integers(0, full.vocab_size, (8, 128)).astype(np.int32), 2)  # warm-up, not counted
+    prompts = rng.integers(0, full.vocab_size, (8, 1024)).astype(np.int32)
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts, 32)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    if toks.shape != (8, 32) or not ((toks >= 0) & (toks < full.vocab_size)).all():
+        raise AssertionError(f"{arch}: Server tokens of shape {toks.shape} or out of the vocabulary")
+    for name in must_launch:
+        if launches[name] <= 0:
+            raise AssertionError(f"{arch}: kernel {name} was never launched by the Server")
+    serving = {"weights_s": init_s, "requests": 8, "prompt_tokens": int(prompts.size), "new_tokens": 32,
+               "wall_s": wall, "tok_s": 8 * 32 / wall,
+               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+               "streams_sha256": digest(torch.as_tensor(toks.astype(np.int64)))}
+    del srv
+    log(f"[{tag}] {arch} sparse, full width: the Server served 8 prompts of 1024 tokens (one prefill pass), 32 new "
+        f"each, in {wall:.2f} s on {smi} ({serving['tok_s']:.1f} new tok/s with the prefill), peak memory "
+        f"{serving['max_memory_allocated_gb']:.2f} GB; launches {launches}")
+    return serving
+
+
+def moe_ssm_full_width(arch, seed, smi, kernels):
+    """(c) deepseek-moe-16b: ``Engine`` serving and ``Trainer`` steps as in
+    phase 8c; (d) zamba2-2.7b and mamba2-130m: ``server_serving`` and the
+    same ``Trainer`` steps. Each then takes one training step traced on
+    the device only (busy share) and one profiled with its ranges (the
+    MoE dispatch, expert products and combine; the SSD scan)."""
+    from repro_torch.configs import registry
+
+    full = registry.get(arch, sparse=True)
+    tag = "12c" if full.family == "moe" else "12d"
+    if full.family == "moe":
+        serving = engine_serving(full, seed, smi, kernels, tag)
+        must = ("bsr_matmul", "block_sparse_attention")
+    else:
+        must = ("bsr_matmul", "block_sparse_attention") if full.num_heads else ("bsr_matmul",)
+        serving = server_serving(full, seed, smi, kernels, tag, must)
+    training = trainer_steps(full, seed, smi, kernels, tag, traced=True, must_launch=must, profile=True)
+    # shares of the step's device time: the profiler's host-side work
+    # stretches the profiled window, not the kernels
+    prof = training["profiled_step"]
+    busy = prof["device_busy_ms"]
+    shares = {name: r["device_ms"] / busy for name, r in prof["ranges"].items() if busy}
+    training["device_shares"] = shares
+    for name in ("moe_dispatch", "moe_experts", "moe_combine", "ssd_scan", "sparse_attention_vjp",
+                 "bsr_matmul_dblocks", "optimizer"):
+        if name in shares:
+            log(f"[{tag}] {arch} profiled step: {name} {prof['ranges'][name]['device_ms']:.1f} ms, "
+                f"{shares[name]:.3f} of the step's {busy:.1f} ms of device time")
+    torch.cuda.empty_cache()
+    return {"serving": serving, "training": training, "card": smi}
+
+
+# ----------------------------------------------------------------------
 # main
 # ----------------------------------------------------------------------
 
@@ -2276,75 +2661,6 @@ def main(argv=None) -> int:
     log(f"[5] launches on the main path: {launches} over {st['decode_steps']} decode steps; "
         f"streams digest {serving['streams_sha256']}")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    def profiled(label, fn, cpu=True):
-        """Wall time, device busy share and the top device kernels of one
-        window around fn (which ends in a synchronise). With cpu=False only
-        the device is traced (no host ops or ranges), which costs the host
-        less."""
-        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
-        with profile(activities=activities) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            window = time.perf_counter() - t0
-        # device-side events only: an aten op's row repeats its kernels' time
-        # (the port's record_function ranges are read apart, not summed)
-        averages = prof.key_averages()
-        rows = sorted(
-            (e for e in averages
-             if getattr(e, "device_type", None) == DeviceType.CUDA and e.key not in RANGES),
-            key=dev_us, reverse=True,
-        )
-        busy_us = sum(dev_us(e) for e in rows)
-        # the port's kernels by name prefix (a kernel may launch several)
-        ours = {}
-        for name in ("bsr_matmul", "paged_decode", "block_sparse_attention"):
-            hits = [e for e in rows if f"{name}_" in e.key]
-            ours[name] = {"device_ms": sum(dev_us(e) for e in hits) / 1e3,
-                          "launches": sum(e.count for e in hits),
-                          "kernels": sorted({e.key[:60] for e in hits})}
-        # device time of the kernels launched inside each named range: the
-        # host-side range's total (its children's kernels), else the
-        # device-side annotation's span
-        ranges = {}
-        for name in RANGES:
-            host = [e for e in averages if e.key == name and getattr(e, "device_type", None) != DeviceType.CUDA]
-            span = [e for e in averages if e.key == name and getattr(e, "device_type", None) == DeviceType.CUDA]
-            us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) for e in host)
-            if not us:
-                us = sum(dev_us(e) for e in span)
-            if host or span:
-                ranges[name] = {"device_ms": us / 1e3, "calls": sum(e.count for e in host) or None}
-        out = {
-            "window_ms": window * 1e3,
-            "ranges": ranges,
-            "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1.0 - busy_us / 1e6 / window if busy_us else None,
-            "top": [(e.key[:80], dev_us(e) / 1e3, e.count) for e in rows[:8] if dev_us(e) > 0],
-            "ours": ours,
-        }
-        if busy_us:
-            log(f"[5] profiled {label}: {window * 1e3:.1f} ms wall, device busy "
-                f"{busy_us / 1e3:.1f} ms, idle share {out['device_idle_share']:.2f}")
-            for name, ms, n in out["top"]:
-                log(f"[5]   {ms:8.3f} ms  x{n:<5d} {name}")
-            for name, o in ranges.items():
-                log(f"[5]   range {name}: {o['device_ms']:.3f} ms of device time over {o['calls']} calls")
-            for name, o in ours.items():
-                if o["launches"]:
-                    log(f"[5]   port kernel {name}: {o['device_ms']:.3f} ms over {o['launches']} device "
-                        f"launches ({1e3 * o['device_ms'] / o['launches']:.1f} us each) {o['kernels']}")
-        else:
-            log(f"[5] profiler recorded no device time for {label}: device busy share not measured")
-        return out
-
     # where a decode step's time goes: a profiled window of 4 steps with
     # all 8 slots decoding (device busy share and the top kernels)
     for _ in range(8):
@@ -2383,7 +2699,7 @@ def main(argv=None) -> int:
 
     # ---- 6. full width: sampling, prefix cache, preemption ----------
     report["features"] = full_width_features(
-        full, eng.model.state_dict(), kernels, rng, args.seed, smi, profiled, timer
+        full, eng.model.state_dict(), kernels, rng, args.seed, smi, timer
     )
     del eng
 
@@ -2391,7 +2707,7 @@ def main(argv=None) -> int:
     report["training"] = {
         "grads": grad_cases(timer, full, args.seed),
         "smoke_step": smoke_step_cpu_vs_card(smoke),
-        "full_width": full_width_training(full, args.seed, smi, kernels, profiled),
+        "full_width": full_width_training(full, args.seed, smi, kernels),
         "checkpoint": smoke_checkpoint_round_trip(smoke),
     }
 
@@ -2443,7 +2759,17 @@ def main(argv=None) -> int:
     report["vlm_audio"] = vlm
     log(f"[11] phase 11 took {vlm['wall_s']:.1f} s")
 
-    # ---- 12. report ------------------------------------------------
+    # ---- 12. the MoE, SSM and hybrid families ----------------------
+    t12 = time.perf_counter()
+    moe_ssm = {"kernels": moe_ssm_kernels(timer, args.seed), "smoke": moe_ssm_smoke(args.seed)}
+    for arch in MOE_SSM:
+        moe_ssm[arch] = moe_ssm_full_width(arch, args.seed, smi, kernels)
+    moe_ssm["wall_s"] = time.perf_counter() - t12
+    report["moe_ssm"] = moe_ssm
+    log(f"[12] phase 12 took {moe_ssm['wall_s']:.1f} s")
+    zamba_attn = [r for r in moe_ssm["kernels"]["block_sparse_attention"] if r["arch"] == "zamba2-2.7b"]
+
+    # ---- 13. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -2505,8 +2831,23 @@ def main(argv=None) -> int:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in vit_fwd) else "operations",
             "library_ms": summed(vit_fwd, "library_ms"),
         },
+        {
+            "name": "block_sparse_attention_d80",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/bsr_attention.cu",
+            "replaces": "src/repro/kernels/bsr_attention.py:100",
+            "shape": zamba_attn[0]["shape"] + ", bf16 (zamba2-2.7b's head dim, phase 12)",
+            "launches": sum(moe_ssm["zamba2-2.7b"][part]["launches"]["block_sparse_attention"]
+                            for part in ("serving", "training")),
+            "max_abs_err": zamba_attn[0]["max_abs_err"],
+            "ms": zamba_attn[0]["ms"],
+            "plain_ms": zamba_attn[0]["plain_ms"],
+            "bound_ms": zamba_attn[0]["bound_ms"],
+            "bound_by": zamba_attn[0]["bound_by"],
+            "library_ms": zamba_attn[0]["library_ms"],
+        },
     ]}
-    for k in line["kernels"][:3]:  # the launches of phases 6, 7, 8, 9, 10 and 11, counted apart
+    for k in line["kernels"][:3]:  # the launches of phases 6 to 12, counted apart
         k["launches_phase6"] = report["features"]["launches"][k["name"]]
         k["launches_phase9"] = cli["cli"]["launches"][k["name"]]
         k["launches_training"] = report["training"]["full_width"]["launches"][k["name"]]
@@ -2516,6 +2857,8 @@ def main(argv=None) -> int:
         k["launches_phase11"] = (sum(vlm[a][part]["launches"][k["name"]] for a in VLM_AUDIO
                                      for part in ("serving", "training"))
                                  + vlm["bench"]["launches"][k["name"]] + vlm["example"]["launches"][k["name"]])
+        k["launches_phase12"] = sum(moe_ssm[a][part]["launches"][k["name"]] for a in MOE_SSM
+                                    for part in ("serving", "training"))
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -2525,7 +2868,7 @@ def main(argv=None) -> int:
                              f"SDPA's {paged_main['library_ms']:.4f} ms on the same inputs")
     report["wall_s"] = time.perf_counter() - T_START
     out.write_text(json.dumps(report, indent=1))
-    log(f"[10] chip_smoke.py took {report['wall_s']:.1f} s")
+    log(f"[13] chip_smoke.py took {report['wall_s']:.1f} s")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -3,9 +3,14 @@ and a JAX optimizer state -> the port's optimizer state.
 
 The tree is what the JAX package's ``transformer.init_model`` returns after
 ``jax.tree.map(np.asarray, ...)``. Leaves stacked over a layer group keep
-their leading ``count`` axis there; the bridge splits them into the port's
-per-layer modules. It takes numpy only, so it needs neither JAX nor the
-JAX package.
+their leading ``count`` axis there (a group of one layer too, such as
+deepseek-moe's ``dense_0``); the bridge splits them into the port's
+per-layer modules ``layers.{i}``, i counted over the groups that are not
+shared. A shared group's subtree (zamba2's ``shared_attn``) has no layer
+axis and maps onto the port's one module of that name. The MoE leaves
+(the router, and the experts' weights with their leading expert axis) and
+the SSM leaves keep their shapes and their paths. It takes numpy only,
+so it needs neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -52,12 +57,15 @@ def params_from_jax(
     offset = 0
     for g in cfg.layer_groups():
         if g.shared:
-            raise NotImplementedError("shared layer groups are not ported yet")
-        groups[g.param_key] = (offset, g.count)
-        offset += g.count
+            groups[g.param_key] = None
+        else:
+            groups[g.param_key] = (offset, g.count)
+            offset += g.count
     out: dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(tree):
-        if path[0] == "groups":
+        if path[0] == "groups" and groups[path[1]] is None:  # shared: one module
+            out[".".join(path[1:])] = _tensor(leaf, dev)
+        elif path[0] == "groups":
             first, count = groups[path[1]]
             if leaf.shape[:1] != (count,):
                 raise ValueError(f"{'/'.join(path)}: leading axis is not the group's {count} layers")

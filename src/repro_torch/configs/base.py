@@ -104,6 +104,20 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def has_ssm(self) -> bool:
+        """True for the SSM and hybrid families, whose decode state is a
+        row of each slot and not pages."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def padded_vocab(self) -> int:
         """Vocab padded to a multiple of 256 (the JAX package's TP rule)."""
         return int(math.ceil(self.vocab_size / 256) * 256)

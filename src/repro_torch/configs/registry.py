@@ -2,15 +2,19 @@
 
 ``get(name)`` returns the published config; ``get(name, sparse=True)`` its
 pixelfly-sparsified twin (the same overrides as the JAX registry);
-``get_smoke(name)`` the reduced same-family config. The four
-architectures of the dense decoder family are listed, and the vlm and
-audio backbones (``qwen2-vl-7b``, ``musicgen-large``), whose modality
-frontends are stubs that feed embeddings; the MoE, SSM and hybrid
-families wait for their port (ROADMAP Queue 1). The JAX registry's mesh tables
+``get_smoke(name)`` the reduced same-family config. All ten of the JAX
+registry's architectures are listed: the four of the dense decoder
+family, the vlm and audio backbones (``qwen2-vl-7b``, ``musicgen-large``),
+whose modality frontends are stubs that feed embeddings, the MoE family
+(``deepseek-moe-16b``, ``kimi-k2-1t-a32b``), the SSM family
+(``mamba2-130m``) and the hybrid (``zamba2-2.7b``: Mamba2 layers and one
+shared attention block). ``sparse=True`` leaves attention dense for the
+SSM family, which has none. The JAX registry's mesh tables
 (``DEFAULT_STRATEGY``, ``LONG_CONTEXT_*``, ``shapes_for``) wait for the
 port of distribution (ROADMAP Queue 1 item 9). ``deepseek-67b`` (134 GB of
-bf16 weights) does not fit one 80 GB card: the port runs it at smoke
-width, and at full width only builds it on the meta device.
+bf16 weights) and ``kimi-k2-1t-a32b`` (344 GB even when sparse) do not fit
+one 80 GB card: the port runs them at smoke width, and at full width only
+builds them on the meta device.
 """
 
 from __future__ import annotations
@@ -25,7 +29,11 @@ _MODULES = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t",
     "musicgen-large": "repro_torch.configs.musicgen_large",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 ARCH_NAMES = list(_MODULES)

@@ -53,11 +53,19 @@
 // (128 rows, one an SM) were slower on the H100 at that shape, with two
 // stages or three; so were 32 rows a warp (two m16 tiles sharing each K/V
 // fragment), which need more than 255 registers and spill.
+// Head dims 64, 80 (zamba2) and 128 are instantiated. At D = 80 the head
+// dim is 5 k16 steps for Q K^T, each its own ldmatrix.x4 of Q and of two
+// n8 key tiles, and 10 n8 tiles (5 pairs) for P @ V, so no load pairs a
+// step with one past the head dim; a K tile is 640 16-byte chunks, 5 a
+// thread. Rows of 88 bf16 (176 bytes, 11 16-byte units, odd as at 64 and
+// 128: 9 and 17) keep the 8 row addresses of an ldmatrix phase on 8
+// distinct 4-bank groups.
 // mma.sync and not wgmma: a 16-row warp tile keeps the online softmax in
 // the registers that hold the scores, and the gathered 64-key tiles are
 // short; wgmma + TMA with warp specialisation is later work.
 //
-// fp32: block_sparse_attention_kernel, plain fp32 FMAs (no TF32):
+// fp32: block_sparse_attention_kernel, plain fp32 FMAs (no TF32), at the
+// same head dims (D / 8 output dims a lane: 8, 10 or 16):
 // a thread block takes 16 query rows of one (batch, head) and walks the
 // schedule of its query block, staging 32 keys of K and V at a time in
 // shared memory. Each query row is owned by 8 neighbouring lanes: each
@@ -480,7 +488,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
 }  // namespace
 
 // q, out (B, S, H, D); k, v (B, S, Hk, D); all contiguous, one dtype.
-// kv_index, valid (S / block, nkv) int32. D in {64, 128}; S a multiple of
+// kv_index, valid (S / block, nkv) int32. D in {64, 80, 128}; S a multiple of
 // block; H a multiple of Hk. fp32: block a multiple of 32. bf16: block a
 // multiple of 64, pointers 16-byte aligned; any G = H / Hk.
 // Returns cudaGetLastError() after the launch.
@@ -489,7 +497,7 @@ extern "C" int block_sparse_attention_launch(
     const void* valid, void* out, int B, int S, int H, int Hk, int D, int nkv,
     int block, int causal, float sm_scale, int dtype, void* stream) {
   if (block % kKeys != 0 || S % block != 0 || H % Hk != 0 ||
-      (D != 64 && D != 128))
+      (D != 64 && D != 80 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* it = static_cast<const int*>(kv_index);
@@ -503,6 +511,9 @@ extern "C" int block_sparse_attention_launch(
     if (D == 64)
       launch_simt<float, 64>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv, block,
                              causal, sm_scale, s);
+    else if (D == 80)
+      launch_simt<float, 80>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv, block,
+                             causal, sm_scale, s);
     else
       launch_simt<float, 128>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv, block,
                               causal, sm_scale, s);
@@ -512,10 +523,12 @@ extern "C" int block_sparse_attention_launch(
     const bf16* kt = static_cast<const bf16*>(k);
     const bf16* vt = static_cast<const bf16*>(v);
     bf16* ot = static_cast<bf16*>(out);
-    rc = D == 64 ? launch_bf16<64>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv,
-                                   block, causal, sm_scale, s)
-                 : launch_bf16<128>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv,
-                                    block, causal, sm_scale, s);
+    rc = D == 64   ? launch_bf16<64>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv,
+                                     block, causal, sm_scale, s)
+         : D == 80 ? launch_bf16<80>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv,
+                                     block, causal, sm_scale, s)
+                   : launch_bf16<128>(qt, kt, vt, it, vv, ot, B, S, H, Hk,
+                                      nkv, block, causal, sm_scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

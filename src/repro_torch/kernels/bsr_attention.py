@@ -15,7 +15,10 @@ import torch
 
 from repro_torch.kernels._build import CudaKernel, check_aligned, dtype_code
 
-__all__ = ["KERNEL", "block_sparse_attention_cuda"]
+__all__ = ["KERNEL", "HEAD_DIMS", "block_sparse_attention_cuda"]
+
+# the head dims the kernel is instantiated at (csrc/bsr_attention.cu)
+HEAD_DIMS = (64, 80, 128)
 
 KERNEL = CudaKernel(
     "bsr_attention.cu",
@@ -39,10 +42,10 @@ def block_sparse_attention_cuda(
 ) -> torch.Tensor:
     """q (B, S, H, D); k, v (B, S, Hk, D), H a multiple of Hk (query head
     h reads kv head h // (H // Hk)); kv_index/valid (S // block, nkv)
-    int32. All contiguous on one CUDA device, q/k/v of one dtype; D is 64
-    or 128 and block a multiple of 32 dividing S. bfloat16 runs on the
-    tensor cores and also needs block a multiple of 64 and q, k, v
-    16-byte aligned; it takes every H // Hk (a thread block holds 4, 2 or
+    int32. All contiguous on one CUDA device, q/k/v of one dtype; D is one
+    of ``HEAD_DIMS`` (64, 80, 128) and block a multiple of 32 dividing S.
+    bfloat16 runs on the tensor cores and also needs block a multiple of
+    64 and q, k, v 16-byte aligned; it takes every H // Hk (a thread block holds 4, 2 or
     1 heads of a group, the largest that divides it). Returns
     (B, S, H, D)."""
     dev = q.device
@@ -54,8 +57,10 @@ def block_sparse_attention_cuda(
     bk, sk, hk, dk = k.shape
     if (bk, sk, dk) != (b, s, d) or h % hk:
         raise ValueError(f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    if d not in (64, 128):
-        raise ValueError(f"block_sparse_attention_cuda takes head dims 64 and 128, not {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"block_sparse_attention_cuda takes head dims {', '.join(map(str, HEAD_DIMS))}, not {d}"
+        )
     if block % 32 or s % block:
         raise ValueError(f"block {block} must be a multiple of 32 dividing S={s}")
     if k.dtype != q.dtype or v.dtype != q.dtype:

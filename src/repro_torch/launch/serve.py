@@ -13,9 +13,15 @@ over all slots, admission and eviction every step. On the card the
 kernels are the hand-written CUDA ones; on the CPU (``--device cpu``) the
 plain PyTorch versions. Nothing falls back from one to the other.
 
-``Server`` below is the fixed-batch reference path (it prefills token by
-token through the decode step over a contiguous cache); it is kept as the
-numerics oracle for the engine (``--legacy-server``).
+``Server`` below is the fixed-batch reference path over a contiguous
+cache. For attention families it prefills token by token through the
+decode step and is kept as the numerics oracle for the engine
+(``--legacy-server``). It is also the serving path of the SSM and hybrid
+families (mamba2-130m, zamba2-2.7b), whose state is a row of each slot and
+not pages, greedy only, as in the JAX package; for them it prefills the
+prompts in one ``transformer.prefill`` pass:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --sparse
 """
 
 from __future__ import annotations
@@ -52,17 +58,22 @@ class Server:
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, gen_len: int) -> np.ndarray:
-        """prompts (B, P) int -> (B, gen_len) int32, greedy. The prompt goes
-        through the decode step one token at a time, as in the JAX
-        package; the tokens stay on the device until the one fetch at the
-        end."""
+        """prompts (B, P) int -> (B, gen_len) int32, greedy. An SSM or
+        hybrid config prefills in one ``transformer.prefill`` pass
+        (block-sparse attention and every linear at M = B x P); any other
+        goes through the decode step one token at a time, as the JAX
+        package's ``Server`` does. The tokens stay on the device until the
+        one fetch at the end."""
         cfg, model = self.cfg, self.model
         b, plen = prompts.shape
-        caches = T.init_cache(cfg, b, plen + gen_len + 1, device=self.device)
+        max_len = plen + gen_len + 1
         toks = torch.as_tensor(np.asarray(prompts, np.int32), device=self.device)
-        logits = None
-        for i in range(plen):
-            logits, caches = T.decode_step(cfg, model, caches, toks[:, i], i)
+        if cfg.has_ssm:
+            logits, caches = T.prefill(cfg, model, {"tokens": toks}, max_len=max_len)
+        else:
+            caches = T.init_cache(cfg, b, max_len, device=self.device)
+            for i in range(plen):
+                logits, caches = T.decode_step(cfg, model, caches, toks[:, i], i)
         out = []
         tok = torch.argmax(logits, dim=-1)
         for j in range(gen_len):
@@ -241,6 +252,12 @@ def main(argv=None) -> Served:
     if args.shared_prefix:
         n = min(args.shared_prefix, args.prompt_len)
         prompts[:, :n] = prompts[0, :n]  # one system prompt for everyone
+    # the paged cache covers attention families; SSM and hybrid state is
+    # slot-indexed, not paged: those are served by the reference Server
+    has_ssm = cfg.has_ssm
+    if has_ssm and not args.legacy_server:
+        print(f"{args.arch} has SSM layers: using the fixed-batch Server "
+              "(paged engine covers attention families)")
     sp0 = SamplingParams(
         temperature=args.temperature,
         top_k=args.top_k,
@@ -248,7 +265,7 @@ def main(argv=None) -> Served:
         repetition_penalty=args.repetition_penalty,
         seed=args.seed,
     )
-    if args.legacy_server:
+    if args.legacy_server or has_ssm:
         if not sp0.is_plain:
             raise SystemExit(
                 f"sampler '{sp0.kind}' needs the paged engine; the reference "

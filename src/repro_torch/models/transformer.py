@@ -1,15 +1,26 @@
-"""Decoder LM of the port (the dense family, and the vlm and audio
-backbones) and its paged serving entry points.
+"""Decoder LM of the port, every family of the JAX package: dense, the vlm
+and audio backbones, MoE, SSM (Mamba2) and hybrid (zamba2), with the
+contiguous-cache entry points of the fixed-batch ``Server`` and the paged
+serving entry points.
 
 The JAX package scans each layer group with ``lax.scan``; here the layers
-are an ``nn.ModuleList`` walked by a Python loop, and each layer group's
-paged KV pools are one tensor ``(count, n_pages, page, Hk, D)`` of which
-layer i reads and writes ``pool[i]`` in place.
+of the groups are an ``nn.ModuleList`` walked by a Python loop
+(``LM.blocks()`` gives every depth position's kind and module), and each
+group's caches are tensors with a leading ``count`` axis of which layer i
+reads and writes row i in place. A block is one of the reference's kinds:
+``dense`` (attention and SwiGLU MLP; the MoE family's leading dense layers
+take ``moe_dense_ff``), ``moe`` (attention and ``models.moe``), ``ssm``
+(pre-norm and a Mamba2 mixer, ``models.ssm``) and ``shared_attn``
+(zamba2's attention+MLP block: one parameter set, the module
+``LM.shared_attn``, run at each of its positions with a KV cache a
+position; its gradient sums over the uses).
 
 Entry points:
   init_model(cfg, seed=, device=, params=)         -> LM
-  init_cache(cfg, batch, max_len, device=)         -> [{"k", "v"}] per group
-  prefill(cfg, model, batch)       -> ((B, V) last-token logits, caches)
+  init_cache(cfg, batch, max_len, device=)         -> per group {"k", "v"}
+                                                      or {"conv", "state"}
+  prefill(cfg, model, batch, max_len=)
+                                  -> ((B, V) last-token logits, caches)
   decode_step(cfg, model, caches, tokens, pos)     -> ((B, V) logits, caches)
   init_paged_cache(cfg, n_pages, page, device=)    -> [{"k", "v"}] per group
   prefill_paged(cfg, model, tokens, plens, caches, page_rows,
@@ -29,8 +40,10 @@ audio), with optional ``positions``: (B, S), or (B, S, n) M-RoPE streams
 when ``cfg.mrope_sections`` is set. The paged entry points embed tokens and
 give every M-RoPE stream the token's position, as the JAX package does.
 ``init_cache``/``prefill``/``decode_step`` are the contiguous-cache path
-of the fixed-batch ``launch.serve.Server``. The serving entry points
-build no autograd graph (``torch.no_grad``);
+of the fixed-batch ``launch.serve.Server``, the one path of the SSM and
+hybrid families (their state is a row of each slot, not pages:
+``init_paged_cache`` refuses them, as the reference does). The serving
+entry points build no autograd graph (``torch.no_grad``);
 ``forward_train`` does, and recomputes each layer in the backward when
 ``cfg.remat`` is set.
 """
@@ -43,6 +56,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.serving import sampling as sampling_lib
 
 __all__ = [
@@ -74,29 +89,40 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 class Block(nn.Module):
-    """One decoder layer: pre-norm attention and SwiGLU MLP, residual."""
+    """One layer of kind ``dense``/``shared_attn`` (pre-norm attention and
+    SwiGLU MLP), ``moe`` (attention and the MoE FFN) or ``ssm`` (pre-norm
+    Mamba2 mixer), residual; parameter names as the reference's block."""
 
-    def __init__(self, cfg: ModelConfig, *, gen: torch.Generator, device: torch.device):
+    def __init__(self, cfg: ModelConfig, kind: str = "dense", *, gen: torch.Generator, device: torch.device):
         super().__init__()
+        if kind == "ssm":
+            self.norm = L.RMSNorm(cfg.d_model, device=device)
+            self.ssm = ssm_lib.Ssm(cfg, gen=gen, device=device)
+            return
+        if kind not in ("dense", "shared_attn", "moe"):
+            raise ValueError(f"unknown block kind {kind!r}")
         self.attn_norm = L.RMSNorm(cfg.d_model, device=device)
         self.attn = L.Attention(cfg, gen=gen, device=device)
         self.mlp_norm = L.RMSNorm(cfg.d_model, device=device)
-        self.mlp = L.Mlp(cfg, cfg.d_ff, gen=gen, device=device)
+        if kind == "moe":
+            self.moe = moe_lib.Moe(cfg, gen=gen, device=device)
+        else:
+            d_ff = cfg.d_ff
+            if kind == "dense" and cfg.family == "moe" and cfg.moe_dense_ff:
+                d_ff = cfg.moe_dense_ff
+            self.mlp = L.Mlp(cfg, d_ff, gen=gen, device=device)
 
 
 class LM(nn.Module):
     """Parameter names follow the JAX params tree: ``embed.tok``,
-    ``final_norm.scale``, ``head.w`` (untied only) and
-    ``layers.{i}.<path in the group's subtree>``."""
+    ``final_norm.scale``, ``head.w`` (untied only),
+    ``layers.{i}.<path in the group's subtree>`` for the i-th layer of the
+    groups that are not shared (counted in depth order), and
+    ``<param_key>.<path>`` for a shared group's one block (zamba2's
+    ``shared_attn``)."""
 
     def __init__(self, cfg: ModelConfig, *, gen: torch.Generator, device: torch.device):
         super().__init__()
-        if cfg.family not in ("dense", "vlm", "audio"):
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port runs the dense decoder "
-                "family and the vlm and audio backbones so far (ROADMAP "
-                "Queue 1 item 12)"
-            )
         self.cfg = cfg
         self.embed = L.Embedding(cfg, gen=gen, device=device)
         self.head = None
@@ -106,9 +132,26 @@ class LM(nn.Module):
             w = (w / cfg.d_model ** 0.5).to(cfg.torch_dtype).to(device)
             self.head.w = nn.Parameter(w)
         self.final_norm = L.RMSNorm(cfg.d_model, device=device)
-        self.layers = nn.ModuleList(
-            Block(cfg, gen=gen, device=device) for _ in range(cfg.num_layers)
-        )
+        self.layers = nn.ModuleList()
+        for g in cfg.layer_groups():
+            if g.shared:
+                if g.param_key not in self._modules:
+                    self.add_module(g.param_key, Block(cfg, g.kind, gen=gen, device=device))
+            else:
+                self.layers.extend(Block(cfg, g.kind, gen=gen, device=device) for _ in range(g.count))
+
+    def blocks(self) -> list[tuple[str, Block]]:
+        """(kind, module) of every depth position, in order; a shared
+        group's module at each of its positions."""
+        out, i = [], 0
+        for g in self.cfg.layer_groups():
+            for _ in range(g.count):
+                if g.shared:
+                    out.append((g.kind, self._modules[g.param_key]))
+                else:
+                    out.append((g.kind, self.layers[i]))
+                    i += 1
+        return out
 
 
 def init_model(
@@ -143,12 +186,16 @@ def init_model(
 def init_cache(
     cfg: ModelConfig, batch: int, max_len: int, *, device: str | torch.device | None = None
 ) -> list[dict[str, torch.Tensor]]:
-    """Contiguous per-row caches, one ``{"k", "v"}`` per layer group, each
-    (count, batch, max_len, Hk, D) in the model dtype, zeros."""
+    """Contiguous per-row caches, one per layer group, zeros: ``{"k",
+    "v"}`` (count, batch, max_len, Hk, D) in the model dtype for attention
+    groups, ``{"conv", "state"}`` (``ssm.init_ssm_cache`` with a leading
+    count) for SSM groups."""
     dev = resolve_device(device)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return [
-        {
+        ssm_lib.init_ssm_cache(cfg, batch, device=dev, count=g.count)
+        if g.kind == "ssm"
+        else {
             name: torch.zeros((g.count, *shape), dtype=cfg.torch_dtype, device=dev)
             for name in ("k", "v")
         }
@@ -161,8 +208,14 @@ def init_paged_cache(
 ) -> list[dict[str, torch.Tensor]]:
     """Slot-shared page pools, one ``{"k", "v"}`` per layer group, each
     (count, n_pages, page, Hk, D) in the model dtype. Physical page 0 is
-    the trash page."""
+    the trash page. A model with SSM layers raises, as the reference does:
+    their state is a slot's row, not pages."""
     dev = resolve_device(device)
+    if cfg.has_ssm:
+        raise NotImplementedError(
+            "paged serving caches cover attention families; SSM state is "
+            "slot-indexed, not paged"
+        )
     shape = (n_pages, page, cfg.num_kv_heads, cfg.head_dim)
     return [
         {
@@ -203,40 +256,78 @@ def _positions(cfg: ModelConfig, batch: dict, b: int, s: int, device: torch.devi
 
 
 def _layer_pools(cfg: ModelConfig, caches: list) -> list[dict[str, torch.Tensor]]:
-    """Per-layer views ``{"k": pool[i], "v": pool[i]}`` in layer order
-    (paged pools or contiguous caches alike)."""
+    """Per-layer views ``{name: cache[name][i]}`` in depth order (paged
+    pools, contiguous KV caches and SSM caches alike)."""
     out = []
     for g, pool in zip(cfg.layer_groups(), caches):
-        out.extend({"k": pool["k"][i], "v": pool["v"][i]} for i in range(g.count))
+        out.extend({name: t[i] for name, t in pool.items()} for i in range(g.count))
     return out
 
 
+def _attn_block(
+    cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+    **attn_kw,
+) -> tuple[torch.Tensor, tuple | None, torch.Tensor | None]:
+    """An attention block (``dense``, ``shared_attn`` or ``moe``): returns
+    (x, the attention's fresh K/V, the MoE load-balance loss or None)."""
+    h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
+    y, fresh = L.apply_attention(cfg, blk.attn, h, cos, sin, **attn_kw)
+    x = x + y
+    h = L.rmsnorm(blk.mlp_norm.scale, x, cfg.norm_eps)
+    lb = None
+    if kind == "moe":
+        y, lb = moe_lib.apply_moe(blk.moe, h)
+    else:
+        y = L.apply_mlp(blk.mlp, h)
+    return x + y, fresh, lb
+
+
+def _ssm_block(cfg: ModelConfig, blk: Block, x: torch.Tensor, **kw):
+    """An SSM block over the whole sequence: (x, the cache of
+    ``apply_ssm_train``)."""
+    y, cache = ssm_lib.apply_ssm_train(blk.ssm, L.rmsnorm(blk.norm.scale, x, cfg.norm_eps), **kw)
+    return x + y, cache
+
+
+def _stack_groups(cfg: ModelConfig, per_layer: list[dict[str, torch.Tensor]]) -> list[dict[str, torch.Tensor]]:
+    """Per-layer caches in depth order -> one dict a group, each entry
+    stacked on a leading count axis."""
+    caches, i = [], 0
+    for g in cfg.layer_groups():
+        group = per_layer[i : i + g.count]
+        caches.append({name: torch.stack([c[name] for c in group]) for name in group[0]})
+        i += g.count
+    return caches
+
+
 @torch.no_grad()
-def prefill(cfg: ModelConfig, model: LM, batch: dict) -> tuple[torch.Tensor, list]:
+def prefill(
+    cfg: ModelConfig, model: LM, batch: dict, *, max_len: int | None = None
+) -> tuple[torch.Tensor, list]:
     """Full-sequence inference pass, the JAX package's ``prefill``: batch
     {"tokens": (B, S)} or {"embeds", "positions"} (tensors or numpy, moved
-    to the model's device) -> (logits of the last token (B, V), caches
-    [{"k", "v"}] per layer group, each (count, B, S, Hk, D))."""
+    to the model's device) -> (logits of the last token (B, V), caches per
+    layer group: attention groups' {"k", "v"} (count, B, S, Hk, D), SSM
+    groups' {"conv", "state"} (the state after the last token)). With
+    ``max_len`` the K/V caches are ``init_cache``'s (count, B, max_len,
+    Hk, D), the prompt's K/V in the first S rows and zeros after, so
+    ``decode_step`` continues from position S."""
     x = _inputs_to_x(cfg, model, batch)
     b, s, _ = x.shape
     cos, sin = _angles(cfg, _positions(cfg, batch, b, s, x.device))
     fresh = []
-    for blk in model.layers:
-        h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
-        y, kv = L.apply_attention(cfg, blk.attn, h, cos, sin, mode="prefill")
-        fresh.append(kv)
-        x = x + y
-        x = x + L.apply_mlp(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, x, cfg.norm_eps))
+    for kind, blk in model.blocks():
+        if kind == "ssm":
+            x, cache = _ssm_block(cfg, blk, x, return_state=True)
+        else:
+            x, (k, v), _ = _attn_block(cfg, kind, blk, x, cos, sin, mode="prefill")
+            if max_len is not None:
+                k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, max_len - s)) for t in (k, v))
+            cache = {"k": k, "v": v}
+        fresh.append(cache)
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     logits = L.lm_logits(cfg, model.head, model.embed, x[:, -1])
-    caches, i = [], 0
-    for g in cfg.layer_groups():
-        group = fresh[i : i + g.count]
-        caches.append({
-            name: torch.stack([kv[j] for kv in group]) for j, name in enumerate(("k", "v"))
-        })
-        i += g.count
-    return logits, caches
+    return logits, _stack_groups(cfg, fresh)
 
 
 @torch.no_grad()
@@ -245,16 +336,21 @@ def decode_step(
 ) -> tuple[torch.Tensor, list]:
     """One decode step over contiguous caches, the JAX package's
     ``decode_step``: tokens (B,), every row at position ``pos`` (an int).
-    Each layer writes its K/V at ``pos`` in place (the JAX package returns
-    new caches). Returns (logits (B, V), caches)."""
+    Each attention layer writes its K/V at ``pos`` in place, each SSM
+    layer its new conv window and state (the JAX package returns new
+    caches). Returns (logits (B, V), caches)."""
     x = L.embed_tokens(model.embed, tokens.long()[:, None])
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.long, device=x.device)
     cos, sin = _angles(cfg, _streams(cfg, positions))
-    for blk, cache in zip(model.layers, _layer_pools(cfg, caches)):
-        h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
-        y, _ = L.apply_attention(cfg, blk.attn, h, cos, sin, mode="decode", cache=cache, pos=pos)
-        x = x + y
-        x = x + L.apply_mlp(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, x, cfg.norm_eps))
+    for (kind, blk), cache in zip(model.blocks(), _layer_pools(cfg, caches)):
+        if kind == "ssm":
+            h = L.rmsnorm(blk.norm.scale, x, cfg.norm_eps)
+            y, new = ssm_lib.apply_ssm_decode(blk.ssm, h, cache)
+            for name, t in new.items():
+                cache[name].copy_(t)
+            x = x + y
+        else:
+            x, _, _ = _attn_block(cfg, kind, blk, x, cos, sin, mode="decode", cache=cache, pos=pos)
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     return L.lm_logits(cfg, model.head, model.embed, x[:, 0]), caches
 
@@ -314,17 +410,14 @@ def prefill_paged(
         positions = prefix_lens.long()[:, None] + positions
     cos, sin = _angles(cfg, _streams(cfg, positions))
     rows = page_rows.long()
-    for blk, pool in zip(model.layers, _layer_pools(cfg, caches)):
-        h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
-        y, (k, v) = L.apply_attention(
-            cfg, blk.attn, h, cos, sin, mode=mode,
+    for (kind, blk), pool in zip(model.blocks(), _layer_pools(cfg, caches)):
+        x, (k, v), _ = _attn_block(
+            cfg, kind, blk, x, cos, sin, mode=mode,
             cache=pool, pos=prefix_lens, prefix_rows=prefix_rows,
         )
         for buf, fresh in ((pool["k"], k), (pool["v"], v)):
             page = buf.shape[1]
             buf[rows] = fresh.reshape(n, s // page, page, *fresh.shape[2:]).to(buf.dtype)
-        x = x + y
-        x = x + L.apply_mlp(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, x, cfg.norm_eps))
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     last = x[torch.arange(n, device=x.device), plens.long() - 1]  # (N, d)
     logits = L.lm_logits(cfg, model.head, model.embed, last)
@@ -366,14 +459,11 @@ def decode_step_paged(
     page = caches[0]["k"].shape[2]
     index = L.decode_index(cfg, page_table, pos, page)
     cos, sin = _angles(cfg, _streams(cfg, pos.long()[:, None]))
-    for blk, pool in zip(model.layers, _layer_pools(cfg, caches)):
-        h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
-        y, _ = L.apply_attention(
-            cfg, blk.attn, h, cos, sin,
+    for (kind, blk), pool in zip(model.blocks(), _layer_pools(cfg, caches)):
+        x, _, _ = _attn_block(
+            cfg, kind, blk, x, cos, sin,
             mode="decode_paged", cache=pool, index=index, pos=pos,
         )
-        x = x + y
-        x = x + L.apply_mlp(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, x, cfg.norm_eps))
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     logits = L.lm_logits(cfg, model.head, model.embed, x[:, 0])
     if sampler is None:
@@ -391,12 +481,16 @@ def decode_step_paged(
 
 
 def _train_block(
-    cfg: ModelConfig, blk: Block, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
-) -> torch.Tensor:
-    h = L.rmsnorm(blk.attn_norm.scale, x, cfg.norm_eps)
-    y, _ = L.apply_attention(cfg, blk.attn, h, cos, sin, mode="train")
-    x = x + y
-    return x + L.apply_mlp(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, x, cfg.norm_eps))
+    cfg: ModelConfig, kind: str, blk: Block, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block of the training forward: (x, its load-balance loss, 0
+    unless it is an MoE block)."""
+    if kind == "ssm":
+        x, _ = _ssm_block(cfg, blk, x)
+        lb = None
+    else:
+        x, _, lb = _attn_block(cfg, kind, blk, x, cos, sin, mode="train")
+    return x, torch.zeros((), device=x.device) if lb is None else lb
 
 
 def forward_train(
@@ -413,8 +507,8 @@ def forward_train(
     The loss is the masked mean next-token NLL over ``labels >= 0``: the
     log-partition by logsumexp over the fp32 logits, the gold logit by an
     indicator reduce over the vocabulary, as the reference computes both.
-    ``loss = nll + 0.01 * lb``, where the load-balancing term lb is 0 for
-    the dense family.
+    ``loss = nll + 0.01 * lb``, where lb sums the MoE layers' load-balance
+    losses (0 for the other families).
 
     With ``cfg.remat`` each layer runs under non-reentrant activation
     checkpointing: the backward keeps one residual per layer and runs the
@@ -428,11 +522,13 @@ def forward_train(
     x = _inputs_to_x(cfg, model, batch)
     b, s, _ = x.shape
     cos, sin = _angles(cfg, _positions(cfg, batch, b, s, dev))
-    for blk in model.layers:
+    lb = torch.zeros((), device=dev)
+    for kind, blk in model.blocks():
         if cfg.remat:
-            x = checkpoint(_train_block, cfg, blk, x, cos, sin, use_reentrant=False)
+            x, lb_i = checkpoint(_train_block, cfg, kind, blk, x, cos, sin, use_reentrant=False)
         else:
-            x = _train_block(cfg, blk, x, cos, sin)
+            x, lb_i = _train_block(cfg, kind, blk, x, cos, sin)
+        lb = lb + lb_i
     x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
     logits = L.lm_logits(cfg, model.head, model.embed, x)
     logz = torch.logsumexp(logits, dim=-1)
@@ -440,5 +536,4 @@ def forward_train(
     gold = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
     mask = (labels >= 0).float()
     nll = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
-    lb = torch.zeros((), device=dev)
     return nll + 0.01 * lb, {"nll": nll, "lb_loss": lb}

@@ -226,7 +226,15 @@ class Engine:
         is a state dict, e.g. from ``bridge.params_from_jax`` or another
         engine's ``model.state_dict()`` (shared, not copied, where device
         and dtype match); without it the weights are random from ``seed``
-        (``transformer.init_model``)."""
+        (``transformer.init_model``). A model with SSM layers (the SSM and
+        hybrid families) raises ``ValueError``: it is served by the
+        fixed-batch ``launch.serve.Server``."""
+        if cfg.has_ssm:
+            raise ValueError(
+                f"{cfg.name} has SSM layers, whose state is a row of each "
+                "slot and not pages: the paged engine serves attention "
+                "families; serve it with launch.serve.Server"
+            )
         ecfg = (engine_cfg or EngineConfig()).rounded(cfg.attn_block)
         self.cfg = cfg
         self.ecfg = ecfg

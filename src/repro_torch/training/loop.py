@@ -90,7 +90,7 @@ def make_train_step(
             grads = {n: s / k for n, s in gsum.items()}
             metrics = {key: v / k for key, v in msum.items()}
         with record_function("optimizer"):
-            return {**metrics, **apply_updates(opt_cfg, params, grads, opt_state)}
+            return {**metrics, **apply_updates(opt_cfg, params, grads, opt_state, model_cfg)}
 
     return train_step
 

@@ -12,9 +12,12 @@ saves a copy of every parameter and moment.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
+
+from repro_torch.configs.base import ModelConfig
 
 __all__ = ["OptConfig", "lr_at", "init_opt_state", "apply_updates", "decays", "reference_leaf"]
 
@@ -57,27 +60,41 @@ def init_opt_state(cfg: OptConfig, params: dict[str, torch.Tensor]) -> dict:
     return state
 
 
-def reference_leaf(name: str) -> str:
-    """The reference's tree leaf that holds parameter ``name``: it stacks
-    the leaves of a layer group on a leading layer axis, so every layer's
-    ``layers.{i}.<path>`` is one leaf ``layers.*.<path>`` there."""
+@functools.lru_cache(maxsize=32)
+def _layer_groups(model_cfg: ModelConfig) -> tuple[str, ...]:
+    """The reference's group key of each ``layers.{i}`` of the port (the
+    layers of the groups that are not shared, in depth order)."""
+    return tuple(
+        g.param_key for g in model_cfg.layer_groups() if not g.shared for _ in range(g.count)
+    )
+
+
+def reference_leaf(name: str, model_cfg: ModelConfig) -> str:
+    """The reference's tree leaf that holds parameter ``name`` of a model
+    of ``model_cfg``. It stacks the leaves of a layer group on a leading
+    layer axis, so every layer's ``layers.{i}.<path>`` of one group is one
+    leaf ``layers.<group>.<path>`` there. A shared group's block
+    (``shared_attn.<path>``) and every parameter outside the layers is a
+    leaf of its own, unstacked."""
     parts = name.split(".")
     if parts[0] == "layers":
-        parts[1] = "*"
+        parts[1] = _layer_groups(model_cfg)[int(parts[1])]
     return ".".join(parts)
 
 
-def decays(name: str, p: torch.Tensor) -> bool:
+def decays(name: str, p: torch.Tensor, model_cfg: ModelConfig) -> bool:
     """Weight decay where the reference's leaf has ndim >= 2. With the
     stacked layer axis, every ``layers.*`` parameter of ndim >= 1 decays
-    there (the norm scales included) and only the scalar γ does not;
-    outside the layers the rule reads the tensor's own ndim
-    (``final_norm.scale`` does not decay)."""
-    return p.ndim + (reference_leaf(name) != name) >= 2
+    there (the norm scales included) and only the scalar γ does not; an
+    unstacked leaf (``final_norm.scale``, a shared block's norm scales)
+    reads the tensor's own ndim and does not decay at ndim 1."""
+    return p.ndim + (reference_leaf(name, model_cfg) != name) >= 2
 
 
 def _compress_int8(
-    grads: dict[str, torch.Tensor], residual: dict[str, torch.Tensor]
+    grads: dict[str, torch.Tensor],
+    residual: dict[str, torch.Tensor],
+    model_cfg: ModelConfig,
 ) -> dict[str, torch.Tensor]:
     """Symmetric int8 quantization with error feedback, one scale per leaf
     of the reference's tree (``reference_leaf``: the same parameter of every
@@ -86,7 +103,7 @@ def _compress_int8(
     place."""
     leaves: dict[str, list[str]] = {}
     for k in grads:
-        leaves.setdefault(reference_leaf(k), []).append(k)
+        leaves.setdefault(reference_leaf(k, model_cfg), []).append(k)
     out = {}
     for names in leaves.values():
         gf = {k: grads[k].float() + residual[k] for k in names}
@@ -104,13 +121,16 @@ def apply_updates(
     params: dict[str, torch.Tensor],
     grads: dict[str, torch.Tensor],
     state: dict,
+    model_cfg: ModelConfig,
 ) -> dict:
     """One AdamW step, in place on ``params`` and ``state``. The gradient
     is clipped to a global norm, the moments and the update are fp32, and
-    each parameter is cast back to its dtype. Returns {"grad_norm" (a
-    device scalar), "lr"}."""
+    each parameter is cast back to its dtype. ``model_cfg`` keys weight
+    decay and the int8 scales by the reference's leaves
+    (``reference_leaf``).
+    Returns {"grad_norm" (a device scalar), "lr"}."""
     if cfg.compress_grads:
-        grads = _compress_int8(grads, state["ef"])
+        grads = _compress_int8(grads, state["ef"], model_cfg)
     gnorm = torch.sqrt(torch.stack([g.float().square().sum() for g in grads.values()]).sum())
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
@@ -125,7 +145,7 @@ def apply_updates(
         nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
         p32 = p.float()
-        wd = cfg.weight_decay if decays(k, p) else 0.0
+        wd = cfg.weight_decay if decays(k, p, model_cfg) else 0.0
         p.copy_(p32 - lr * (delta + wd * p32))
     state["step"] = step
     return {"grad_norm": gnorm, "lr": lr}

@@ -4,7 +4,9 @@ width) against the JAX package, sparse and dense, on the CPU at smoke
 width: the registry's configs field by field, the bridge's coverage, the
 training loss and gradients, the paged prefill and decode logits, the
 greedy engine's streams, and deepseek-67b's parameter count at full width
-from a meta-device build.
+from a meta-device build; then the MoE, SSM and hybrid configs
+(deepseek-moe-16b, kimi-k2-1t-a32b, mamba2-130m, zamba2-2.7b) field by
+field and their parameter counts at full width, dense and sparse.
 
 Every QKV bias is drawn at random (the reference initialises them to zero)
 so the bias path is exercised. Tolerances are ``tests/test_torch_model.py``'s
@@ -203,3 +205,42 @@ def test_full_width_meta_build_parameter_count(sparse):
         model = T.LM(cfg, gen=torch.Generator(), device=torch.device("meta"))
     assert sum(p.numel() for p in model.parameters()) == want
     assert want > 6e10 if not sparse else want < 3e10
+
+
+# the MoE, SSM and hybrid families, and their parameter counts (billions,
+# dense and at density 0.2) from the JAX package's eval_shape
+FAMILY_COUNTS = {
+    "deepseek-moe-16b": (16.376, 2.852),
+    "kimi-k2-1t-a32b": (1028.3, 171.9),
+    "mamba2-130m": (0.129, 0.105),
+    "zamba2-2.7b": (2.064, 1.499),
+}
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_COUNTS))
+@pytest.mark.parametrize("sparse", SPARSE)
+@pytest.mark.parametrize("smoke", [False, True])
+def test_family_registry_matches_reference(arch, sparse, smoke):
+    """The four configs equal the JAX package's field by field (published
+    and smoke, dense and sparse; SSM attention stays dense when sparse)."""
+    get = "get_smoke" if smoke else "get"
+    a = dataclasses.asdict(getattr(registry, get)(arch, sparse=sparse))
+    b = dataclasses.asdict(getattr(jreg, get)(arch, sparse=sparse))
+    assert a == b
+    assert a["sparse_attention"] == (sparse and a["family"] != "ssm")
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_COUNTS))
+@pytest.mark.parametrize("sparse", SPARSE)
+def test_family_full_width_parameter_count(arch, sparse):
+    """Each family at its published widths, built on the meta device (no
+    memory): its parameter count equals that of the JAX package's init,
+    from ``jax.eval_shape``, and the billions stated beside it."""
+    jcfg = jreg.get(arch, sparse=sparse)
+    cfg = registry.get(arch, sparse=sparse)
+    shapes = jax.eval_shape(lambda k: JT.init_model(k, jcfg), jax.random.PRNGKey(0))
+    want = sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(shapes))
+    with torch.device("meta"):
+        model = T.LM(cfg, gen=torch.Generator(), device=torch.device("meta"))
+    assert sum(p.numel() for p in model.parameters()) == want
+    assert round(want / 1e9, 3 if want < 1e11 else 1) == FAMILY_COUNTS[arch][int(sparse)]

@@ -884,3 +884,81 @@ def test_vision_forward_backward_on_card_equals_cpu(cuda, kind, block):
         assert _err(a, w) <= 1e-4 * w.abs().max().item()
     sparse = sum(isinstance(m, Linear) and m.spec.sparse for m in card.modules())
     assert KERNEL.launches - launches == 2 * sparse
+
+
+# ----------------------------------------------------------------------
+# head dim 80 (zamba2-2.7b), and the MoE, SSM and hybrid smoke models
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+def test_block_sparse_attention_kernel_head_dim_80(cuda, b, dtype, tol):
+    """zamba2-2.7b's attention: G = 1, H = Hk = 32, D = 80, S = 2048,
+    block 128, causal, against the plain version."""
+    q, k, v, kv_index, valid = _attention_inputs(b, 2048, 32, 1, 80, 128, dtype, cuda, seed=80 + b)
+    kw = dict(block=128, causal=True, sm_scale=80 ** -0.5)
+    got = block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw)
+    want = ref.sparse_attention(q.reshape(b, 2048, 32, 1, 80), k, v, kv_index, valid, **kw)
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want.reshape(b, 2048, 32, 80)) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+def test_block_sparse_attention_grads_head_dim_80(cuda, dtype, tol):
+    """``BlockSparseAttention`` at D = 80 (the kernel forward, the plain
+    gradient backward) against autograd of ``ref.sparse_attention``, as
+    ``test_block_sparse_attention_grads_on_card`` at D = 128."""
+    from repro_torch.kernels import autograd as AG
+
+    b, s, hk, g, d, block = 1, 1024, 32, 1, 80, 128
+    kv_index, valid = L._schedule_tensors(s, block, 2, 0, 1, str(cuda))
+    gen = torch.Generator(device=cuda).manual_seed(80)
+    q = torch.randn((b, s, hk, g, d), generator=gen, device=cuda).to(dtype).requires_grad_()
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device=cuda).to(dtype).requires_grad_()
+            for _ in range(2))
+    do = torch.randn((b, s, hk, g, d), generator=gen, device=cuda).to(dtype)
+    kw = dict(block=block, causal=True, sm_scale=d ** -0.5)
+    o = AG.block_sparse_attention(q, k, v, kv_index, valid, **kw)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    o_ref = ref.sparse_attention(q, k, v, kv_index, valid, **kw)
+    want = torch.autograd.grad(o_ref, (q, k, v), do)
+    assert _err(o, o_ref) <= tol
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= tol
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+def test_block_sparse_attention_kernel_refuses_other_head_dims(cuda, d):
+    q, k, v, kv_index, valid = _attention_inputs(1, 256, 2, 1, d, 64, torch.bfloat16, cuda, seed=0)
+    with pytest.raises(ValueError, match="head dims 64, 80, 128"):
+        block_sparse_attention_cuda(q, k, v, kv_index, valid, block=64, causal=True, sm_scale=0.1)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "kimi-k2-1t-a32b", "mamba2-130m", "zamba2-2.7b"])
+def test_moe_ssm_smoke_streams_card_equals_cpu(cuda, arch):
+    """fp32 sparse smoke models, the same seeded weights on both devices:
+    the MoE two through the paged engine (ragged prompts, whose padding
+    reaches the router), the SSM two through the ``Server`` (one prefill
+    pass); equal greedy streams."""
+    cfg = registry.get_smoke(arch, sparse=True)
+    got = {}
+    for dev in ("cpu", cuda):
+        if cfg.family == "moe":
+            page = cfg.attn_block
+            eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=2, max_len=16 * page), seed=0, device=dev)
+            work = [(np.random.default_rng(n).integers(0, cfg.vocab_size, n).astype(np.int32), 6)
+                    for n in (9 * page + 20, 2 * page + 1, 40)]
+            uids = {eng.submit(p, n): i for i, (p, n) in enumerate(work)}
+            got[str(dev)] = {uids[f.uid]: f.tokens.tolist() for f in eng.drain(max_steps=500)}
+        else:
+            prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (3, 133)).astype(np.int32)
+            got[str(dev)] = Server(cfg, seed=0, device=dev).generate(prompts, 8).tolist()
+    assert got["cpu"] == got[str(cuda)]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-130m", "zamba2-2.7b"])
+def test_moe_ssm_train_step_on_card_equals_cpu(cuda, arch):
+    """One fp32 ``make_train_step`` step of the sparse smoke model, held as
+    ``test_train_step_on_card_equals_cpu`` holds the dense family's."""
+    test_train_step_on_card_equals_cpu(cuda, arch)

@@ -180,7 +180,7 @@ def _jax_grads(jcfg, cfg, params, batch):
     return _jax_grads_by_name(g, cfg)
 
 
-def _int8_boundaries(jgrads):
+def _int8_boundaries(jgrads, cfg):
     """Per parameter, the elements whose scaled gradient q = |g| / scale
     sits within 1e-4 (1 + q) of a rounding boundary k + 1/2 (the two
     packages' gradients agree to about 2e-5 relative) of the reference's
@@ -191,7 +191,7 @@ def _int8_boundaries(jgrads):
     one quantum times (1 - b1)."""
     leaves = {}
     for name, g in jgrads.items():
-        leaves.setdefault(reference_leaf(name), []).append(name)
+        leaves.setdefault(reference_leaf(name, cfg), []).append(name)
     out = {}
     for names in leaves.values():
         g = {n: _np(jgrads[n]).astype(np.float64) for n in names}
@@ -259,7 +259,7 @@ def test_train_step_matches_jax(case):
     jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))
     state = init_opt_state(opt, dict(model.named_parameters()))
     m = make_train_step(cfg, opt, microbatches=k)(model, state, batch)
-    flips = _int8_boundaries(jgrads) if opt.compress_grads else None
+    flips = _int8_boundaries(jgrads, cfg) if opt.compress_grads else None
     _check_step(cfg, opt, opt.lr, jgrads, jstate, jm, model, state, m, flips=flips)
 
 
