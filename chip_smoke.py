@@ -73,7 +73,8 @@ Phases; any failure raises and the script exits non-zero:
    attention (PyTorch's flash kernel, no TPU kernel) against the chunked
    plain version at qwen3-1.7b's training shape. (b) fp32 sparse smoke
    models of both: equal greedy streams on the CPU and the card, and one
-   qwen2-1.5b train step held as in 7b. (c) Each at full width, sparse:
+   qwen2-1.5b train step held as in 7b. (c) Each at full width, sparse,
+   at half depth (``DEPTH_CUTS``: 16 of 32 and 14 of 28 layers):
    ``Engine(max_slots=8, max_len=2048)`` serves 8 requests of 200-1000
    prompt tokens, 32 new each, then a ``Trainer`` takes 1 warm-up and 2
    timed steps at B = 4, S = 2048, the kernels' counts set to 0 just
@@ -124,7 +125,8 @@ Phases; any failure raises and the script exits non-zero:
    plain versions, timed as in phase 8a. (b) fp32 sparse smoke models:
    equal greedy streams on the CPU and the card, ``forward_train`` on
    embeddings and distinct position streams (loss and gradients), and one
-   train step. (c), (d) Each at full width, sparse, as in phase 8c, the
+   train step. (c), (d) Each at full width, sparse, as in phase 8c (at a
+   quarter of the depth: 7 of 28 and 12 of 48 layers), the
    Trainer on ``EmbedsWrapper`` batches (B = 4; B = 2 only if B = 4 runs
    out of memory or peaks above 72 GB), and one more step traced on the
    device (busy share). (e) ``repro_torch.bench.serve_engine`` at full
@@ -155,7 +157,23 @@ Phases; any failure raises and the script exits non-zero:
    block_sparse_attention and bsr_matmul in zamba2's serving and
    training, bsr_matmul in mamba2's. kimi-k2 (344 GB sparse) does not
    fit the card: the CPU tests cover it.
-13. The kernels line (with each kernel's launches in phases 5 to 12, a
+13. The analysis instruments, the router and the tools, on full-width
+   sparse qwen3-1.7b. (a) ``Engine(max_slots=8, max_len=2048)`` admits 8
+   greedy requests; its next 16 decode steps run inside
+   ``DispatchGuard(max_compiles=0)``: 0 kernel-library builds, 0
+   implicit syncs, one explicit fetch a step; then a step with an
+   ``.item()`` injected into the decode step must raise
+   ``HostSyncError``. (b) ``Engine.roofline()`` beside the guarded steps'
+   p50: the bound's share of the step. (c) One ``Trainer`` step at B = 4,
+   S = 2048 under ``DispatchGuard(raise_on_sync=False,
+   max_compiles=None)``: its implicit and explicit syncs, and its MFU from
+   ``analysis.roofline.model_flops``. (d) ``ReplicaRouter(replicas=2)``
+   on (a)'s weights serves 16 greedy requests; its streams equal one
+   engine's bit for bit, 8 requests a replica. (e)
+   ``repro_torch.examples.train_lm`` for 4 steps, and ``python -m
+   repro_torch.bench.run --only roofline``. The kernels' counts are set to
+   0 just before each of (a), (c), (d) and (e) and read just after.
+14. The kernels line (with each kernel's launches in phases 5 to 13, a
    row for the b = 32 tensor-core path at ViT-B/16's shapes and one for
    attention at head dim 80), the script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -170,6 +188,7 @@ import collections
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -182,13 +201,11 @@ import torch
 T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-HBM_BYTES_PER_S = 3.35e12
 # record_function ranges of the port's plain-torch pieces: serving, and
 # the training step's parts and backward pieces
 RANGES = ("sampler", "prefix_flash_attention", "train_forward", "train_backward", "optimizer",
           "bsr_matmul_dx", "bsr_matmul_dblocks", "sparse_attention_vjp",
           "moe_dispatch", "moe_experts", "moe_combine", "ssd_scan")
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def log(*a):
@@ -251,8 +268,14 @@ def function_host_us(fn) -> float:
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    """The larger of the bytes' time at the HBM rate and the FLOPs' at the
+    dtype's peak, from ``analysis.roofline.HW`` (the H100 SXM data sheet),
+    the constants the engine's roofline uses."""
+    from repro_torch.analysis.roofline import HW
+
+    hw = HW()
+    t_bytes = nbytes / hw.hbm_bw * 1e3
+    t_ops = flops / hw.flops_for(dtype) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -372,9 +395,11 @@ def bsr_row(timer, x, blocks, cols, n_in, slots, tol, label, timed=True):
            "max_abs_err": check_close(f"bsr_matmul {label} M={m} {dtype}", y, ref.bsr_matmul_gather(x, blocks, cols), tol),
            "out_sha256": digest(y)}
     if timed:
+        from repro_torch.kernels.ops import bsr_matmul_cost
+
         dense = ref.bsr_to_dense(blocks, cols, n_in)
-        nbytes = (x.numel() + blocks.numel() + y.numel()) * x.element_size() + cols.numel() * 4
-        b_ms, b_by = bound_ms(nbytes, 2.0 * m * slots * b * b, dtype)
+        flops, nbytes = bsr_matmul_cost(x, blocks, cols, slots=slots)
+        b_ms, b_by = bound_ms(nbytes, flops, dtype)
         row.update(ms=timer.ms(lambda: bsr_matmul_cuda(x, blocks, cols)),
                    plain_ms=timer.ms(lambda: ref.bsr_matmul_gather(x, blocks, cols)),
                    library_ms=timer.ms(lambda: x @ dense), bound_ms=b_ms, bound_by=b_by)
@@ -443,11 +468,10 @@ def paged_case(timer, *, b, hk, g, d, page, pps, dtype, seed, tol, full=False, s
     err = check_close(f"paged_decode_attention B={b} {dtype}", got,
                       ref.paged_decode_attention_gather(*args, sm_scale=scale), tol)
     # what this schedule needs: the visible keys of every kept page
-    base = logical.long() * page
-    n_vis = ((pos.long()[:, None] - base + 1).clamp(0, page) * keep.long()).sum().item()
-    es = q.element_size()
-    nbytes = (2 * q.numel() + 2 * n_vis * hk * d) * es + 4 * (3 * phys.numel() + b)
-    flops = 4.0 * g * d * n_vis * hk
+    from repro_torch.kernels.ops import paged_decode_attention_cost
+
+    flops, nbytes = paged_decode_attention_cost(*args, sm_scale=scale)
+    n_vis = round(flops / (4.0 * g * d * hk))
     b_ms, b_by = bound_ms(nbytes, flops, str(dtype).split(".")[1])
     # library yardstick: SDPA over the scheduled pages, gathered beforehand
     w = phys.shape[1]
@@ -499,15 +523,9 @@ def attention_case(timer, *, b, s, h, hk, d, block, dtype, seed, tol):
     err = check_close(f"block_sparse_attention B={b} S={s} H={h} Hk={hk} D={d} {dtype}", got,
                       plain().reshape(b, s, h, d), tol)
     # causal-visible (q, k) pairs of the schedule
-    pairs = 0
-    for i in range(sched.nqb):
-        for t in range(sched.max_nkv):
-            if sched.valid[i, t]:
-                j = int(sched.kv_index[i, t])
-                pairs += block * block if j < i else block * (block + 1) // 2
-    es = q.element_size()
-    nbytes = (2 * q.numel() + 2 * k.numel()) * es + 8 * sched.kv_index.size
-    flops = 4.0 * d * pairs * b * h
+    from repro_torch.kernels.ops import block_sparse_attention_cost
+
+    flops, nbytes = block_sparse_attention_cost(q.reshape(b, s, hk, g, d), k, v, kv_index, valid, **kw)
     b_ms, b_by = bound_ms(nbytes, flops, str(dtype).split(".")[1])
     # library yardstick: SDPA with the block mask expanded, K/V repeated
     dense_mask = torch.as_tensor(ref.block_mask_to_dense(mask, block, block, s, s, True), device="cuda")
@@ -1344,8 +1362,16 @@ def family_smoke(seed):
     return out
 
 
+# The layers kept of each family path's published depth (32, 28, 28, 48)
+# in 8c, 11c and 11d: the widths stay published, the depth is cut to keep
+# the whole script inside its time budget (the kernels run at these
+# models' shapes in 8a and 11a whatever the depth).
+DEPTH_CUTS = {"smollm-360m": 16, "qwen2-1.5b": 14, "qwen2-vl-7b": 7, "musicgen-large": 12}
+
+
 def family_full_width(arch, seed, smi, kernels, tag="8c", traced=False):
-    """(c) Full-width sparse ``arch``: ``Engine(max_slots=8, max_len=2048)``
+    """(c) Full-width sparse ``arch`` at the depth of ``DEPTH_CUTS``:
+    ``Engine(max_slots=8, max_len=2048)``
     serves 8 requests of 200-1000 prompt tokens from ``seed``, 32 new
     tokens each; then a ``Trainer`` takes 1 warm-up and 2 timed steps at
     B = 4, S = 2048 (on ``EmbedsWrapper`` batches for a backbone that
@@ -1358,9 +1384,12 @@ def family_full_width(arch, seed, smi, kernels, tag="8c", traced=False):
     from repro_torch.configs import registry
 
     full = registry.get(arch, sparse=True)
+    depth = {"published": full.num_layers, "run": DEPTH_CUTS.get(arch, full.num_layers)}
+    full = full.replace(num_layers=depth["run"])
+    log(f"[{tag}] {arch}: {depth['run']} of its {depth['published']} layers (DEPTH_CUTS), published widths")
     serving = engine_serving(full, seed, smi, kernels, tag)
     training = trainer_steps(full, seed, smi, kernels, tag, traced=traced)
-    return {"serving": serving, "training": training, "card": smi}
+    return {"serving": serving, "training": training, "depth": depth, "card": smi}
 
 
 def engine_serving(full, seed, smi, kernels, tag):
@@ -2459,6 +2488,240 @@ def moe_ssm_full_width(arch, seed, smi, kernels):
 # ----------------------------------------------------------------------
 
 
+# ----------------------------------------------------------------------
+# phase 13: the analysis instruments, the router, the tools
+# ----------------------------------------------------------------------
+
+
+def guarded_decode(full, seed, smi, kernels):
+    """(a) ``Engine(max_slots=8, max_len=2048)`` of full-width sparse
+    qwen3-1.7b admits 8 greedy requests of 200-1000 prompt tokens; its
+    next 16 decode steps run inside ``DispatchGuard(max_compiles=0)``:
+    no kernel-library build, no implicit sync, one explicit fetch a step
+    (the kernels' counts set to 0 just before the admission and read
+    after the guarded steps). Then one step with an ``.item()`` injected
+    into the decode step must raise ``HostSyncError``. (b) The engine's
+    ``roofline()`` beside the guarded steps' p50. Returns (the record,
+    the engine)."""
+    from repro_torch.analysis.guards import DispatchGuard, HostSyncError
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    rng = np.random.default_rng(seed + 13)
+    t0 = time.perf_counter()
+    eng = Engine(full, engine_cfg=EngineConfig(max_slots=8, max_len=2048), seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng.submit(rng.integers(0, full.vocab_size, 300).astype(np.int32), 4)  # warm-up, not counted
+    eng.drain(max_steps=50)
+    for k in kernels.values():
+        k.launches = 0
+    for n in rng.integers(200, 1001, 8):
+        eng.submit(rng.integers(0, full.vocab_size, int(n)).astype(np.int32), 40)
+    eng.step()  # admission and the first decode step
+    if len(eng.scheduler.active()) != 8:
+        raise AssertionError(f"13a: {len(eng.scheduler.active())} of 8 requests admitted in the first step")
+    eng.reset_stats()
+    n_steps = 16
+    with DispatchGuard(max_compiles=0) as g:
+        for _ in range(n_steps):
+            if eng.step():
+                raise AssertionError("13a: a request finished inside the guarded steps")
+    launches = {name: k.launches for name, k in kernels.items()}
+    if g.compiles or g.implicit_syncs or g.explicit_syncs != n_steps:
+        raise AssertionError(f"13a: guarded decode: {g.compiles} builds, {g.implicit_syncs} implicit syncs, "
+                             f"{g.explicit_syncs} explicit syncs over {n_steps} steps")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"13a: kernel {name} was never launched")
+    t0 = time.perf_counter()
+    roof = eng.roofline()
+    roof_s = time.perf_counter() - t0
+    steps = engine_stats(eng)["decode_step_s"]
+    decode_step = T.decode_step_paged
+
+    def leaky(*a, **kw):
+        out = decode_step(*a, **kw)
+        out[0][0, 0].item()  # the classic per-step scalar pull
+        return out
+
+    T.decode_step_paged = leaky
+    try:
+        with DispatchGuard(max_compiles=0):
+            eng.step()
+    except HostSyncError as e:
+        raised = str(e).splitlines()[0]
+    else:
+        raise AssertionError("13a: an injected .item() in the decode step did not raise HostSyncError")
+    finally:
+        T.decode_step_paged = decode_step
+    guard = {"steps": n_steps, "compiles": g.compiles, "implicit_syncs": g.implicit_syncs,
+             "explicit_syncs": g.explicit_syncs, "injected_item": raised, "weights_s": init_s,
+             "decode_step_ms_p50": 1e3 * p50(steps), "decode_step_ms": [1e3 * x for x in steps],
+             "launches": launches, "card": smi}
+    log(f"[13a] guarded decode, full-width qwen3-1.7b sparse, 8 slots, greedy, on {smi}: {n_steps} steps, "
+        f"{g.compiles} kernel-library builds, {g.implicit_syncs} implicit syncs, {g.explicit_syncs} explicit "
+        f"syncs; step p50 {guard['decode_step_ms_p50']:.2f} ms; launches {launches}")
+    log(f"[13a] an injected .item() raised HostSyncError: {raised}")
+    bound_s = max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    step_s = guard["decode_step_ms_p50"] / 1e3
+    from repro_torch.analysis.roofline import model_flops
+
+    guard["roofline"] = {**roof, "count_s": roof_s, "bound_ms": 1e3 * bound_s,
+                         "share_of_step": bound_s / step_s,
+                         "model_flops_2nd": model_flops(full, 8, backward=False)}
+    log(f"[13b] Engine.roofline() (counted in {roof_s:.2f} s): {roof['flops'] / 1e9:.3f} GFLOP, "
+        f"{roof['bytes_accessed'] / 1e9:.3f} GB a decode step of 8 slots, intensity "
+        f"{roof['arithmetic_intensity']}, {roof['bottleneck']} bound: {1e3 * bound_s:.3f} ms "
+        f"(compute {1e3 * roof['compute_s']:.4f} ms, memory {1e3 * roof['memory_s']:.4f} ms) against the "
+        f"guarded steps' p50 {guard['decode_step_ms_p50']:.2f} ms: the bound is "
+        f"{guard['roofline']['share_of_step']:.4f} of the step; 2 N D for 8 tokens "
+        f"{guard['roofline']['model_flops_2nd'] / 1e9:.3f} GFLOP (no logits)")
+    return guard, eng
+
+
+def router_streams(full, eng, seed, smi, kernels):
+    """(d) ``ReplicaRouter(replicas=2)`` of full-width sparse qwen3-1.7b on
+    the card, on ``eng``'s weights (shared), serves 16 greedy requests of
+    257-512 prompt tokens, 16 new each; one engine (``eng``, drained)
+    serves the same requests: the streams must be equal bit for bit, by
+    router uid. The kernels' counts are set to 0 just before the router's
+    drain and read just after: all three must launch."""
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.router import ReplicaRouter
+
+    rng = np.random.default_rng(seed + 14)
+    # one prefill bucket (3-4 pages): the single engine's two waves and
+    # each replica's one wave prefill groups of 8 at the same shapes
+    work = [rng.integers(0, full.vocab_size, int(n)).astype(np.int32) for n in rng.integers(257, 513, 16)]
+    eng.drain(max_steps=200)
+    uids = {eng.submit(p, 16): i for i, p in enumerate(work)}
+    one = {uids[f.uid]: f.tokens.tolist() for f in eng.drain(max_steps=400)}
+    t0 = time.perf_counter()
+    router = ReplicaRouter(full, replicas=2, engine_cfg=EngineConfig(max_slots=8, max_len=2048),
+                           params=eng.model.state_dict(), devices=["cuda", "cuda"])
+    router.submit(rng.integers(0, full.vocab_size, 300).astype(np.int32), 4)  # warm-up, both replicas
+    router.submit(rng.integers(0, full.vocab_size, 300).astype(np.int32), 4)
+    router.drain(max_steps=50)
+    init_s = time.perf_counter() - t0
+    router.reset_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    ruids = {router.submit(p, 16): i for i, p in enumerate(work)}
+    fins = router.drain(max_steps=400)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    got = {ruids[f.uid]: f.tokens.tolist() for f in fins}
+    if got != one:
+        bad = sorted(i for i in one if got.get(i) != one[i])
+        raise AssertionError(f"13d: router streams differ from one engine's for requests {bad}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"13d: kernel {name} was never launched by the router")
+    s = router.stats_summary()
+    per = [int(r["requests_finished"]) for r in s["per_replica"]]
+    if per != [8, 8]:
+        raise AssertionError(f"13d: least-loaded routing gave {per}, not 8 and 8")
+    out = {"requests": len(fins), "replicas": 2, "per_replica_finished": per, "wall_s": wall,
+           "setup_s": init_s, "decode_tok_s": s["decode_tok_s"], "p50_token_latency_ms": s["p50_token_latency_ms"],
+           "streams_sha256": digest(torch.as_tensor(np.concatenate([np.asarray(got[i]) for i in sorted(got)]))),
+           "launches": launches, "card": smi}
+    del router
+    torch.cuda.empty_cache()
+    log(f"[13d] ReplicaRouter(replicas=2) on {smi}: 16 greedy requests (257-512 prompt tokens, 16 new) in "
+        f"{wall:.2f} s, {per} finished a replica, fleet decode {out['decode_tok_s']:.1f} tok/s, p50 "
+        f"{out['p50_token_latency_ms']:.1f} ms; streams equal to one engine's bit for bit (digest "
+        f"{out['streams_sha256']}); launches {launches}")
+    return out
+
+
+def guarded_training_step(full, seed, smi, kernels):
+    """(c) One full-width sparse qwen3-1.7b ``Trainer`` step at B = 4,
+    S = 2048 after a warm-up step, inside ``DispatchGuard(raise_on_sync=
+    False, max_compiles=None)``: its implicit and explicit syncs counted,
+    its MFU from ``analysis.roofline.model_flops`` at the H100's bf16
+    peak. The kernels' counts are set to 0 just before the step."""
+    import shutil
+
+    from repro_torch.analysis.guards import DispatchGuard
+    from repro_torch.analysis.roofline import HW, model_flops
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import TrainConfig, Trainer
+    from repro_torch.training.optimizer import OptConfig
+
+    b, s = 4, 2048
+    ckpt = ROOT / "build" / "chip_smoke_guard_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    trainer = Trainer(full, OptConfig(lr=3e-4, warmup_steps=2, total_steps=100),
+                      SyntheticLM(full.vocab_size, s, b, seed=seed),
+                      TrainConfig(ckpt_dir=str(ckpt), ckpt_every=10 ** 9, log_every=10 ** 9, seed=seed),
+                      device="cuda")
+    warm = trainer.run(1)
+    for k in kernels.values():
+        k.launches = 0
+    with DispatchGuard(raise_on_sync=False, max_compiles=None) as g:
+        hist = trainer.run(1)
+    launches = {name: k.launches for name, k in kernels.items()}
+    h = hist[0]
+    if not (math.isfinite(warm[0]["loss"]) and math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+        raise AssertionError(f"13c: training step loss {h['loss']}, grad_norm {h['grad_norm']}")
+    for name in ("bsr_matmul", "block_sparse_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"13c: kernel {name} was never launched in the training step")
+    flops = model_flops(full, b * s)
+    out = {"shape": f"B={b} S={s}", "step_ms": 1e3 * h["step_time_s"], "loss": h["loss"],
+           "implicit_syncs": g.implicit_syncs, "explicit_syncs": g.explicit_syncs, "compiles": g.compiles,
+           "sync_sites": dict(g.sites), "model_flops": flops, "mfu": flops / h["step_time_s"] / HW().flops_for(full.dtype),
+           "launches": launches, "card": smi}
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[13c] one full-width training step (B={b}, S={s}) under DispatchGuard(raise_on_sync=False) on {smi}: "
+        f"{out['step_ms']:.1f} ms, {g.implicit_syncs} implicit syncs, {g.explicit_syncs} explicit, "
+        f"{g.compiles} builds; model FLOPs 6 N D {flops / 1e12:.2f} TFLOP, MFU {out['mfu']:.4f} at "
+        f"{HW().flops_for(full.dtype) / 1e12:.0f} TFLOP/s; launches {launches}")
+    for site, n in g.sites.most_common():
+        log(f"[13c]   {n} implicit sync(s) at {site.replace(str(ROOT) + '/', '')}")
+    return out
+
+
+def tools_on_card(kernels):
+    """(e) ``repro_torch.examples.train_lm`` for 4 steps on the card (the
+    kernels' counts set to 0 just before: both training kernels launch,
+    the losses are finite), then ``python -m repro_torch.bench.run --only
+    roofline`` in a process of its own: its CSV header and rows."""
+    import shutil
+
+    from repro_torch.examples import train_lm
+
+    ckpt = ROOT / "build" / "chip_smoke_example_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for k in kernels.values():
+        k.launches = 0
+    hist = train_lm.main(["--steps", "4", "--ckpt-dir", str(ckpt)])
+    launches = {name: k.launches for name, k in kernels.items()}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if len(hist) != 4 or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"13e: train_lm history {hist}")
+    for name in ("bsr_matmul", "block_sparse_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"13e: kernel {name} was never launched by examples.train_lm")
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.bench.run", "--only", "roofline"],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or lines[0] != "name,us_per_call,derived" or len(lines) < 2:
+        raise AssertionError(f"13e: bench.run --only roofline: rc {proc.returncode}, {proc.stdout!r} {proc.stderr[-2000:]}")
+    losses = [h["loss"] for h in hist]
+    log(f"[13e] examples.train_lm, 4 steps on the card: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"launches {launches}")
+    log(f"[13e] python -m repro_torch.bench.run --only roofline: {' | '.join(lines)}")
+    return {"losses": losses, "launches": launches, "bench_run": lines}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2769,7 +3032,19 @@ def main(argv=None) -> int:
     log(f"[12] phase 12 took {moe_ssm['wall_s']:.1f} s")
     zamba_attn = [r for r in moe_ssm["kernels"]["block_sparse_attention"] if r["arch"] == "zamba2-2.7b"]
 
-    # ---- 13. report ------------------------------------------------
+    # ---- 13. the analysis instruments, the router, the tools --------
+    t13 = time.perf_counter()
+    analysis, eng = guarded_decode(full, args.seed, smi, kernels)
+    analysis["router"] = router_streams(full, eng, args.seed, smi, kernels)
+    del eng
+    torch.cuda.empty_cache()
+    analysis["training_step"] = guarded_training_step(full, args.seed, smi, kernels)
+    analysis["tools"] = tools_on_card(kernels)
+    analysis["wall_s"] = time.perf_counter() - t13
+    report["analysis"] = analysis
+    log(f"[13] phase 13 took {analysis['wall_s']:.1f} s")
+
+    # ---- 14. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -2847,7 +3122,7 @@ def main(argv=None) -> int:
             "library_ms": zamba_attn[0]["library_ms"],
         },
     ]}
-    for k in line["kernels"][:3]:  # the launches of phases 6 to 12, counted apart
+    for k in line["kernels"][:3]:  # the launches of phases 6 to 13, counted apart
         k["launches_phase6"] = report["features"]["launches"][k["name"]]
         k["launches_phase9"] = cli["cli"]["launches"][k["name"]]
         k["launches_training"] = report["training"]["full_width"]["launches"][k["name"]]
@@ -2859,6 +3134,9 @@ def main(argv=None) -> int:
                                  + vlm["bench"]["launches"][k["name"]] + vlm["example"]["launches"][k["name"]])
         k["launches_phase12"] = sum(moe_ssm[a][part]["launches"][k["name"]] for a in MOE_SSM
                                     for part in ("serving", "training"))
+        k["launches_phase13"] = (analysis["launches"][k["name"]] + analysis["router"]["launches"][k["name"]]
+                                 + analysis["training_step"]["launches"][k["name"]]
+                                 + analysis["tools"]["launches"][k["name"]])
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -2868,7 +3146,7 @@ def main(argv=None) -> int:
                              f"SDPA's {paged_main['library_ms']:.4f} ms on the same inputs")
     report["wall_s"] = time.perf_counter() - T_START
     out.write_text(json.dumps(report, indent=1))
-    log(f"[13] chip_smoke.py took {report['wall_s']:.1f} s")
+    log(f"[14] chip_smoke.py took {report['wall_s']:.1f} s")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -24,6 +24,10 @@ Scenarios, each as the JAX script runs it (its docstring says why):
 8. **observability_live**: rolling windows, the burn-rate monitor and
    memory gauges on against off, and ``slo_shed`` (shedding on against
    off under overload).
+9. **dispatch_guard**: the uniform wave's steady-state decode steps
+   inside ``analysis.guards.DispatchGuard``: zero kernel-library builds,
+   zero implicit device->host syncs and one explicit fetch a step,
+   enforced (raising) with ``--guards`` and at ``--smoke``, else counted.
 
 Each asserts what the JAX script asserts: token streams identical across
 the modes it compares, and its gains where the JAX script asserts them.
@@ -32,8 +36,8 @@ Where two modes are compared, their engines step in turn
 both alike; the JAX script runs one mode after the other.
 The JSON has the JAX file's top-level keys, so the two diff key for key.
 ``decode_by_impl`` holds the engine's one paged read (``cuda`` on the
-card, ``plain`` on the CPU); ``mesh`` and ``dispatch_guard`` wait for
-distribution and analysis. Counts, percentiles and rates come from the
+card, ``plain`` on the CPU); ``mesh`` waits for distribution (ROADMAP
+Queue 1 item 9). Counts, percentiles and rates come from the
 engine's ``stats_summary()``, the ``repro_serve_*`` metrics and the
 ``engine:*`` spans.
 
@@ -59,6 +63,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.analysis.guards import DispatchGuard
 from repro_torch.configs import registry
 from repro_torch.launch.serve import Server
 from repro_torch.obs import SloConfig
@@ -562,6 +567,33 @@ def _measure_slo_shed(cfg, sd, device, slots, *, bg_per_slot, bg_gen, warm_repla
     return out
 
 
+def _measure_guarded(engine: Engine, prompts: np.ndarray, gen: int, *, enforce: bool) -> dict:
+    """One uniform wave with the steady-state decode loop inside a
+    ``DispatchGuard``: proves (``enforce``, raising) or records (counting)
+    that decode builds no kernel library and makes no implicit
+    device->host sync after warm-up, with exactly one explicit fetch (the
+    next-token row) a step. The first step (admission and the first
+    decode) is warm-up, and the last ones are left out: requests
+    finishing free their slots, which is not a steady step."""
+    for b in range(prompts.shape[0]):
+        engine.submit(prompts[b], gen)
+    engine.step()
+    steps = max(gen - 2, 1)
+    guard = DispatchGuard(max_compiles=0 if enforce else None, raise_on_sync=enforce)
+    with guard:
+        for _ in range(steps):
+            engine.step()
+    engine.drain(max_steps=64 * max(gen, 1))
+    return {
+        "steps": steps,
+        "compiles": guard.compiles,
+        "implicit_d2h": guard.implicit_syncs,
+        "explicit_syncs": guard.explicit_syncs,
+        "enforced": enforce,
+        "clean": guard.compiles == 0 and guard.implicit_syncs == 0,
+    }
+
+
 def _measure_goodput(cfg, sd, device, batch, sizes) -> dict:
     """The three scheduling scenarios over seeded workload traces."""
     page = cfg.attn_block
@@ -629,6 +661,7 @@ def run(
     trace_out: str | None = None,
     listen: str | None = None,
     out: str | None = "build/bench_serve_torch.json",
+    guards: bool = False,
 ) -> dict:
     """Every scenario; returns the payload and writes it to ``out``."""
     t_start = time.perf_counter()
@@ -679,6 +712,9 @@ def run(
     # the engine has one paged read: the CUDA kernel on the card, the plain
     # gather on the CPU
     by_impl = {engine.paged_impl: {k: uniform[k] for k in keys}}
+    # ---- dispatch guard: counted always, enforced (raising) under
+    # --guards and at --smoke, so a hot-path regression fails the run
+    dispatch_guard = _measure_guarded(engine, prompts, gen, enforce=guards or smoke)
     del engine
 
     # ---- mixed-length trace with mid-flight arrivals
@@ -756,7 +792,7 @@ def run(
         "prefill_heavy_speedup": ph_speedup,
         "decode_by_impl": by_impl,
         "decode_by_sampler": by_sampler,
-        "dispatch_guard": {"waits": "ROADMAP Queue 1 item 10"},
+        "dispatch_guard": dispatch_guard,
         "observability": obs,
         "observability_live": obs_live,
         "prefix_cache": prefix,
@@ -781,10 +817,13 @@ def main(argv=None) -> dict:
                     help="the observability scenario's traced ring as Perfetto JSON")
     ap.add_argument("--listen", default=None, metavar="HOST:PORT",
                     help="scrape the monitored engine's endpoint mid-run (port 0 = ephemeral)")
+    ap.add_argument("--guards", action="store_true",
+                    help="enforce the dispatch guard: raise on any kernel-library build or implicit "
+                         "device->host sync in the steady-state decode loop (always at --smoke)")
     ap.add_argument("--out", default="build/bench_serve_torch.json")
     args = ap.parse_args(argv)
     payload = run(smoke=args.smoke, device=args.device, repeats=args.repeats, trace_out=args.trace_out,
-                  listen=args.listen, out=args.out)
+                  listen=args.listen, out=args.out, guards=args.guards)
     u, s = payload["engine_uniform"], payload["server"]
     print(f"serve_engine ({payload['config']['device']}, {payload['config']['wall_s']} s): uniform {u['tok_s']} tok/s, "
           f"server {s['tok_s']} tok/s (x{payload['speedup_vs_server']}), prefill-heavy "

@@ -4,18 +4,29 @@ A tensor on the CPU takes the plain PyTorch version (``ref``); a tensor on
 a CUDA device launches the hand-written kernel, which raises on what it
 does not take. There is no fallback from one to the other, and any other
 device raises.
+
+Each entry point reports its own FLOPs and bytes to ``analysis.roofline``
+while a step is counted (``@metered``); the ``*_cost`` functions are those
+formulas, also the bound column of ``chip_smoke.py``: each input read
+once, each output written once, and the work this call's data needs.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.analysis import guards
+from repro_torch.analysis.roofline import metered
 from repro_torch.kernels import ref
 from repro_torch.kernels.bsr_attention import block_sparse_attention_cuda
 from repro_torch.kernels.bsr_matmul import bsr_matmul_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 
-__all__ = ["bsr_matmul", "paged_decode_attention", "block_sparse_attention"]
+__all__ = [
+    "bsr_matmul", "paged_decode_attention", "block_sparse_attention",
+    "bsr_matmul_cost", "paged_decode_attention_cost", "block_sparse_attention_cost",
+]
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -26,6 +37,47 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+def bsr_matmul_cost(x, blocks, cols, slots: int | None = None) -> tuple[float, float]:
+    """(FLOPs, bytes) of ``bsr_matmul``: 2 M b^2 a b x b product of the
+    pattern (``slots`` of them a row block, nb_out x r by default; a
+    transposed table's padding is not work), and x, blocks, cols and y
+    once each."""
+    nb_out, r, b, _ = blocks.shape
+    m = x.numel() // x.shape[-1]
+    slots = nb_out * r if slots is None else slots
+    nbytes = (x.numel() + blocks.numel() + m * nb_out * b) * x.element_size() + cols.numel() * 4
+    return 2.0 * m * slots * b * b, float(nbytes)
+
+
+def paged_decode_attention_cost(q, k_pages, v_pages, phys, logical, keep, pos, *, sm_scale) -> tuple[float, float]:
+    """(FLOPs, bytes) of ``paged_decode_attention``: the keys each slot
+    sees (the kept pages' positions up to its own, read through one
+    ``guards.device_get``), 4 G D FLOPs a key and kv head, their K and V
+    rows, q and the output, and the schedule."""
+    b, hk, g, d = q.shape
+    page = k_pages.shape[1]
+    base = logical.long() * page
+    vis = ((pos.long()[:, None] - base + 1).clamp(0, page) * keep.long()).sum()
+    n_vis = int(guards.device_get(vis))
+    nbytes = (2 * q.numel() + 2 * n_vis * hk * d) * q.element_size() + 4 * (3 * phys.numel() + b)
+    return 4.0 * g * d * n_vis * hk, float(nbytes)
+
+
+def block_sparse_attention_cost(q, k, v, kv_index, valid, *, block, causal, sm_scale) -> tuple[float, float]:
+    """(FLOPs, bytes) of ``block_sparse_attention``: 4 D FLOPs a visible
+    (query, key) pair of the schedule and query head (a diagonal block
+    holds block (block + 1) / 2 pairs when causal), q, k, v and the output
+    once each, and the schedule."""
+    b, s, hk, g, d = q.shape
+    kv, ok = guards.device_get((kv_index, valid))
+    rows = np.arange(kv.shape[0])[:, None]
+    diag = (kv == rows) & bool(causal)
+    pairs = int(np.where(ok > 0, np.where(diag, block * (block + 1) // 2, block * block), 0).sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 8 * kv_index.numel()
+    return 4.0 * d * pairs * b * hk * g, float(nbytes)
+
+
+@metered(bsr_matmul_cost)
 def bsr_matmul(
     x: torch.Tensor, blocks: torch.Tensor, cols: torch.Tensor
 ) -> torch.Tensor:
@@ -38,6 +90,7 @@ def bsr_matmul(
     return y.reshape(*lead, y.shape[-1])
 
 
+@metered(paged_decode_attention_cost)
 def paged_decode_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -59,6 +112,7 @@ def paged_decode_attention(
     return fn(q, k_pages, v_pages, phys, logical, keep, pos, sm_scale=sm_scale)
 
 
+@metered(block_sparse_attention_cost)
 def block_sparse_attention(
     q: torch.Tensor,
     k: torch.Tensor,

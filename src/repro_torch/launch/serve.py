@@ -22,6 +22,10 @@ not pages, greedy only, as in the JAX package; for them it prefills the
 prompts in one ``transformer.prefill`` pass:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --sparse
+
+``--replicas N`` serves through ``serving.router.ReplicaRouter``: N
+complete engines (on one card they share the weights) behind a
+least-loaded router, one fleet summary and one scrape endpoint.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from repro_torch.obs.http import attach
 from repro_torch.obs.prom import write_snapshot
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.request import ScheduleParams
+from repro_torch.serving.router import ReplicaRouter
 from repro_torch.serving.sampling import SamplingParams
 
 __all__ = ["Server", "Served", "main"]
@@ -86,42 +91,49 @@ class Server:
 @dataclasses.dataclass
 class Served:
     """What ``main`` served: each request's tokens in submission order,
-    the drained engine (None for ``--legacy-server``) and the wall
-    seconds of the drain (of ``generate`` for the Server)."""
+    the drained engine (None for ``--legacy-server``; the
+    ``ReplicaRouter`` with ``--replicas``) and the wall seconds of the
+    drain (of ``generate`` for the Server)."""
 
     tokens: list[np.ndarray]
-    engine: Engine | None
+    engine: Engine | ReplicaRouter | None
     wall_s: float
 
 
-def _write_obs(engine: Engine, args) -> None:
+def _write_obs(served, metrics, args) -> None:
     """Flush observability artifacts after the drain: a Perfetto timeline
-    (``--trace-out``) and a Prometheus snapshot (``--metrics-out``)."""
+    (``--trace-out``) and a Prometheus snapshot (``--metrics-out``).
+    ``served`` is the Engine or the ReplicaRouter, ``metrics`` its
+    registry (the router's merged one)."""
     if args.trace_out:
-        n = engine.export_perfetto(args.trace_out)
+        n = served.export_perfetto(args.trace_out)
         print(f"wrote {n} trace events to {args.trace_out} (open at ui.perfetto.dev)")
     if args.metrics_out:
-        write_snapshot(args.metrics_out, engine.metrics)
+        write_snapshot(args.metrics_out, metrics)
         print(f"wrote Prometheus snapshot to {args.metrics_out}")
 
 
-def _maybe_listen(engine: Engine, args):
-    """Start the live scrape endpoint (``--listen``) before draining;
-    returns the running ``MetricsServer`` or None."""
+def _maybe_listen(served, args):
+    """Start the live scrape endpoint (``--listen``) over the Engine or
+    the ReplicaRouter before draining; returns the running
+    ``MetricsServer`` or None."""
     if not args.listen:
         return None
-    server = attach(engine, args.listen)
+    server = attach(served, args.listen)
     print(f"live telemetry at {server.url} (/metrics /healthz /vars /slo)", flush=True)
     return server
 
 
-def _shutdown_live(server, engine: Engine, args) -> None:
+def _shutdown_live(server, engines: list[Engine], args) -> None:
     """Stop the ``--listen`` endpoint and report the flight recorder's
-    incident bundles, by kind."""
+    incident bundles of every engine, by kind."""
     if server is not None:
         server.stop()
     if args.flight_dir:
-        kinds = incident_kinds(engine)
+        kinds: dict[str, int] = {}
+        for engine in engines:
+            for kind, n in incident_kinds(engine).items():
+                kinds[kind] = kinds.get(kind, 0) + n
         print(f"flight recorder: {sum(kinds.values())} incident bundle(s) under "
               f"{args.flight_dir} {kinds}")
 
@@ -191,7 +203,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel degree (distribution, not ported yet)")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="data-parallel engine replicas (not ported yet)")
+                    help="data-parallel replicas: N complete engines behind a "
+                         "least-loaded router (serving.router)")
     ap.add_argument("--production-mesh", action="store_true",
                     help="the production device mesh (not ported yet)")
     ap.add_argument("--legacy-server", action="store_true",
@@ -231,11 +244,10 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> Served:
     """Parse ``argv`` and serve ``--batch`` synthetic requests."""
     args = _parser().parse_args(argv)
-    if args.tp > 1 or args.replicas > 1 or args.production_mesh or args.strategy == "tp":
+    if args.tp > 1 or args.production_mesh or args.strategy == "tp":
         raise SystemExit(
-            "--tp, --replicas, --production-mesh and --strategy tp need "
-            "distribution, which the port does not have yet (ROADMAP Queue 1 "
-            "item 9)"
+            "--tp, --production-mesh and --strategy tp need distribution, which "
+            "the port does not have yet (ROADMAP Queue 1 item 9)"
         )
     cfg = (
         registry.get_smoke(args.arch, sparse=args.sparse)
@@ -311,23 +323,32 @@ def main(argv=None) -> Served:
         deadline_s=args.deadline or None,
         max_queue_wait_s=args.max_queue_wait or None,
     )
-    engine = Engine(cfg, engine_cfg=ecfg, device=args.device)
-    impl = ("CUDA kernel (csrc/paged_attention.cu)" if engine.paged_impl == "cuda"
+    if args.replicas > 1:
+        served = ReplicaRouter(
+            cfg, replicas=args.replicas, engine_cfg=ecfg,
+            devices=None if args.device is None else [args.device] * args.replicas,
+        )
+        engines = served.engines
+    else:
+        served = Engine(cfg, engine_cfg=ecfg, device=args.device)
+        engines = [served]
+    impl = ("CUDA kernel (csrc/paged_attention.cu)" if engines[0].paged_impl == "cuda"
             else "plain PyTorch gather (CPU)")
-    print(f"device: {engine.device}, paged decode: {impl}, sampler: {sp0.kind}")
+    print(f"device: {engines[0].device}, paged decode: {impl}, sampler: {sp0.kind}"
+          + (f", {args.replicas} replicas" if args.replicas > 1 else ""))
     for b in range(args.batch):
         # each request gets its own noise stream through a distinct seed
-        engine.submit(
+        served.submit(
             prompts[b],
             args.gen,
             sampling=dataclasses.replace(sp0, seed=args.seed + b),
             schedule=schedule,
         )
-    server = _maybe_listen(engine, args)
+    server = _maybe_listen(served, args)
     t0 = time.perf_counter()
-    finished = engine.drain()
+    finished = served.drain()
     dt = time.perf_counter() - t0
-    s = engine.stats_summary()
+    s = served.stats_summary()
     total = sum(len(f.tokens) for f in finished)
     print(
         f"served {len(finished)} requests / {total} tokens in {dt:.2f}s "
@@ -338,6 +359,9 @@ def main(argv=None) -> Served:
         f"occupancy {s['mean_occupancy']:.2f}, "
         f"{s['mean_prefill_batch']:.1f} req/prefill)"
     )
+    if args.replicas > 1:
+        per = [int(rep["requests_finished"]) for rep in s["per_replica"]]
+        print(f"per-replica finished: {per}")
     pre = s["preemption"]
     if pre["preemptions"] or s["rejected"]["total"] or args.deadline:
         print(
@@ -357,11 +381,11 @@ def main(argv=None) -> Served:
             f"{pc['inserted_pages']} indexed, {pc['evicted_pages']} "
             f"evicted, {pc['cow_copies']} COW)"
         )
-    _write_obs(engine, args)
-    _shutdown_live(server, engine, args)
+    _write_obs(served, served.merged_metrics() if args.replicas > 1 else served.metrics, args)
+    _shutdown_live(server, engines, args)
     tokens = [f.tokens for f in sorted(finished, key=lambda f: f.uid)]
     print(np.stack(tokens[:2]))
-    return Served(tokens, engine, dt)
+    return Served(tokens, served, dt)
 
 
 if __name__ == "__main__":

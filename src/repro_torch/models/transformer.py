@@ -54,6 +54,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.analysis.guards import hot_path
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -435,6 +436,7 @@ def prefill_paged(
     return toks, caches, presence
 
 
+@hot_path
 @torch.no_grad()
 def decode_step_paged(
     cfg: ModelConfig,

@@ -17,9 +17,9 @@ mix.  Histogram appends racing a render can at worst make ``_count``
 lag ``_sum`` by the in-flight sample; the exposition stays parseable
 (``chip_smoke.py`` scrapes mid-decode and round-trips ``prom.parse``).
 
-``attach()`` serves an ``Engine``: ``.metrics``, and ``windowed_vars`` /
-``slo_state`` when present.  (The JAX package's router twin, which would
-serve merged fleet metrics, is not ported yet.)
+``attach()`` duck-types the served object: an ``Engine`` (``.metrics``)
+or a ``ReplicaRouter`` (``.merged_metrics()``: scrapes aggregate the
+fleet), picking up ``windowed_vars``/``slo_state`` when present.
 """
 
 from __future__ import annotations
@@ -144,15 +144,19 @@ class MetricsServer:
 
 
 def attach(served, listen: str = "127.0.0.1:0") -> MetricsServer:
-    """Start a :class:`MetricsServer` over an ``Engine``
-    (``serve --listen HOST:PORT`` calls this)."""
+    """Start a :class:`MetricsServer` over an ``Engine`` or a
+    ``ReplicaRouter`` (``serve --listen HOST:PORT`` calls this)."""
     host, port = split_listen(listen)
+    if hasattr(served, "merged_metrics"):
+        registry_fn = served.merged_metrics
+    else:
+        registry_fn = lambda: served.metrics  # noqa: E731
     vars_fn = getattr(served, "windowed_vars", None)
     slo_fn = getattr(served, "slo_state", None)
     return MetricsServer(
         host,
         port,
-        registry_fn=lambda: served.metrics,
+        registry_fn=registry_fn,
         vars_fn=vars_fn,
         slo_fn=slo_fn,
     ).start()

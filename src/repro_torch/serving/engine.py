@@ -59,7 +59,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.analysis.guards import compile_events_total
+from repro_torch.analysis import guards
+from repro_torch.analysis.guards import compile_events_total, hot_path
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.obs import (
@@ -324,6 +325,7 @@ class Engine:
         # kernel-library captures arm after the first clean step: the
         # first launches of each kernel build or load its library
         self._flight_armed = False
+        self._roofline: dict | None = None
 
     @property
     def paged_impl(self) -> str:
@@ -355,6 +357,7 @@ class Engine:
         self._nm_preempt = tr.name("preempt")
         self._nm_cow = tr.name("cow_split")
         self._nm_prefix_match = tr.name("prefix_match")
+        self._nm_roofline = tr.name("roofline")
         # counter lanes, one sample each a step: pool occupancy, queue
         # depth, running slots
         self._tk_counters = tr.track("counters")
@@ -465,12 +468,13 @@ class Engine:
         else:
             self._fancy_slots.add(slot)
 
+    @hot_path
     def _decode_sampler(self) -> dict[str, torch.Tensor]:
         """The slot-indexed sampler params on the device, uploaded once
         per admission and reused by every decode step until the next."""
         if self._samp_dev is None:
             self._samp_dev = {
-                k: torch.from_numpy(v).to(self.device) for k, v in self._samp.items()
+                k: guards.device_put(v, self.device) for k, v in self._samp.items()
             }
         return self._samp_dev
 
@@ -479,10 +483,10 @@ class Engine:
         first emitted token) and the slots they landed in."""
         rows = [st_.slot for st_ in states]
         samp = {
-            k: torch.from_numpy(v[rows]).to(self.device) for k, v in self._samp.items()
+            k: guards.device_put(v[rows], self.device) for k, v in self._samp.items()
         }
         samp["idx"] = torch.zeros((len(rows),), dtype=torch.int64, device=self.device)
-        samp["slots"] = torch.tensor(rows, dtype=torch.int64, device=self.device)
+        samp["slots"] = guards.device_put(np.asarray(rows, np.int64), self.device)
         samp["presence"] = self._presence
         return samp
 
@@ -735,7 +739,7 @@ class Engine:
         if not req.sampling.is_plain:
             seen = np.concatenate([req.prompt, np.asarray(state.generated, np.int32)])
             self._presence[slot] = False
-            self._presence[slot, torch.from_numpy(seen).long().to(self.device)] = True
+            self._presence[slot, guards.device_put(seen.astype(np.int64), self.device)] = True
         self.stats.record_resume()
         return state
 
@@ -803,16 +807,16 @@ class Engine:
         args = (
             self.cfg,
             self.model,
-            torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(plens).to(dev),
+            guards.device_put(tokens, dev),
+            guards.device_put(plens, dev),
             self.kv.buffers,
-            torch.from_numpy(rows).to(dev),
+            guards.device_put(rows, dev),
         )
         kw = {}
         if npre:
             kw = dict(
-                prefix_rows=torch.from_numpy(pre_rows).to(dev),
-                prefix_lens=torch.from_numpy(pre_lens).to(dev),
+                prefix_rows=guards.device_put(pre_rows, dev),
+                prefix_lens=guards.device_put(pre_lens, dev),
             )
         # a group of plain requests takes the argmax; one sampled or
         # penalised request switches the whole group to the sampler (its
@@ -821,8 +825,8 @@ class Engine:
             toks_dev, self.kv.buffers, self._presence = T.prefill_paged(
                 *args,
                 **kw,
-                full_tokens=torch.from_numpy(full_tokens).to(dev),
-                full_plens=torch.from_numpy(full_plens).to(dev),
+                full_tokens=guards.device_put(full_tokens, dev),
+                full_plens=guards.device_put(full_plens, dev),
                 sampler=self._prefill_sampler(states),
                 sampler_candidates=self.ecfg.sampler_candidates,
             )
@@ -830,7 +834,7 @@ class Engine:
             logits, self.kv.buffers = T.prefill_paged(*args, **kw)
             toks_dev = torch.argmax(logits, dim=-1)
         # the one batched fetch of this group's first tokens
-        toks = toks_dev.cpu().numpy()
+        toks = guards.device_get(toks_dev)
         dt = time.perf_counter() - t0
         self.tracer.end(self._tk_prefill, self._nm_prefill, s, nb)
         self.stats.record_host_sync()
@@ -857,6 +861,7 @@ class Engine:
         return states
 
     # ---- stepping ----------------------------------------------------
+    @hot_path
     @torch.no_grad()
     def step(self) -> list[FinishedRequest]:
         """One scheduler iteration: admit (batched, possibly after
@@ -918,12 +923,12 @@ class Engine:
             t0 = time.perf_counter()
             tr.begin(self._tk_decode, self._nm_decode_step, len(active))
             dev = self.device
-            pos_dev = torch.from_numpy(positions).to(dev)
+            pos_dev = guards.device_put(positions, dev)
             args = (
                 self.cfg,
                 self.model,
                 self.kv.buffers,
-                torch.from_numpy(tokens).to(dev),
+                guards.device_put(tokens, dev),
                 pos_dev,
                 self.kv.device_table(),
             )
@@ -945,7 +950,7 @@ class Engine:
                 toks_dev = torch.argmax(logits, dim=-1)
             # THE one host fetch per decode step: every slot's next token
             tr.begin(self._tk_sync, self._nm_host_sync)
-            nxt = toks_dev.cpu().numpy()
+            nxt = guards.device_get(toks_dev)
             tr.end(self._tk_sync, self._nm_host_sync, len(active))
             dt = decode_dt = time.perf_counter() - t0
             tr.end(
@@ -1144,23 +1149,53 @@ class Engine:
         return {"enabled": True, **self._slo_mon.last}
 
     def roofline(self) -> dict:
-        """The JAX package's roofline record with ``available: False``.
-        There it parses the compiled decode step's HLO against a TPU's
-        peaks; the port has neither, and an H100 roofline of the decode
-        step waits for ROADMAP Queue 1 item 10. The keys and zeros are
-        the JAX package's, so a reader of ``stats_summary()`` sees the
-        same schema."""
-        return {
-            "available": False,
-            "flops": 0.0,
-            "bytes_accessed": 0.0,
-            "collective_bytes": 0.0,
-            "arithmetic_intensity": 0.0,
-            "bottleneck": "unknown",
-            "compute_s": 0.0,
-            "memory_s": 0.0,
-            "collective_s": 0.0,
+        """Roofline terms of the decode step on this engine's device (lazy,
+        cached): its FLOPs and bytes counted by ``analysis.roofline.count``
+        over one run of ``decode_step_paged``, the time lower bounds at the
+        H100's peaks for the model's dtype, and the dominant bottleneck;
+        the JAX package's record and keys.
+
+        The counted step writes nothing real: every slot's page row is the
+        trash page, which only masked reads ever see (as an idle slot's
+        decode write). Every slot sits at the last position of ``max_len``,
+        so each reads its whole schedule, as the JAX record's HLO counts
+        the step whatever the positions. The one run costs a decode step
+        and one host read a paged-attention call (the keys it sees)."""
+        if self._roofline is not None:
+            return self._roofline
+        from repro_torch.analysis.roofline import HW, count, roofline_terms
+
+        ms = self.ecfg.max_slots
+        dev = self.device
+        tokens = guards.device_put(np.zeros((ms,), np.int32), dev)
+        positions = guards.device_put(np.full((ms,), self.ecfg.max_len - 1, np.int32), dev)
+        trash_table = torch.zeros_like(self.kv.device_table())
+        with torch.no_grad():
+            _, cost = count(lambda: T.decode_step_paged(
+                self.cfg, self.model, self.kv.buffers, tokens, positions, trash_table
+            ))
+        terms = roofline_terms(cost, HW().for_dtype(self.cfg.dtype))
+        self._roofline = {
+            "available": True,
+            "flops": cost.flops,
+            "bytes_accessed": cost.bytes_accessed,
+            "collective_bytes": cost.total_collective_bytes,
+            "arithmetic_intensity": round(cost.flops / cost.bytes_accessed, 4)
+            if cost.bytes_accessed
+            else 0.0,
+            "bottleneck": terms["bottleneck"],
+            "compute_s": terms["compute_s"],
+            "memory_s": terms["memory_s"],
+            "collective_s": terms["collective_s"],
         }
+        # annotate the trace: a0 = intensity x 1000, a1 = bottleneck
+        self.tracer.instant(
+            self._tk_decode,
+            self._nm_roofline,
+            int(self._roofline["arithmetic_intensity"] * 1000),
+            {"compute": 0, "memory": 1, "collective": 2}.get(terms["bottleneck"], 3),
+        )
+        return self._roofline
 
     def _finish(
         self, state: SequenceState, *, reason: str | None = None

@@ -35,6 +35,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.analysis import guards
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 
@@ -243,7 +244,7 @@ class PagedKVCache:
         """The full page table on the device, cached across steps until a
         table mutation invalidates it."""
         if self._table_dev is None:
-            self._table_dev = torch.from_numpy(self.page_table.copy()).to(self.device)
+            self._table_dev = guards.device_put(self.page_table.copy(), self.device)
         return self._table_dev
 
     def table_row(self, slot: int, n_pages: int) -> np.ndarray:

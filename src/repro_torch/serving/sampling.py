@@ -190,8 +190,10 @@ def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
     of its argument (~1) into up to 2^-23 of g."""
     bits = (random_bits(keys, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.tensor(_TINY, dtype=torch.float32, device=keys.device)
-    span = torch.tensor(1.0, dtype=torch.float32, device=keys.device) - tiny
+    # filled on the device: a tensor from a Python scalar would be a
+    # blocking copy to the card, which waits for the stream
+    tiny = torch.full((), _TINY, dtype=torch.float32, device=keys.device)
+    span = torch.full((), 1.0, dtype=torch.float32, device=keys.device) - tiny
     u = torch.maximum(tiny, floats * span + tiny)
     # each log in float64, rounded to float32 where the float32 program
     # rounds: the card and the CPU then give the same float32 noise

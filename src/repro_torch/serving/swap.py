@@ -33,8 +33,11 @@ import dataclasses
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
+from repro_torch.analysis import guards
+from repro_torch.analysis.guards import hot_path
 from repro_torch.obs import MetricsRegistry
 from repro_torch.serving.kv_cache import PagedKVCache
 
@@ -171,7 +174,7 @@ class SwapManager:
         pin_pages, host_pages = owned[:n_pin], owned[n_pin:]
         record = SwapRecord(pin_pages=pin_pages, n_host=len(host_pages), host=None)
         if host_pages:
-            idx = torch.tensor(host_pages, dtype=torch.long, device=kv.device)
+            idx = guards.device_put(np.asarray(host_pages, np.int64), kv.device)
             staging = [
                 {name: buf[:, idx] for name, buf in pool.items()}
                 for pool in kv.buffers
@@ -201,14 +204,16 @@ class SwapManager:
         self.stats.out_s += time.perf_counter() - t0
         return record
 
+    @hot_path
     def finalize(self, record: SwapRecord) -> None:
         """Wait for the copy to host and drop the device staging tensors.
         The copy has been running behind the decode step since
-        ``swap_out``."""
+        ``swap_out``; the wait is the sanctioned one (``guards.wait``),
+        as the JAX package's ``finalize`` lands it with ``device_get``."""
         if not record.pending:
             return
         t0 = time.perf_counter()
-        record.event.synchronize()
+        guards.wait(record.event)
         record.staging = None
         record.event = None
         record.pending = False
@@ -245,11 +250,10 @@ class SwapManager:
             if rows:
                 # the whole record goes up from pinned memory (the rows the
                 # re-match covered are dropped on the device)
-                dst = torch.as_tensor(
-                    kv.page_table[slot, [n_pin + j for j in rows]],
-                    dtype=torch.long,
-                ).to(kv.device)
-                sel = torch.tensor(rows, dtype=torch.long, device=kv.device)
+                dst = guards.device_put(
+                    kv.page_table[slot, [n_pin + j for j in rows]].astype(np.int64), kv.device
+                )
+                sel = guards.device_put(np.asarray(rows, np.int64), kv.device)
                 for pool, hpool in zip(kv.buffers, record.host):
                     for name, buf in pool.items():
                         up = hpool[name].to(buf.device, non_blocking=True)

@@ -98,7 +98,8 @@ def make_train_step(
 class Trainer:
     """Trains ``model_cfg`` on ``data`` on one device (the card unless
     ``device`` says otherwise): restores the newest checkpoint in
-    ``train_cfg.ckpt_dir``, or initialises from ``train_cfg.seed``."""
+    ``train_cfg.ckpt_dir``, or starts from ``params`` (a state dict, e.g.
+    ``bridge.params_from_jax``) when given, else from ``train_cfg.seed``."""
 
     def __init__(
         self,
@@ -109,6 +110,7 @@ class Trainer:
         *,
         device: str | torch.device | None = None,
         straggler_hook: Callable[[int, float, float], None] | None = None,
+        params: dict[str, torch.Tensor] | None = None,
     ):
         self.model_cfg, self.opt_cfg = model_cfg, opt_cfg
         self.data, self.cfg = data, train_cfg
@@ -118,7 +120,7 @@ class Trainer:
         self._straggler_hook = straggler_hook
         self.straggler_events = 0
         self._ewma: float | None = None
-        self.model = T.init_model(model_cfg, seed=train_cfg.seed, device=self.device)
+        self.model = T.init_model(model_cfg, seed=train_cfg.seed, device=self.device, params=params)
         self.params = dict(self.model.named_parameters())
         self.opt = init_opt_state(opt_cfg, self.params)
         self._step_fn = make_train_step(model_cfg, opt_cfg)

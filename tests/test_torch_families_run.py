@@ -132,6 +132,24 @@ def test_ssm_server_streams_equal_reference(arch):
     np.testing.assert_array_equal(got, np.stack(ref, axis=1))
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_ssm_server_streams_equal_reference_server(arch):
+    """The port's ``Server`` (one chunked ``prefill`` pass, the serve
+    CLI's route for SSM and hybrid configs) against the JAX
+    ``Server.generate``, which prefills token by token through
+    ``decode_step``: greedy streams equal; a difference is reported at
+    its first (row, position)."""
+    jcfg = jreg.get_smoke(arch, sparse=True)
+    cfg = registry.get_smoke(arch, sparse=True)
+    jsrv = jserve.Server(jcfg, make_tp_mesh(1))
+    sd = params_from_jax(jax.tree.map(np.asarray, jsrv.params), cfg, "cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 40)).astype(np.int32)
+    want = jsrv.generate(prompts, 12)
+    got = serve.Server(cfg, params=sd, device="cpu").generate(prompts, 12)
+    differ = np.argwhere(got != want)
+    assert differ.size == 0, f"streams differ first at (row, position) {tuple(differ[0])}"
+
+
 def test_engine_refuses_ssm_configs():
     for arch in ("mamba2-130m", "zamba2-2.7b"):
         with pytest.raises(ValueError, match="launch.serve.Server"):

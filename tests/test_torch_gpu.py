@@ -962,3 +962,114 @@ def test_moe_ssm_train_step_on_card_equals_cpu(cuda, arch):
     """One fp32 ``make_train_step`` step of the sparse smoke model, held as
     ``test_train_step_on_card_equals_cpu`` holds the dense family's."""
     test_train_step_on_card_equals_cpu(cuda, arch)
+
+
+def _guard_engine(dev, n_reqs=3, max_new=32):
+    """A smoke engine (2 layers, fp32) with ``n_reqs`` greedy requests
+    admitted and one decode step taken: the next steps are steady."""
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True).replace(num_layers=2, vocab_size=128)
+    eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=4, max_len=256), device=dev)
+    rng = np.random.default_rng(11)
+    for _ in range(n_reqs):
+        eng.submit(rng.integers(0, cfg.vocab_size, 70).astype(np.int32), max_new)
+    assert not eng.step() and len(eng.scheduler.active()) == n_reqs
+    return eng
+
+
+def test_guard_clean_on_card_decode_loop(cuda):
+    """Steady-state decode on the card inside ``DispatchGuard`` (the sync
+    debug mode armed): no kernel-library build, no implicit sync, one
+    explicit fetch a step; the engine drains afterwards."""
+    from repro_torch.analysis.guards import DispatchGuard
+
+    eng = _guard_engine(cuda)
+    with DispatchGuard(max_compiles=0) as g:
+        for _ in range(6):
+            assert not eng.step()
+    assert (g.compiles, g.implicit_syncs, g.explicit_syncs) == (0, 0, 6)
+    assert torch.cuda.get_sync_debug_mode() == 0  # unwound
+    assert len(eng.drain(max_steps=200)) == 3
+
+
+@pytest.mark.parametrize("leak", ["item", "cpu"])
+def test_guard_trips_on_card(cuda, leak):
+    """An ``.item()`` (a patched Tensor method) or a ``.cpu()`` (caught by
+    the sync debug mode) injected into the decode step raises
+    ``HostSyncError``."""
+    from repro_torch.analysis.guards import DispatchGuard, HostSyncError
+    from repro_torch.models import transformer as T
+
+    eng = _guard_engine(cuda)
+    decode_step = T.decode_step_paged
+
+    def leaky(*a, **kw):
+        out = decode_step(*a, **kw)
+        if leak == "item":
+            out[0][0, 0].item()
+        else:
+            out[0].cpu()
+        return out
+
+    T.decode_step_paged = leaky
+    try:
+        with pytest.raises(HostSyncError):
+            with DispatchGuard(max_compiles=0) as g:
+                eng.step()
+    finally:
+        T.decode_step_paged = decode_step
+    assert g.implicit_syncs == 1
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_roofline_on_card_equals_cpu(cuda):
+    """``Engine.roofline()`` is available on the card and counts the same
+    FLOPs and bytes as on the CPU, for the same model and engine: the
+    kernels report their own cost, the ops inside their plain versions
+    are not counted."""
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    ecfg = EngineConfig(max_slots=4, max_len=256)
+    card = Engine(cfg, engine_cfg=ecfg, device=cuda).roofline()
+    cpu = Engine(cfg, engine_cfg=ecfg, device="cpu").roofline()
+    assert card["available"] and card["flops"] > 0
+    assert (card["flops"], card["bytes_accessed"]) == (cpu["flops"], cpu["bytes_accessed"])
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_router_streams_on_card_equal_one_engine(cuda, sampled):
+    """``ReplicaRouter(replicas=2)`` on one card, its replicas sharing one
+    engine's weights: streams equal that engine's, by router uid, and the
+    requests split 3 and 3."""
+    from repro_torch.serving.router import ReplicaRouter
+
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True).replace(num_layers=2, vocab_size=256)
+    ecfg = EngineConfig(max_slots=4, max_len=128)
+    eng = Engine(cfg, engine_cfg=ecfg, device=cuda)
+    rng = np.random.default_rng(5)
+    work = [rng.integers(1, 250, int(n)).astype(np.int32) for n in (9, 17, 5, 12, 30, 64)]
+
+    def sp(i):
+        return SamplingParams(temperature=0.8, top_k=40, seed=100 + i) if sampled else None
+
+    uids = {eng.submit(p, 12, sampling=sp(i)): i for i, p in enumerate(work)}
+    want = {uids[f.uid]: f.tokens.tolist() for f in eng.drain(max_steps=200)}
+    router = ReplicaRouter(cfg, replicas=2, engine_cfg=ecfg, params=eng.model.state_dict(), devices=[cuda, cuda])
+    ruids = {router.submit(p, 12, sampling=sp(i)): i for i, p in enumerate(work)}
+    got = {ruids[f.uid]: f.tokens.tolist() for f in router.drain(max_steps=200)}
+    assert got == want
+    assert [e.stats.finished for e in router.engines] == [3, 3]
+
+
+def test_guard_on_card_passes_host_tensors(cuda):
+    """With the card in use a CPU tensor is host memory: converting it is
+    no sync and passes; a tensor on the card trips, and ``device_get``
+    of it is one explicit sync."""
+    from repro_torch.analysis import guards
+    from repro_torch.analysis.guards import DispatchGuard, HostSyncError
+
+    on_card = torch.arange(4.0, device=cuda)
+    with DispatchGuard(max_compiles=None) as g:
+        assert float(torch.tensor(2.0)) == 2.0 and torch.arange(3).tolist() == [0, 1, 2]
+        assert guards.device_get(on_card).tolist() == [0.0, 1.0, 2.0, 3.0]
+        with pytest.raises(HostSyncError):
+            on_card[1].item()
+    assert (g.implicit_syncs, g.explicit_syncs) == (1, 1)

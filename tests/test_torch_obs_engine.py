@@ -8,8 +8,9 @@ too large to admit, deadlines and a priority request that preempts. Every
 count of ``stats_summary()`` must be equal, and the Perfetto traces must
 hold the same multiset of (track, name, phase) events. Wall times, the
 compile counts (XLA compiles against kernel-library loads) and the
-roofline record (the JAX engine analyses its compiled HLO; the port has
-none) are left out.
+roofline record (the JAX engine analyses its compiled HLO, the port counts
+one run of its decode step: ``tests/test_torch_roofline.py`` holds the
+two against each other) are left out.
 
 The port's own contracts follow ``tests/test_obs.py`` and
 ``tests/test_obs_live.py``, whose engine tests fail on jax 0.9 only for

@@ -161,9 +161,11 @@ def test_cli_observability_outputs(tmp_path, monkeypatch, capsys):
     assert eng.slo_state()["enabled"] and eng.windowed_vars()["enabled"]
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--replicas", "2"], ["--production-mesh"],
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--replicas", "2", "--tp", "2"], ["--production-mesh"],
                                   ["--strategy", "tp"]])
 def test_cli_refuses_distribution(flag):
+    """Tensor parallelism waits for distribution; ``--replicas`` alone
+    serves through the router, tensor-parallel replicas wait too."""
     with pytest.raises(SystemExit, match="Queue 1 item 9"):
         serve.main(SMOKE + flag)
 
