@@ -74,7 +74,7 @@ Phases; any failure raises and the script exits non-zero:
    plain version at qwen3-1.7b's training shape. (b) fp32 sparse smoke
    models of both: equal greedy streams on the CPU and the card, and one
    qwen2-1.5b train step held as in 7b. (c) Each at full width, sparse,
-   at half depth (``DEPTH_CUTS``: 16 of 32 and 14 of 28 layers):
+   at cut depth (``DEPTH_CUTS``: 16 of 32 and 14 of 28 layers):
    ``Engine(max_slots=8, max_len=2048)`` serves 8 requests of 200-1000
    prompt tokens, 32 new each, then a ``Trainer`` takes 1 warm-up and 2
    timed steps at B = 4, S = 2048, the kernels' counts set to 0 just
@@ -125,8 +125,8 @@ Phases; any failure raises and the script exits non-zero:
    plain versions, timed as in phase 8a. (b) fp32 sparse smoke models:
    equal greedy streams on the CPU and the card, ``forward_train`` on
    embeddings and distinct position streams (loss and gradients), and one
-   train step. (c), (d) Each at full width, sparse, as in phase 8c (at a
-   quarter of the depth: 7 of 28 and 12 of 48 layers), the
+   train step. (c), (d) Each at full width, sparse, as in phase 8c (at
+   cut depth: 7 of 28 and 12 of 48 layers), the
    Trainer on ``EmbedsWrapper`` batches (B = 4; B = 2 only if B = 4 runs
    out of memory or peaks above 72 GB), and one more step traced on the
    device (busy share). (e) ``repro_torch.bench.serve_engine`` at full
@@ -156,7 +156,8 @@ Phases; any failure raises and the script exits non-zero:
    just after: all three launch in deepseek-moe's serving,
    block_sparse_attention and bsr_matmul in zamba2's serving and
    training, bsr_matmul in mamba2's. kimi-k2 (344 GB sparse) does not
-   fit the card: the CPU tests cover it.
+   fit the card: the CPU tests cover it. The three run at the depth of
+   ``DEPTH_CUTS``, published widths.
 13. The analysis instruments, the router and the tools, on full-width
    sparse qwen3-1.7b. (a) ``Engine(max_slots=8, max_len=2048)`` admits 8
    greedy requests; its next 16 decode steps run inside
@@ -173,7 +174,30 @@ Phases; any failure raises and the script exits non-zero:
    ``repro_torch.examples.train_lm`` for 4 steps, and ``python -m
    repro_torch.bench.run --only roofline``. The kernels' counts are set to
    0 just before each of (a), (c), (d) and (e) and read just after.
-14. The kernels line (with each kernel's launches in phases 5 to 13, a
+14. Tensor-parallel serving of full-width sparse qwen3-1.7b (bf16,
+   random weights from --seed) on (1, tp) meshes of the card (every shard
+   on the one card: this measures what sharding costs, not a speedup).
+   (a) Engines at tp 1, 2 and 4 (``max_slots=8, max_len=2048``, one state
+   dict shared): the first prefill's and the first decode step's logits of
+   4 fixed prompts held against tp 1's (``TP_LOGIT_TOL``), then 12
+   requests of 257-512 prompt tokens, 16 new each, greedy and then
+   seeded-sampled; each stream must equal tp 1's token for token (a
+   divergence is printed with the top-2 gap of tp 1's decision at its
+   step, then fails). At tp 2 the same logits under two planted shard
+   faults (``TP_FAULTS``: shard 1 reading shard 0's rows of ``cols``; the
+   shards' kv heads swapped) must read above ``TP_LOGIT_TOL``. (b) Each kernel at the shard shapes of tp 2 and
+   4 against its plain version, timed as in phase 3: ``bsr_matmul`` on
+   each rank's block rows of q, k/v, gate/up and down at M = 8 and 4096,
+   the paged read at Hk = 4 and 2, ``block_sparse_attention`` at
+   H = 8 / 4, Hk = 4 / 2. (c) ``ReplicaRouter(replicas=2, tp=2)`` (4
+   shards on the card) serves 16 greedy requests: streams equal to one
+   tp 2 engine's bit for bit. (d) ``repro_torch.bench.serve_mesh`` at
+   full width on (a)'s weights, at tp 1 and 8 (its oracle and what (a)
+   does not run; (a) has tp 2 and 4) with its 2-replica router: its rows
+   beside the card's name and power limit; then the serve CLI with ``--tp 2
+   --strategy tp``. The kernels' counts are set to 0 just before each of
+   (a), (c) and (d) and read just after: all three launch.
+15. The kernels line (with each kernel's launches in phases 5 to 14, a
    row for the b = 32 tensor-core path at ViT-B/16's shapes and one for
    attention at head dim 80), the script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -185,6 +209,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import itertools
 import json
 import math
@@ -1362,11 +1387,13 @@ def family_smoke(seed):
     return out
 
 
-# The layers kept of each family path's published depth (32, 28, 28, 48)
-# in 8c, 11c and 11d: the widths stay published, the depth is cut to keep
-# the whole script inside its time budget (the kernels run at these
-# models' shapes in 8a and 11a whatever the depth).
-DEPTH_CUTS = {"smollm-360m": 16, "qwen2-1.5b": 14, "qwen2-vl-7b": 7, "musicgen-large": 12}
+# The layers kept of each family path's published depth (32, 28, 28, 48
+# in 8c, 11c and 11d; 28, 54, 24 in 12c and 12d): the widths stay
+# published, the depth is cut to keep the whole script inside its time
+# budget, 12c/d's the most (the kernels run at these models' shapes in 8a,
+# 11a and 12a whatever the depth).
+DEPTH_CUTS = {"smollm-360m": 16, "qwen2-1.5b": 14, "qwen2-vl-7b": 7, "musicgen-large": 12,
+              "deepseek-moe-16b": 4, "zamba2-2.7b": 6, "mamba2-130m": 6}
 
 
 def family_full_width(arch, seed, smi, kernels, tag="8c", traced=False):
@@ -2461,6 +2488,9 @@ def moe_ssm_full_width(arch, seed, smi, kernels):
 
     full = registry.get(arch, sparse=True)
     tag = "12c" if full.family == "moe" else "12d"
+    depth = {"published": full.num_layers, "run": DEPTH_CUTS.get(arch, full.num_layers)}
+    full = full.replace(num_layers=depth["run"])
+    log(f"[{tag}] {arch}: {depth['run']} of its {depth['published']} layers (DEPTH_CUTS), published widths")
     if full.family == "moe":
         serving = engine_serving(full, seed, smi, kernels, tag)
         must = ("bsr_matmul", "block_sparse_attention")
@@ -2480,7 +2510,7 @@ def moe_ssm_full_width(arch, seed, smi, kernels):
             log(f"[{tag}] {arch} profiled step: {name} {prof['ranges'][name]['device_ms']:.1f} ms, "
                 f"{shares[name]:.3f} of the step's {busy:.1f} ms of device time")
     torch.cuda.empty_cache()
-    return {"serving": serving, "training": training, "card": smi}
+    return {"serving": serving, "training": training, "depth": depth, "card": smi}
 
 
 # ----------------------------------------------------------------------
@@ -2720,6 +2750,373 @@ def tools_on_card(kernels):
         f"launches {launches}")
     log(f"[13e] python -m repro_torch.bench.run --only roofline: {' | '.join(lines)}")
     return {"losses": losses, "launches": launches, "bench_run": lines}
+
+
+# ----------------------------------------------------------------------
+# phase 14: tensor-parallel serving of the dense family
+# ----------------------------------------------------------------------
+
+# the tensor-parallel degrees of 14a, and of 14d's bench: its tp 1 oracle
+# and the degree 14a does not run
+TP_DEGREES = (1, 2, 4)
+TP_BENCH = (1, 8)
+# bf16 logits of a tp engine against tp 1's, absolute, for logits whose
+# largest magnitude is ~4.4 here: a column-parallel shard computes its
+# output slice from the whole input, so the prefill's logits come out
+# equal, but the decode step's products (the M <= 16 bsr kernel's
+# reduction, the low-rank GEMMs at another width) round differently and
+# 28 bf16 layers carry it to the logits (0.137 at most at tp 2, 4 and 8
+# on an H100). Each planted shard fault (``planted_fault``) must read
+# above it: the phase fails if one does not.
+TP_LOGIT_TOL = 0.25
+# the shard faults 14a plants at tp 2 to show that TP_LOGIT_TOL catches them
+TP_FAULTS = ("cols", "kv heads")
+TP_SAMPLING = dict(temperature=0.8, top_k=40)
+
+
+def decision_gap(cfg, model, prompt, prefix, sp, sample_idx, candidates=64) -> float:
+    """The top-2 gap, in logits, of the decision the engine makes after
+    ``prompt + prefix`` on ``model``: the greedy argmax over the padded
+    vocabulary, or (``sp``) the sampler's Gumbel-max over its top
+    ``candidates`` scaled by the temperature, with the request's noise at
+    ``sample_idx`` (``serving.sampling``'s derivation). The logits come
+    from one ``prefill_paged`` pass over the whole sequence."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import sampling as S
+
+    seq = np.concatenate([prompt, np.asarray(prefix, np.int32)]).astype(np.int32)
+    page = cfg.attn_block
+    n_pages = -(-len(seq) // page)
+    toks = np.zeros((1, n_pages * page), np.int32)
+    toks[0, : len(seq)] = seq
+    cache = T.init_paged_cache(cfg, n_pages + 1, page, device="cuda")
+    with torch.no_grad():
+        logits, _ = T.prefill_paged(
+            cfg, model, torch.as_tensor(toks, device="cuda"), torch.tensor([len(seq)], device="cuda"),
+            cache, torch.arange(1, n_pages + 1, dtype=torch.int32, device="cuda")[None],
+        )
+    x = logits[0].float().cpu().numpy()
+    if sp is None:
+        top = np.sort(x)[-2:]
+        return float(top[1] - top[0])
+    scaled = x / np.float32(sp.temperature)
+    scaled[cfg.vocab_size:] = -np.inf
+    order = np.argsort(-scaled, kind="stable")[:candidates]
+    sx = scaled[order]
+    sx[sp.top_k:] = -np.inf
+    key = torch.from_numpy(S.base_key_data(sp.seed).astype(np.int64))[None]
+    noise = S.gumbel(S.fold_in(key, torch.tensor([sample_idx])), candidates)[0].numpy()
+    top = np.sort(sx + noise)[-2:]
+    return float((top[1] - top[0]) * sp.temperature)
+
+
+@contextlib.contextmanager
+def planted_fault(model, kind):
+    """A shard fault in the tp 2 ``model`` (a ``transformer.ShardedLM``)
+    for the length of the block. "cols": shard 1's pixelfly linears read
+    shard 0's block rows of the pattern's ``cols`` (the fault of a shard
+    built from a narrower pattern of its own). "kv heads": the two shards'
+    k and v projections swapped, so each shard's q heads read the other
+    shard's kv heads."""
+    from repro_torch.models import layers as L
+
+    s0, s1 = model.shards[0], model.shards[1]
+    undo = []
+    if kind == "cols":
+        for mod in s1.modules():
+            if isinstance(mod, L.Linear) and mod.rows is not None:
+                undo.append((mod, "rows", mod.rows))
+                mod.rows = (0, mod.rows[1] - mod.rows[0])
+    elif kind == "kv heads":
+        for b0, b1 in zip(s0.layers, s1.layers):
+            for name in ("wk", "wv"):
+                a0, a1 = getattr(b0.attn, name), getattr(b1.attn, name)
+                undo += [(b0.attn, name, a0), (b1.attn, name, a1)]
+                setattr(b0.attn, name, a1)
+                setattr(b1.attn, name, a0)
+    else:
+        raise ValueError(kind)
+    try:
+        yield
+    finally:
+        for obj, name, val in undo:
+            setattr(obj, name, val)
+
+
+def first_logits(full, eng, fixed, fixed_lens):
+    """The logits of one prefill call of ``fixed`` (4 prompts) and of the
+    decode step after it on ``eng``'s model and pools (the first pages,
+    which its requests overwrite before reading), as fp32."""
+    from repro_torch.models import transformer as T
+
+    npp = fixed.shape[1] // full.attn_block
+    rows = torch.arange(1, 4 * npp + 1, dtype=torch.int32, device="cuda").reshape(4, npp)
+    table = torch.zeros((8, eng.kv.pages_per_seq), dtype=torch.int32, device="cuda")
+    table[:4, :npp] = rows
+    with torch.no_grad():
+        lp, _ = T.prefill_paged(full, eng.model, fixed, fixed_lens, eng.kv.buffers, rows)
+        nxt = torch.zeros(8, dtype=torch.int32, device="cuda")
+        nxt[:4] = lp.argmax(-1).int()
+        pos = torch.zeros(8, dtype=torch.int32, device="cuda")
+        pos[:4] = fixed_lens
+        ld, _ = T.decode_step_paged(full, eng.model, eng.kv.buffers, nxt, pos, table)
+    return lp.float(), ld[:4].float()
+
+
+def tp_serving(full, seed, smi, kernels):
+    """(a) Engines at tp 1, 2 and 4 on one state dict: first the logits of
+    one prefill call (4 prompts of 512, 400, 300, 257 tokens) and of the
+    decode step after it against tp 1's within ``TP_LOGIT_TOL``, and at
+    tp 2 the same logits under each planted shard fault
+    (``planted_fault``), which must read above it; then 12 requests of
+    257-512 prompt tokens, 16 new each, greedy and then sampled
+    (``TP_SAMPLING``, seed 100 + i), each stream equal to tp 1's token for
+    token. A divergence is printed with tp 1's top-2 gap at its step
+    (``decision_gap``), then fails the phase. The kernels' counts are set
+    to 0 before each tp's requests and read after: all three must launch.
+    Returns the report, the state dict and the engines."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.sampling import SamplingParams
+
+    t0 = time.perf_counter()
+    sd = T.init_model(full, seed=seed, device="cuda").state_dict()
+    log(f"[14a] full-width qwen3-1.7b sparse weights in {time.perf_counter() - t0:.1f} s (shared by every tp)")
+    rng = np.random.default_rng(seed + 15)
+    work = [rng.integers(0, full.vocab_size, int(n)).astype(np.int32) for n in rng.integers(257, 513, 12)]
+    fixed = torch.as_tensor(rng.integers(0, full.vocab_size, (4, 512)), dtype=torch.int32, device="cuda")
+    fixed_lens = torch.tensor([512, 400, 300, 257], dtype=torch.int32, device="cuda")
+    out, engines, ref = {}, {}, None
+    for tp in TP_DEGREES:
+        t0 = time.perf_counter()
+        eng = Engine(full, engine_cfg=EngineConfig(max_slots=8, max_len=2048), params=sd,
+                     mesh=make_tp_mesh(tp))
+        engines[tp] = eng
+        build_s = time.perf_counter() - t0
+        lp, ld = first_logits(full, eng, fixed, fixed_lens)
+        if lp.shape != (4, full.padded_vocab) or not (torch.isfinite(lp).all() and torch.isfinite(ld).all()):
+            raise AssertionError(f"14a: tp {tp} logits not finite or of the wrong shape")
+        if ref is None:
+            ref = (lp, ld)
+        err = {"prefill": (lp - ref[0]).abs().max().item(), "decode": (ld - ref[1]).abs().max().item()}
+        if max(err.values()) > TP_LOGIT_TOL:
+            raise AssertionError(f"14a: tp {tp} logits off tp 1's by {err} (tol {TP_LOGIT_TOL})")
+        faults = {}
+        for kind in TP_FAULTS if tp == 2 else ():
+            with planted_fault(eng.model, kind):
+                fp, fd = first_logits(full, eng, fixed, fixed_lens)
+            faults[kind] = {"prefill": (fp - ref[0]).abs().max().item(), "decode": (fd - ref[1]).abs().max().item()}
+            log(f"[14a] tp 2 with a planted {kind} fault: logits vs tp 1 prefill {faults[kind]['prefill']:.4g} "
+                f"decode {faults[kind]['decode']:.4g} (tol {TP_LOGIT_TOL})")
+            if max(faults[kind].values()) <= TP_LOGIT_TOL:
+                raise AssertionError(f"14a: a planted {kind} fault reads {faults[kind]}, within {TP_LOGIT_TOL}")
+        eng.submit(rng.integers(0, full.vocab_size, 300).astype(np.int32), 4)  # warm-up
+        eng.drain(max_steps=50)
+        eng.reset_stats()
+        for k in kernels.values():
+            k.launches = 0
+        row = {"tp": tp, "mesh_positions": eng.mesh.size, "distinct_devices": eng.distinct_devices,
+               "paged_impl": eng.paged_impl, "build_s": build_s, "logit_max_abs_err": err,
+               "kv_pool_gb": eng.kv.memory_bytes() / 1e9, "planted_faults": faults}
+        t0 = time.perf_counter()
+        for mode in ("greedy", "sampled"):
+            uids = {}
+            for i, p in enumerate(work):
+                sp = SamplingParams(**TP_SAMPLING, seed=100 + i) if mode == "sampled" else None
+                uids[eng.submit(p, 16, sampling=sp)] = i
+            fins = eng.drain(max_steps=400)
+            if len(fins) != 12 or any(f.finish_reason != "length" or len(f.tokens) != 16 for f in fins):
+                raise AssertionError(f"14a: tp {tp} {mode}: {[(f.finish_reason, len(f.tokens)) for f in fins]}")
+            row[mode] = {uids[f.uid]: f.tokens.tolist() for f in fins}
+        torch.cuda.synchronize()
+        row["wall_s"] = time.perf_counter() - t0
+        row["launches"] = {name: k.launches for name, k in kernels.items()}
+        for name, n in row["launches"].items():
+            if n <= 0:
+                raise AssertionError(f"14a: kernel {name} was never launched at tp {tp}")
+        st = engine_stats(eng)
+        steps = sorted(st["decode_step_s"])
+        row.update(decode_steps=st["decode_steps"], decode_tok_s=st["decode_tokens"] / sum(steps),
+                   decode_step_ms_p50=1e3 * steps[len(steps) // 2], card=smi)
+        # every divergence from tp 1, with tp 1's decision gap at its step
+        row["divergences"] = []
+        for mode in ("greedy", "sampled") if tp != 1 else ():
+            for i in range(len(work)):
+                a, b = out[1][mode][i], row[mode][i]
+                if a == b:
+                    continue
+                j = next(j for j in range(len(a)) if a[j] != b[j])
+                sp = SamplingParams(**TP_SAMPLING, seed=100 + i) if mode == "sampled" else None
+                gap = decision_gap(full, engines[1].model, work[i], a[:j], sp, j)
+                row["divergences"].append({"mode": mode, "request": i, "step": j, "tp1": a[j], "tp": b[j],
+                                           "top2_gap": gap})
+                log(f"[14a] tp {tp} {mode} request {i} diverges from tp 1 at token {j} ({a[j]} vs {b[j]}): "
+                    f"tp 1's top-2 gap there {gap:.4f}")
+        if row["divergences"]:
+            raise AssertionError(f"14a: tp {tp} streams differ from tp 1's: {row['divergences']}")
+        row["streams_equal"] = True
+        out[tp] = row
+        log(f"[14a] tp {tp} ({eng.mesh.size} shard(s) on {eng.distinct_devices} device(s); {smi}): logits vs tp 1 "
+            f"prefill {err['prefill']:.4g} decode {err['decode']:.4g} (tol {TP_LOGIT_TOL}); 24 requests "
+            f"(12 greedy, 12 sampled) in {row['wall_s']:.2f} s, decode {row['decode_tok_s']:.1f} tok/s, step p50 "
+            f"{row['decode_step_ms_p50']:.2f} ms; streams equal to tp 1's: {row['streams_equal']} "
+            f"({len(row['divergences'])} divergences); launches {row['launches']}")
+    report = {str(tp): {k: v for k, v in r.items() if k not in ("greedy", "sampled")} for tp, r in out.items()}
+    return report, sd, engines, work
+
+
+def tp_kernels(timer, full, seed):
+    """(b) The three kernels at the shard shapes of tp 2 and tp 4 against
+    their plain versions, timed as phase 3 times them: ``bsr_matmul`` on
+    each rank's block rows of the global pattern (the first rank timed, the
+    others checked), the paged read on a shard's kv heads, the prefill
+    attention on its heads."""
+    from repro_torch.models import layers as L
+
+    specs = {
+        "q": L.linear_spec(full, full.d_model, full.q_dim, False),
+        "k/v": L.linear_spec(full, full.d_model, full.kv_dim, False),
+        "gate/up": L.linear_spec(full, full.d_model, full.d_ff, False),
+        "down": L.linear_spec(full, full.d_ff, full.d_model, False),
+    }
+    out = {"bsr_matmul": [], "paged_decode_attention": [], "block_sparse_attention": []}
+    for tp in (2, 4):
+        for label, spec in specs.items():
+            pat = spec.pattern()
+            nb = pat.nb_out // tp
+            g = torch.Generator(device="cuda").manual_seed(seed + 100 * tp)
+            for m in (8, 4096):
+                x = torch.randn((m, spec.in_features), generator=g, device="cuda").to(torch.bfloat16)
+                for r in range(tp):
+                    blocks = (torch.randn((nb, pat.r, pat.block, pat.block), generator=g, device="cuda")
+                              / math.sqrt(pat.r * pat.block)).to(torch.bfloat16)
+                    cols = torch.as_tensor(pat.cols[r * nb : (r + 1) * nb], device="cuda")
+                    row = bsr_row(timer, x, blocks, cols, spec.in_features, nb * pat.r, 2e-2,
+                                  f"tp{tp} {label} rank {r}", timed=r == 0)
+                    if r == 0:
+                        row.update(tp=tp, linear=label)
+                        out["bsr_matmul"].append(row)
+                        log(f"[14b] bsr_matmul tp {tp} {label:7s} {row['shape']} (rank 0 of {tp}; every rank "
+                            f"checked): err {row['max_abs_err']:.2e} kernel {row['ms']:.4f} ms plain "
+                            f"{row['plain_ms']:.4f} ms x@dense {row['library_ms']:.4f} ms bound "
+                            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        paged = paged_case(timer, b=8, hk=8 // tp, g=2, d=128, page=128, pps=16, dtype=torch.bfloat16,
+                           seed=seed + 20 + tp, tol=1e-2)
+        attn = attention_case(timer, b=1, s=2048, h=16 // tp, hk=8 // tp, d=128, block=128,
+                              dtype=torch.bfloat16, seed=seed + 30 + tp, tol=2e-2)
+        for name, row in (("paged_decode_attention", paged), ("block_sparse_attention", attn)):
+            row["tp"] = tp
+            out[name].append(row)
+            log(f"[14b] {name} tp {tp} {row['shape']}: err {row['max_abs_err']:.2e} (tol {row['tol']:g}) "
+                f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms "
+                f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return out
+
+
+def tp_router(full, sd, eng, seed, smi, kernels):
+    """(c) ``ReplicaRouter(replicas=2, tp=2)`` on the card (two (1, 2)
+    meshes, 4 shards on one device) on ``sd`` serves 16 greedy requests of
+    257-512 prompt tokens (one prefill bucket), 16 new each; ``eng`` (a tp
+    2 engine on the same weights, drained) serves the same requests: the
+    streams must be equal bit for bit, by router uid, 8 a replica. The
+    kernels' counts are set to 0 just before the router's drain and read
+    just after: all three must launch."""
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.router import ReplicaRouter
+
+    rng = np.random.default_rng(seed + 16)
+    work = [rng.integers(0, full.vocab_size, int(n)).astype(np.int32) for n in rng.integers(257, 513, 16)]
+    eng.drain(max_steps=200)
+    uids = {eng.submit(p, 16): i for i, p in enumerate(work)}
+    one = {uids[f.uid]: f.tokens.tolist() for f in eng.drain(max_steps=400)}
+    router = ReplicaRouter(full, replicas=2, tp=2, engine_cfg=EngineConfig(max_slots=8, max_len=2048),
+                           params=sd, devices=["cuda"] * 4)
+    for _ in range(2):  # warm-up, both replicas
+        router.submit(rng.integers(0, full.vocab_size, 300).astype(np.int32), 4)
+    router.drain(max_steps=50)
+    router.reset_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    ruids = {router.submit(p, 16): i for i, p in enumerate(work)}
+    fins = router.drain(max_steps=400)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    got = {ruids[f.uid]: f.tokens.tolist() for f in fins}
+    if got != one:
+        bad = sorted(i for i in one if got.get(i) != one[i])
+        raise AssertionError(f"14c: tp 2 router streams differ from one tp 2 engine's for requests {bad}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"14c: kernel {name} was never launched by the tp 2 router")
+    s = router.stats_summary()
+    per = [int(r["requests_finished"]) for r in s["per_replica"]]
+    if per != [8, 8] or s["tp"] != 2:
+        raise AssertionError(f"14c: routing gave {per} at tp {s['tp']}, not 8 and 8 at tp 2")
+    out = {"requests": len(fins), "replicas": 2, "tp": 2, "mesh_positions": 4,
+           "distinct_devices": s["distinct_devices"], "per_replica_finished": per, "wall_s": wall,
+           "decode_tok_s": s["decode_tok_s"], "p50_token_latency_ms": s["p50_token_latency_ms"],
+           "streams_sha256": digest(torch.as_tensor(np.concatenate([np.asarray(got[i]) for i in sorted(got)]))),
+           "launches": launches, "card": smi}
+    del router
+    torch.cuda.empty_cache()
+    log(f"[14c] ReplicaRouter(replicas=2, tp=2) on {smi} (4 shards on {out['distinct_devices']} device): 16 greedy "
+        f"requests in {wall:.2f} s, {per} a replica, fleet decode {out['decode_tok_s']:.1f} tok/s; streams equal "
+        f"to one tp 2 engine's bit for bit (digest {out['streams_sha256']}); launches {launches}")
+    return out
+
+
+def tp_bench(sd, smi, kernels):
+    """(d) ``repro_torch.bench.serve_mesh`` at full width on the card, on
+    (a)'s weights, at ``TP_BENCH``: tp 1 (its oracle) and tp 8, which (a)
+    does not run, and its 2-replica router, streams asserted equal; its
+    payload line goes to the report, its rows to the log beside the card. Then the serve CLI at full width with
+    ``--tp 2 --strategy tp``: 8 requests of 512 tokens, 16 new each. The
+    kernels' counts are set to 0 just before each and read just after:
+    all three must launch."""
+    import contextlib
+    import io
+
+    from repro_torch.bench import serve_mesh
+    from repro_torch.launch import serve
+
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # its payload line is not this script's
+        res = serve_mesh.run(device="cuda", params=sd, tps=TP_BENCH)
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"14d: kernel {name} was never launched by bench.serve_mesh")
+    if not res["streams_equal"] or set(res["by_tp"]) != {str(t) for t in TP_BENCH}:
+        raise AssertionError(f"14d: bench.serve_mesh streams_equal {res['streams_equal']}, tps {sorted(res['by_tp'])}")
+    for tp, row in res["by_tp"].items():
+        log(f"[14d] serve_mesh tp {tp} ({row['devices']} shard(s) on {row['distinct_devices']} device(s); {smi}): "
+            f"decode {row['decode_tok_s']} tok/s, wall {row['wall_tok_s']:.2f} tok/s ({row['wall_s']:.3f} s), "
+            f"p95 token {row['p95_token_latency_ms']} ms, paged {row['paged_impl']}")
+    log(f"[14d] serve_mesh router replicas=2: {res['router']['wall_tok_s']:.2f} tok/s, streams equal "
+        f"{res['router']['streams_equal']}; {wall:.1f} s in all; launches {launches}")
+    for k in kernels.values():
+        k.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        served = serve.main(["--arch", "qwen3-1.7b", "--sparse", "--batch", "8", "--prompt-len", "512",
+                             "--gen", "16", "--tp", "2", "--strategy", "tp"])
+    cli_launches = {name: k.launches for name, k in kernels.items()}
+    lines = buf.getvalue().splitlines()
+    if served.engine.tp != 2 or len(served.tokens) != 8 or any(len(t) != 16 for t in served.tokens):
+        raise AssertionError(f"14d: serve --tp 2 --strategy tp: {lines}")
+    for name, n in cli_launches.items():
+        if n <= 0:
+            raise AssertionError(f"14d: kernel {name} was never launched by serve --tp 2")
+    log(f"[14d] serve --tp 2 --strategy tp at full width: {lines[0]}; {lines[1]}; launches {cli_launches}")
+    for name in launches:
+        launches[name] += cli_launches[name]
+    return {"wall_s": wall, "launches": launches, "result": res, "cli": lines[:2], "card": smi}
 
 
 def main(argv=None) -> int:
@@ -3044,7 +3441,21 @@ def main(argv=None) -> int:
     report["analysis"] = analysis
     log(f"[13] phase 13 took {analysis['wall_s']:.1f} s")
 
-    # ---- 14. report ------------------------------------------------
+    # ---- 14. tensor-parallel serving --------------------------------
+    t14 = time.perf_counter()
+    tp_report, tp_sd, tp_engines, _ = tp_serving(full, args.seed, smi, kernels)
+    tp = {"serving": tp_report, "kernels": tp_kernels(timer, full, args.seed)}
+    tp["router"] = tp_router(full, tp_sd, tp_engines[2], args.seed, smi, kernels)
+    del tp_engines
+    torch.cuda.empty_cache()
+    tp["bench"] = tp_bench(tp_sd, smi, kernels)
+    del tp_sd
+    torch.cuda.empty_cache()
+    tp["wall_s"] = time.perf_counter() - t14
+    report["tensor_parallel"] = tp
+    log(f"[14] phase 14 took {tp['wall_s']:.1f} s")
+
+    # ---- 15. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -3122,7 +3533,7 @@ def main(argv=None) -> int:
             "library_ms": zamba_attn[0]["library_ms"],
         },
     ]}
-    for k in line["kernels"][:3]:  # the launches of phases 6 to 13, counted apart
+    for k in line["kernels"][:3]:  # the launches of phases 6 to 14, counted apart
         k["launches_phase6"] = report["features"]["launches"][k["name"]]
         k["launches_phase9"] = cli["cli"]["launches"][k["name"]]
         k["launches_training"] = report["training"]["full_width"]["launches"][k["name"]]
@@ -3137,6 +3548,8 @@ def main(argv=None) -> int:
         k["launches_phase13"] = (analysis["launches"][k["name"]] + analysis["router"]["launches"][k["name"]]
                                  + analysis["training_step"]["launches"][k["name"]]
                                  + analysis["tools"]["launches"][k["name"]])
+        k["launches_phase14"] = (sum(r["launches"][k["name"]] for r in tp["serving"].values())
+                                 + tp["router"]["launches"][k["name"]] + tp["bench"]["launches"][k["name"]])
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -3146,7 +3559,7 @@ def main(argv=None) -> int:
                              f"SDPA's {paged_main['library_ms']:.4f} ms on the same inputs")
     report["wall_s"] = time.perf_counter() - T_START
     out.write_text(json.dumps(report, indent=1))
-    log(f"[14] chip_smoke.py took {report['wall_s']:.1f} s")
+    log(f"[15] chip_smoke.py took {report['wall_s']:.1f} s")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -36,8 +36,9 @@ Where two modes are compared, their engines step in turn
 both alike; the JAX script runs one mode after the other.
 The JSON has the JAX file's top-level keys, so the two diff key for key.
 ``decode_by_impl`` holds the engine's one paged read (``cuda`` on the
-card, ``plain`` on the CPU); ``mesh`` waits for distribution (ROADMAP
-Queue 1 item 9). Counts, percentiles and rates come from the
+card, ``plain`` on the CPU); ``mesh`` is ``bench.serve_mesh``'s payload on
+the same weights (in this process; the JAX script runs its module in a
+subprocess), at full width for tp 1 and 2 only (``MESH_TPS_FULL``). Counts, percentiles and rates come from the
 engine's ``stats_summary()``, the ``repro_serve_*`` metrics and the
 ``engine:*`` spans.
 
@@ -64,6 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.guards import DispatchGuard
+from repro_torch.bench import serve_mesh
 from repro_torch.configs import registry
 from repro_torch.launch.serve import Server
 from repro_torch.obs import SloConfig
@@ -109,6 +111,10 @@ FULL_CUTS = {
     "warm_replays": (False, "no unarmed warm-up replay before a measured one (nothing compiles "
                             "just in time here); the seconds-per-step calibration replay stays"),
 }
+
+
+# the tensor-parallel degrees of the ``mesh`` scenario at full width
+MESH_TPS_FULL = (1, 2)
 
 
 def _warm_buckets(engine: Engine, lens: list[int], sampling: SamplingParams | None = None) -> None:
@@ -765,6 +771,13 @@ def run(
     obs_live["slo_shed"] = _measure_slo_shed(cfg, sd, dev, batch, bg_per_slot=sizes["shed_bg_per_slot"],
                                              bg_gen=sizes["shed_bg_gen"], warm_replays=sizes["warm_replays"])
     good = _measure_goodput(cfg, sd, dev, batch, sizes)
+    # the mesh trajectory (bench.serve_mesh) on the same weights; at full
+    # width only tp 1 and 2 (chip_smoke.py phase 14d runs all four)
+    mesh_tps = serve_mesh.TPS if smoke else MESH_TPS_FULL
+    if not smoke:
+        reduced["mesh_tps"] = {"jax": list(serve_mesh.TPS), "here": list(mesh_tps),
+                               "why": "tp 1 and 2 only; python -m repro_torch.bench.serve_mesh runs every tp"}
+    mesh = serve_mesh.run(smoke=smoke, device=dev, params=sd, tps=mesh_tps)
 
     payload = {
         "config": {
@@ -797,7 +810,7 @@ def run(
         "observability_live": obs_live,
         "prefix_cache": prefix,
         "goodput": good,
-        "mesh": {"waits": "ROADMAP Queue 1 item 9"},
+        "mesh": mesh,
         "paged_impl_default": next(iter(by_impl)),
         "speedup_vs_server": round(uniform["tok_s"] / server_tok_s, 2),
     }

@@ -23,7 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import resolve_device
 
-__all__ = ["params_from_jax", "opt_state_from_jax", "vision_params_from_jax"]
+__all__ = ["params_from_jax", "port_names", "opt_state_from_jax", "vision_params_from_jax"]
 
 
 def _leaves(tree, path: tuple[str, ...] = ()) -> Iterator[tuple[tuple[str, ...], np.ndarray]]:
@@ -53,28 +53,41 @@ def params_from_jax(
     ``device`` (default: the card), keeping each leaf's dtype. Load the
     result with ``LM.load_state_dict`` or pass it as ``Engine(params=)``."""
     dev = resolve_device(device)
-    groups = {}
-    offset = 0
-    for g in cfg.layer_groups():
-        if g.shared:
-            groups[g.param_key] = None
-        else:
-            groups[g.param_key] = (offset, g.count)
-            offset += g.count
     out: dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(tree):
-        if path[0] == "groups" and groups[path[1]] is None:  # shared: one module
-            out[".".join(path[1:])] = _tensor(leaf, dev)
-        elif path[0] == "groups":
-            first, count = groups[path[1]]
-            if leaf.shape[:1] != (count,):
-                raise ValueError(f"{'/'.join(path)}: leading axis is not the group's {count} layers")
-            rest = ".".join(path[2:])
-            for i in range(count):
-                out[f"layers.{first + i}.{rest}"] = _tensor(leaf[i], dev)
+        names, stacked = port_names(cfg, path)
+        if stacked:
+            if leaf.shape[:1] != (len(names),):
+                raise ValueError(f"{'/'.join(path)}: leading axis is not the group's {len(names)} layers")
+            for i, name in enumerate(names):
+                out[name] = _tensor(leaf[i], dev)
         else:
-            out[".".join(path)] = _tensor(leaf, dev)
+            out[names[0]] = _tensor(leaf, dev)
     return out
+
+
+def port_names(cfg: ModelConfig, path: tuple[str, ...] | str) -> tuple[list[str], bool]:
+    """The port's state-dict names of the JAX params leaf at ``path`` (a
+    tuple of keys or a "/"-joined string), and whether that leaf is
+    stacked over a layer group: then its leading axis is the group's
+    layers, one name each (``layers.{i}``, in depth order), and a layer's
+    tensor is the leaf without that axis; so is its partition spec without
+    the first entry (``distributed.sharding``). A shared group's leaf and
+    every other leaf map to one name."""
+    if isinstance(path, str):
+        path = tuple(path.split("/"))
+    if path[0] != "groups":
+        return [".".join(path)], False
+    offset = 0
+    for g in cfg.layer_groups():
+        if g.param_key == path[1]:
+            if g.shared:
+                return [".".join(path[1:])], False
+            rest = ".".join(path[2:])
+            return [f"layers.{offset + i}.{rest}" for i in range(g.count)], True
+        if not g.shared:
+            offset += g.count
+    raise KeyError(f"{'/'.join(path)}: no layer group {path[1]!r} in {cfg.name}")
 
 
 def opt_state_from_jax(

@@ -11,10 +11,14 @@ whose modality frontends are stubs that feed embeddings, the MoE family
 shared attention block). ``sparse=True`` leaves attention dense for the
 SSM family, which has none. The JAX registry's mesh tables
 (``DEFAULT_STRATEGY``, ``LONG_CONTEXT_*``, ``shapes_for``) wait for the
-port of distribution (ROADMAP Queue 1 item 9). ``deepseek-67b`` (134 GB of
-bf16 weights) and ``kimi-k2-1t-a32b`` (344 GB even when sparse) do not fit
-one 80 GB card: the port runs them at smoke width, and at full width only
-builds them on the meta device.
+dry-run (ROADMAP Queue 1 item 14), which lowers every cell over them.
+``deepseek-67b`` (134 GB of bf16 weights) and ``kimi-k2-1t-a32b`` (344 GB
+even when sparse) do not fit one 80 GB card: the port runs them at smoke
+width, and at full width only builds them on the meta device. Tensor
+parallelism (``distributed.sharding``) does not change that on one card:
+its shards share the card. deepseek-67b would shard in the heads mode on
+cards of its own; kimi-k2's experts wait for expert parallelism (ROADMAP
+Queue 1 item 17).
 """
 
 from __future__ import annotations

@@ -149,17 +149,24 @@ def apply_linear(
     spec: LinearSpec,
     params: dict[str, torch.Tensor],
     x: torch.Tensor,
+    rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """y = x @ W (+ bias), with the JAX package's rounding points: the BSR
     term comes back in x's dtype, ``x @ U`` and ``@ Vᵀ`` run in the model
     dtype, and ``γ·ys + (1−γ)·yl`` is combined in fp32 and cast back. The
     BSR term is ``autograd.BsrMatmul``; γ, U, V and the bias get their
-    gradients from autograd, on the pattern's tables on x's device."""
+    gradients from autograd, on the pattern's tables on x's device.
+
+    ``rows`` (first, end): the params are a tensor-parallel shard that
+    holds block rows [first, end) of the pattern (its rows of ``blocks``,
+    ``V`` and the bias), and its tables are those rows of the global
+    pattern's ``cols``. A shard's pattern is a row slice of the global
+    butterfly, not the pattern of a narrower linear."""
     if not spec.sparse:
         y = torch.matmul(x, params["w"])
     else:
         g = params["gamma"].float()
-        ys = autograd.bsr_matmul(x, params["blocks"], linear_tables(spec, x.device))
+        ys = autograd.bsr_matmul(x, params["blocks"], linear_tables(spec, x.device, rows))
         yl = torch.matmul(torch.matmul(x, params["U"]), params["V"].t())
         y = (g * ys.float() + (1.0 - g) * yl.float()).to(x.dtype)
     if spec.use_bias:
@@ -168,10 +175,16 @@ def apply_linear(
 
 
 @functools.lru_cache(maxsize=512)
-def linear_tables(spec: LinearSpec, device: torch.device) -> autograd.BsrTables:
+def linear_tables(
+    spec: LinearSpec, device: torch.device, rows: tuple[int, int] | None = None
+) -> autograd.BsrTables:
     """The BSR tables (forward and transposed) of a sparse spec's pattern
-    on ``device``, built once per spec and device."""
-    return autograd.bsr_tables(spec.pattern().cols, spec.in_features // spec.block, device)
+    on ``device``, built once per spec, device and row range (``rows``:
+    a shard's block rows of the pattern, all of them when None)."""
+    cols = spec.pattern().cols
+    if rows is not None:
+        cols = cols[rows[0] : rows[1]]
+    return autograd.bsr_tables(cols, spec.in_features // spec.block, device)
 
 
 def param_count(spec: LinearSpec) -> int:
@@ -186,15 +199,18 @@ def param_count(spec: LinearSpec) -> int:
 class Linear(nn.Module):
     """One dense or pixelfly linear; parameters named as in the JAX tree.
     A sparse pattern's BSR tables are looked up on the input's device at
-    each call (cached per spec and device; not in the state dict)."""
+    each call (cached per spec and device; not in the state dict).
+    ``rows``: set on a tensor-parallel shard of a pixelfly linear, the
+    block rows of the pattern it holds (``apply_linear``)."""
 
     def __init__(
         self, spec: LinearSpec, *, gen: torch.Generator, device: torch.device
     ):
         super().__init__()
         self.spec = spec
+        self.rows: tuple[int, int] | None = None
         for name, t in init_linear(spec, gen).items():
             self.register_parameter(name, nn.Parameter(t.to(device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_linear(self.spec, self._parameters, x)
+        return apply_linear(self.spec, self._parameters, x, self.rows)

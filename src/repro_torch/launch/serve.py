@@ -26,6 +26,15 @@ prompts in one ``transformer.prefill`` pass:
 ``--replicas N`` serves through ``serving.router.ReplicaRouter``: N
 complete engines (on one card they share the weights) behind a
 least-loaded router, one fleet summary and one scrape endpoint.
+
+``--tp N --strategy tp`` serves tensor-parallel: the engine holds N shards
+of the model and of the KV pools on a ``(1, N)`` mesh (``launch.mesh``),
+by default the card N times. On one card that measures what sharding
+costs, not a speedup: the shards share the card's SMs and the host
+launches each shard's kernels in turn. ``--tp`` composes with
+``--replicas`` (``replicas * tp`` devices). ``--production-mesh`` builds
+the JAX package's 16 x 16 mesh and exits when the machine has fewer
+devices, as the JAX launcher fails on too few devices.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import make_production_mesh, make_tp_mesh
 from repro_torch.models import transformer as T
 from repro_torch.obs import SloConfig
 from repro_torch.obs.http import attach
@@ -198,15 +209,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="after this many passes of being admitted around, a "
                          "waiting request blocks later admissions (0 disables)")
     ap.add_argument("--strategy", choices=["tp", "fsdp"], default="fsdp",
-                    help="parameter layout; one device holds every weight "
-                         "('tp' needs distribution, not ported yet)")
+                    help="parameter layout; 'tp' shards over the model axis (needed for --tp > 1)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (distribution, not ported yet)")
+                    help="tensor-parallel degree: shard the weights and the paged KV pools "
+                         "over a (1, tp) mesh, by default the card tp times")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="data-parallel replicas: N complete engines behind a "
-                         "least-loaded router (serving.router)")
+                    help="data-parallel replicas: N complete engines on disjoint (1, tp) "
+                         "meshes behind a least-loaded router (serving.router)")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the production device mesh (not ported yet)")
+                    help="the JAX package's 16 x 16 production mesh (exits on fewer devices)")
     ap.add_argument("--legacy-server", action="store_true",
                     help="use the fixed-batch reference Server instead")
     ap.add_argument("--trace", action="store_true",
@@ -244,10 +255,14 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> Served:
     """Parse ``argv`` and serve ``--batch`` synthetic requests."""
     args = _parser().parse_args(argv)
-    if args.tp > 1 or args.production_mesh or args.strategy == "tp":
+    if args.tp > 1 and args.strategy != "tp":
+        raise SystemExit("--tp > 1 shards over the model axis: pass --strategy tp")
+    if args.production_mesh:
+        mesh = make_production_mesh()
+        have = torch.cuda.device_count() if args.device is None else 1
         raise SystemExit(
-            "--tp, --production-mesh and --strategy tp need distribution, which "
-            "the port does not have yet (ROADMAP Queue 1 item 9)"
+            f"--production-mesh: the {mesh.shape} mesh needs {mesh.size} devices, this machine "
+            f"has {have}"
         )
     cfg = (
         registry.get_smoke(args.arch, sparse=args.sparse)
@@ -282,6 +297,11 @@ def main(argv=None) -> Served:
             raise SystemExit(
                 f"sampler '{sp0.kind}' needs the paged engine; the reference "
                 "Server path is plain greedy only"
+            )
+        if args.tp > 1:
+            raise SystemExit(
+                f"the fixed-batch Server at --tp {args.tp}: its contiguous caches and the SSM state "
+                f"are not sharded; {sharding.REFUSED['ssm']}"
             )
         server = Server(cfg, device=args.device)
         t0 = time.perf_counter()
@@ -323,19 +343,20 @@ def main(argv=None) -> Served:
         deadline_s=args.deadline or None,
         max_queue_wait_s=args.max_queue_wait or None,
     )
+    devices = None if args.device is None else [args.device] * (args.replicas * args.tp)
     if args.replicas > 1:
-        served = ReplicaRouter(
-            cfg, replicas=args.replicas, engine_cfg=ecfg,
-            devices=None if args.device is None else [args.device] * args.replicas,
-        )
+        served = ReplicaRouter(cfg, replicas=args.replicas, tp=args.tp, engine_cfg=ecfg, devices=devices)
         engines = served.engines
     else:
-        served = Engine(cfg, engine_cfg=ecfg, device=args.device)
+        mesh = make_tp_mesh(args.tp, devices) if args.tp > 1 else None
+        served = Engine(cfg, engine_cfg=ecfg, device=None if mesh else args.device, mesh=mesh)
         engines = [served]
     impl = ("CUDA kernel (csrc/paged_attention.cu)" if engines[0].paged_impl == "cuda"
             else "plain PyTorch gather (CPU)")
+    distinct = len({str(d) for e in engines for d in (e.mesh.model_devices() if e.mesh else [e.device])})
     print(f"device: {engines[0].device}, paged decode: {impl}, sampler: {sp0.kind}"
-          + (f", {args.replicas} replicas" if args.replicas > 1 else ""))
+          + (f", {args.replicas} replicas" if args.replicas > 1 else "")
+          + f", tp {args.tp} on {distinct} distinct device(s)")
     for b in range(args.batch):
         # each request gets its own noise stream through a distinct seed
         served.submit(

@@ -28,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attn_pattern as ap
 from repro_torch.core.butterfly import next_pow2
 from repro_torch.core.pixelfly import Linear, LinearSpec
+from repro_torch.distributed import collectives
 from repro_torch.kernels import autograd, ops
 
 __all__ = [
@@ -52,8 +53,12 @@ __all__ = [
     "Mlp",
     "Embedding",
     "apply_attention",
+    "attention_heads",
     "apply_mlp",
+    "mlp_hidden",
+    "tp_project",
     "embed_tokens",
+    "embed_tokens_tp",
     "lm_logits",
 ]
 
@@ -667,6 +672,20 @@ def apply_attention(
     x: torch.Tensor,
     cos: torch.Tensor,
     sin: torch.Tensor,
+    **kw,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
+    """Returns (y, fresh K/V): ``attention_heads`` and the ``o``
+    projection."""
+    o, fresh = attention_heads(cfg, attn, x, cos, sin, **kw)
+    return attn.wo(o), fresh
+
+
+def attention_heads(
+    cfg: ModelConfig,
+    attn: Attention,
+    x: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
     *,
     mode: str,
     cache: dict[str, torch.Tensor] | None = None,
@@ -674,8 +693,11 @@ def apply_attention(
     pos: torch.Tensor | int | None = None,
     prefix_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
-    """Returns (y, fresh K/V). x (B, S, d_model); cos/sin from
-    ``rope_angles`` of the tokens' positions.
+    """Returns (the heads' output before ``o``, (B, S, H·D), fresh K/V).
+    x (B, S, d_model); cos/sin from ``rope_angles`` of the tokens'
+    positions. The head counts are read off the q and k projections, so a
+    tensor-parallel shard (its q and kv heads, the JAX "heads" mode) runs
+    this unchanged on its own heads and its own pools.
 
     ``mode="prefill"``: causal attention over the S tokens (pixelfly
     block-sparse when the model has sparse attention and S is a multiple
@@ -708,11 +730,13 @@ def apply_attention(
     """
     c = cfg
     b, s, _ = x.shape
-    hk, g, d = c.num_kv_heads, c.num_heads // c.num_kv_heads, c.head_dim
+    d = c.head_dim
     scale = d ** -0.5
-    q = attn.wq(x).reshape(b, s, c.num_heads, d)
-    k = attn.wk(x).reshape(b, s, hk, d)
-    v = attn.wv(x).reshape(b, s, hk, d)
+    q = attn.wq(x).reshape(b, s, -1, d)
+    k = attn.wk(x).reshape(b, s, -1, d)
+    v = attn.wv(x).reshape(b, s, -1, d)
+    hk = k.shape[2]
+    g = q.shape[2] // hk
     if c.qk_norm:
         q = rmsnorm(attn.q_norm, q, c.norm_eps)  # qk-norm over head_dim
         k = rmsnorm(attn.k_norm, k, c.norm_eps)
@@ -770,15 +794,33 @@ def apply_attention(
             o = decode_attention(qg, kc, vc, pos, sm_scale=scale)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
-    y = attn.wo(o.reshape(b, s, c.q_dim))
-    return y, fresh
+    return o.reshape(b, s, hk * g * d), fresh
 
 
 def apply_mlp(mlp: Mlp, x: torch.Tensor) -> torch.Tensor:
+    return mlp.wd(mlp_hidden(mlp, x))
+
+
+def mlp_hidden(mlp: Mlp, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU's hidden activation ``silu(wg x) * wu x`` (a shard's slice of
+    it on a tensor-parallel shard)."""
     gate = mlp.wg(x)
     up = mlp.wu(x)
-    h = F.silu(gate.float()).to(x.dtype) * up
-    return mlp.wd(h)
+    return F.silu(gate.float()).to(x.dtype) * up
+
+
+def tp_project(linears: list[Linear], hs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The output projection (``o`` or ``down``) of ``tp`` shards, from each
+    shard's slice of its input (its heads, its hidden units) to the whole
+    output on every shard, as the JAX layouts place it
+    (``distributed.sharding``): a pixelfly linear is column-parallel (its
+    block rows of the output), so the inputs are all-gathered first and
+    the output slices after; a dense one is row-parallel (its rows of
+    ``w``), so the partial products are all-reduced."""
+    if linears[0].spec.sparse:
+        full = collectives.all_gather(hs, dim=-1)
+        return collectives.all_gather([lin(h) for lin, h in zip(linears, full)], dim=-1)
+    return collectives.all_reduce([lin(h) for lin, h in zip(linears, hs)])
 
 
 def embed_tokens(embed: Embedding, tokens: torch.Tensor) -> torch.Tensor:
@@ -786,6 +828,21 @@ def embed_tokens(embed: Embedding, tokens: torch.Tensor) -> torch.Tensor:
     backward sums each row's gradient in a fixed order, where indexing's
     scatter-add on the CPU does not, so a training step repeats exactly."""
     return F.embedding(tokens, embed.tok)
+
+
+def embed_tokens_tp(embeds: list[Embedding], tokens: list[torch.Tensor], first: list[int]) -> list[torch.Tensor]:
+    """The lookup of a vocab-sharded table: shard r holds rows [first[r],
+    first[r] + its rows) and looks up the tokens in that range, zeros for
+    the rest; the all-reduce then gives every shard each token's row
+    exactly (one term is the row, the others zero)."""
+    out = []
+    for embed, toks, lo in zip(embeds, tokens, first):
+        n = embed.tok.shape[0]
+        local = toks - lo
+        mine = (local >= 0) & (local < n)
+        rows = F.embedding(torch.where(mine, local, 0), embed.tok)
+        out.append(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device)))
+    return collectives.all_reduce(out)
 
 
 def lm_logits(

@@ -22,6 +22,7 @@ Entry points:
   prefill(cfg, model, batch, max_len=)
                                   -> ((B, V) last-token logits, caches)
   decode_step(cfg, model, caches, tokens, pos)     -> ((B, V) logits, caches)
+  shard_model(cfg, mesh, state_dict)               -> ShardedLM (tp shards)
   init_paged_cache(cfg, n_pages, page, device=)    -> [{"k", "v"}] per group
   prefill_paged(cfg, model, tokens, plens, caches, page_rows,
                 prefix_rows=, prefix_lens=, full_tokens=, full_plens=,
@@ -46,9 +47,21 @@ hybrid families (their state is a row of each slot, not pages:
 entry points build no autograd graph (``torch.no_grad``);
 ``forward_train`` does, and recomputes each layer in the backward when
 ``cfg.remat`` is set.
+
+Tensor-parallel serving: ``prefill_paged`` and ``decode_step_paged`` take
+a ``ShardedLM`` (``shard_model``: the state dict cut by
+``distributed.sharding``, shard r on device r of a ``(1, tp)`` mesh) and
+one list of pools a shard, each with its kv heads (``serving.kv_cache``).
+One process drives every shard, layer by layer: each shard runs its heads
+and its slice of the MLP, and ``layers.tp_project`` and the vocab-sharded
+embedding and logits join them (``distributed.collectives``); the
+residual stream and the norms are replicated. The logits are gathered
+onto the first shard's device, where the fused sampler runs once.
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 from torch import nn
@@ -56,6 +69,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.analysis.guards import hot_path
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pixelfly import Linear
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -66,6 +83,8 @@ __all__ = [
     "Block",
     "LM",
     "init_model",
+    "ShardedLM",
+    "shard_model",
     "init_cache",
     "prefill",
     "decode_step",
@@ -182,6 +201,76 @@ def init_model(
         assign=True,
     )
     return model
+
+
+class ShardedLM(nn.Module):
+    """``tp`` shards of an ``LM`` for tensor-parallel serving, built by
+    ``shard_model``. ``shards[r]`` is an ``LM`` whose tensors are shard r's
+    slices, on ``devices[r]``; ``vocab_first[r]`` is the first token id of
+    its rows of the token table."""
+
+    def __init__(self, cfg: ModelConfig, mesh: Mesh, shards: list[LM]):
+        super().__init__()
+        self.cfg = cfg
+        self.shards = nn.ModuleList(shards)
+        self.devices = mesh.model_devices()
+        rows = shards[0].embed.tok.shape[0]
+        self.vocab_first = [r * rows for r in range(len(shards))]
+
+
+# the tensors a shard of each kind holds, by the dimension of the full
+# tensor that the JAX rules put on the model axis ("heads" mode, pixelfly
+# and dense linears on their natural axis, a vocab-sharded table); None =
+# replicated. A spec that differs is a layout this port does not have.
+_TP_LAYOUT = (
+    (r"embed\.tok$", 0),
+    (r"head\.w$", 1),
+    (r"\.(blocks|V|b)$", 0),
+    (r"\.(wq|wk|wv|wg|wu)\.w$", 1),
+    (r"\.(wo|wd)\.w$", 0),
+    (r"\.(U|gamma|scale|q_norm|k_norm)$", None),
+)
+
+
+def shard_model(cfg: ModelConfig, mesh: Mesh, state_dict: dict[str, torch.Tensor]) -> ShardedLM:
+    """Cut ``state_dict`` (an ``LM``'s, full) into the shards of a ``(1,
+    tp)`` mesh by ``distributed.sharding``'s tensor-parallel specs; shard r
+    goes to the mesh's device r (a slice of dim 0 stays a view where the
+    device and dtype already match, so shards on the state dict's own
+    device share its memory). Each shard is an ``LM`` built on the meta
+    device that takes its tensors; its pixelfly linears learn their block
+    rows of the global pattern (``Linear.rows``). Refuses (``ValueError``)
+    any configuration ``sharding.check_tp`` refuses and any tensor whose
+    spec is not the layout the shard-local forms compute."""
+    st = sharding.Strategy(mesh, "tp")
+    tp = st.tp_size
+    sharding.check_tp(cfg, tp)
+    specs = sharding.param_specs(st, state_dict)
+    for name, spec in specs.items():
+        want = next((d for pat, d in _TP_LAYOUT if re.search(pat, name)), "none of the port's")
+        got = sharding.model_dim(st, spec)
+        if got != want:
+            raise ValueError(
+                f"{cfg.name} at tp={tp}: {name} {tuple(state_dict[name].shape)} has spec {spec}, not the "
+                f"layout of the port's tensor-parallel forms; {sharding.REFUSED['attention']}"
+            )
+    parts = sharding.shard_state_dict(st, mesh, state_dict)
+    devices = mesh.model_devices()
+    shards = []
+    for r, (part, dev) in enumerate(zip(parts, devices)):
+        meta = torch.device("meta")
+        with meta:
+            shard = LM(cfg, gen=torch.Generator(), device=meta)
+        for name, t in part.items():
+            owner, _, leaf = name.rpartition(".")
+            mod = shard.get_submodule(owner)
+            setattr(mod, leaf, nn.Parameter(t.to(dev, getattr(mod, leaf).dtype), requires_grad=False))
+        for name, mod in shard.named_modules():
+            if isinstance(mod, Linear) and mod.spec.sparse:
+                n = mod.blocks.shape[0]
+                mod.rows = (r * n, (r + 1) * n)
+        shards.append(shard)
+    return ShardedLM(cfg, mesh, shards)
 
 
 def init_cache(
@@ -356,6 +445,72 @@ def decode_step(
     return L.lm_logits(cfg, model.head, model.embed, x[:, 0]), caches
 
 
+def _scatter_pages(pool: dict[str, torch.Tensor], fresh: tuple, rows: torch.Tensor) -> None:
+    """Write a prefill's fresh (k, v), each (N, S, Hk, D), into the pool
+    pages of ``rows`` (N, S // page), in place."""
+    n, s = fresh[0].shape[:2]
+    for buf, t in ((pool["k"], fresh[0]), (pool["v"], fresh[1])):
+        page = buf.shape[1]
+        buf[rows] = t.reshape(n, s // page, page, *t.shape[2:]).to(buf.dtype)
+
+
+def _to_shards(value, devices: list):
+    """A step input on every shard's device: a tensor by
+    ``collectives.broadcast``, a ``DecodeIndex`` field by field, None and
+    Python numbers as they are."""
+    if isinstance(value, torch.Tensor):
+        return C.broadcast(value, devices)
+    if isinstance(value, L.DecodeIndex):
+        fields = {f: C.broadcast(getattr(value, f), devices) for f in L.DecodeIndex.__dataclass_fields__}
+        return [L.DecodeIndex(**{f: v[r] for f, v in fields.items()}) for r in range(len(devices))]
+    return [value] * len(devices)
+
+
+def _layers_tp(
+    cfg: ModelConfig,
+    model: ShardedLM,
+    tokens: torch.Tensor,
+    caches: list,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    attn_kw: dict,
+    *,
+    rows: torch.Tensor | None = None,
+    plens: torch.Tensor | None = None,
+) -> list[torch.Tensor]:
+    """The paged entry points' layers on a ``ShardedLM``: the vocab-sharded
+    embedding, then for each layer every shard's heads (``attention_heads``
+    on its pools, its fresh K/V scattered into them when ``rows`` is
+    given), ``tp_project`` of ``o``, every shard's SwiGLU slice,
+    ``tp_project`` of ``down``; then the final norm. Returns each shard's
+    (N, S, d) rows at ``plens - 1`` (the whole rows when ``plens`` is
+    None), on its device."""
+    devs = model.devices
+    x = L.embed_tokens_tp([sh.embed for sh in model.shards], C.broadcast(tokens.long(), devs), model.vocab_first)
+    cos, sin, rows = C.broadcast(cos, devs), C.broadcast(sin, devs), _to_shards(rows, devs)
+    kws = [dict(zip(attn_kw, vals)) for vals in zip(*(_to_shards(v, devs) for v in attn_kw.values()))]
+    layers = [[blk for _, blk in sh.blocks()] for sh in model.shards]
+    pools = [_layer_pools(cfg, c) for c in caches]
+    for i in range(len(layers[0])):
+        blks = [ls[i] for ls in layers]
+        heads = []
+        for r, blk in enumerate(blks):
+            h = L.rmsnorm(blk.attn_norm.scale, x[r], cfg.norm_eps)
+            o, fresh = L.attention_heads(cfg, blk.attn, h, cos[r], sin[r], cache=pools[r][i], **kws[r])
+            if rows[r] is not None:
+                _scatter_pages(pools[r][i], fresh, rows[r])
+            heads.append(o)
+        y = L.tp_project([blk.attn.wo for blk in blks], heads)
+        x = [a + b for a, b in zip(x, y)]
+        hidden = [L.mlp_hidden(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, a, cfg.norm_eps)) for blk, a in zip(blks, x)]
+        y = L.tp_project([blk.mlp.wd for blk in blks], hidden)
+        x = [a + b for a, b in zip(x, y)]
+    out = [L.rmsnorm(sh.final_norm.scale, a, cfg.norm_eps) for sh, a in zip(model.shards, x)]
+    if plens is None:
+        return out
+    return [a[torch.arange(a.shape[0], device=a.device), p.long() - 1] for a, p in zip(out, C.broadcast(plens, devs))]
+
+
 @torch.no_grad()
 def prefill_paged(
     cfg: ModelConfig,
@@ -401,27 +556,32 @@ def prefill_paged(
     with ``sampler`` (the engine's packed per-request params, see
     ``serving.sampling.sample_prefill``), the first tokens sampled on the
     device: (token ids (N,), caches, presence).
+
+    With a ``ShardedLM``, ``caches`` holds one list of pools a shard and
+    the inputs lie on the first shard's device (module docstring).
     """
-    x = L.embed_tokens(model.embed, tokens.long())
-    n, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(n, s)
+    n, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None].expand(n, s)
     mode = "prefill"
     if prefix_lens is not None:
         mode = "prefill_prefix"
         positions = prefix_lens.long()[:, None] + positions
     cos, sin = _angles(cfg, _streams(cfg, positions))
     rows = page_rows.long()
-    for (kind, blk), pool in zip(model.blocks(), _layer_pools(cfg, caches)):
-        x, (k, v), _ = _attn_block(
-            cfg, kind, blk, x, cos, sin, mode=mode,
-            cache=pool, pos=prefix_lens, prefix_rows=prefix_rows,
+    attn_kw = {"mode": mode, "pos": prefix_lens, "prefix_rows": prefix_rows}
+    if isinstance(model, ShardedLM):
+        last = _layers_tp(cfg, model, tokens, caches, cos, sin, attn_kw, rows=rows, plens=plens)
+        logits = C.gather(
+            [L.lm_logits(cfg, sh.head, sh.embed, h) for sh, h in zip(model.shards, last)], -1, tokens.device
         )
-        for buf, fresh in ((pool["k"], k), (pool["v"], v)):
-            page = buf.shape[1]
-            buf[rows] = fresh.reshape(n, s // page, page, *fresh.shape[2:]).to(buf.dtype)
-    x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
-    last = x[torch.arange(n, device=x.device), plens.long() - 1]  # (N, d)
-    logits = L.lm_logits(cfg, model.head, model.embed, last)
+    else:
+        x = L.embed_tokens(model.embed, tokens.long())
+        for (kind, blk), pool in zip(model.blocks(), _layer_pools(cfg, caches)):
+            x, fresh, _ = _attn_block(cfg, kind, blk, x, cos, sin, cache=pool, **attn_kw)
+            _scatter_pages(pool, fresh, rows)
+        x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
+        last = x[torch.arange(n, device=x.device), plens.long() - 1]  # (N, d)
+        logits = L.lm_logits(cfg, model.head, model.embed, last)
     if sampler is None:
         return logits, caches
     with torch.profiler.record_function("sampler"):
@@ -455,19 +615,26 @@ def decode_step_paged(
     step's write targets and read schedule are computed once for all
     layers. Returns (logits (B, V), caches); or, with ``sampler``, every
     slot's next token sampled on the device (``serving.sampling.
-    sample_decode``): (token ids (B,), caches, presence)."""
-    x = L.embed_tokens(model.embed, tokens.long()[:, None])
+    sample_decode``): (token ids (B,), caches, presence). With a
+    ``ShardedLM``, ``caches`` holds one list of pools a shard (module
+    docstring)."""
     pos = positions.to(torch.int32).contiguous()
-    page = caches[0]["k"].shape[2]
+    sharded = isinstance(model, ShardedLM)
+    page = (caches[0][0] if sharded else caches[0])["k"].shape[2]
     index = L.decode_index(cfg, page_table, pos, page)
     cos, sin = _angles(cfg, _streams(cfg, pos.long()[:, None]))
-    for (kind, blk), pool in zip(model.blocks(), _layer_pools(cfg, caches)):
-        x, _, _ = _attn_block(
-            cfg, kind, blk, x, cos, sin,
-            mode="decode_paged", cache=pool, index=index, pos=pos,
+    attn_kw = {"mode": "decode_paged", "index": index, "pos": pos}
+    if sharded:
+        last = _layers_tp(cfg, model, tokens[:, None], caches, cos, sin, attn_kw)
+        logits = C.gather(
+            [L.lm_logits(cfg, sh.head, sh.embed, h[:, 0]) for sh, h in zip(model.shards, last)], -1, pos.device
         )
-    x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
-    logits = L.lm_logits(cfg, model.head, model.embed, x[:, 0])
+    else:
+        x = L.embed_tokens(model.embed, tokens.long()[:, None])
+        for (kind, blk), pool in zip(model.blocks(), _layer_pools(cfg, caches)):
+            x, _, _ = _attn_block(cfg, kind, blk, x, cos, sin, cache=pool, **attn_kw)
+        x = L.rmsnorm(model.final_norm.scale, x, cfg.norm_eps)
+        logits = L.lm_logits(cfg, model.head, model.embed, x[:, 0])
     if sampler is None:
         return logits, caches
     with torch.profiler.record_function("sampler"):

@@ -62,6 +62,8 @@ import torch
 from repro_torch.analysis import guards
 from repro_torch.analysis.guards import compile_events_total, hot_path
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as T
 from repro_torch.obs import (
     NULL_TRACER,
@@ -222,6 +224,7 @@ class Engine:
         seed: int = 0,
         params: dict[str, torch.Tensor] | None = None,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
         """``device`` None means the card (raises without one). ``params``
         is a state dict, e.g. from ``bridge.params_from_jax`` or another
@@ -229,7 +232,31 @@ class Engine:
         and dtype match); without it the weights are random from ``seed``
         (``transformer.init_model``). A model with SSM layers (the SSM and
         hybrid families) raises ``ValueError``: it is served by the
-        fixed-batch ``launch.serve.Server``."""
+        fixed-batch ``launch.serve.Server``.
+
+        ``mesh=None`` is the single-device engine. A ``(1, tp)`` mesh
+        (``launch.mesh.make_tp_mesh``) serves tensor-parallel, the JAX
+        ``Engine``'s ``strategy="tp"``: the model is cut into ``tp``
+        shards (``transformer.shard_model``) and the KV pools into one
+        pool a shard, each on its mesh device, while the scheduler,
+        allocator, page table, prefix cache and sampler state stay once,
+        on the host and the first shard's device (``device`` must be None
+        or that device). A mesh with positions off the model axis raises:
+        serving does not shard by data (``ReplicaRouter`` replicates) and
+        the FSDP layout is not ported (ROADMAP Queue 1 item 15)."""
+        tp = 1
+        if mesh is not None:
+            tp = sharding.Strategy(mesh, "tp").tp_size
+            if mesh.size != tp:
+                raise ValueError(
+                    f"a mesh of shape {mesh.shape}: serving shards over the model axis only, "
+                    f"a (1, tp) mesh; {sharding.REFUSED['fsdp']}"
+                )
+            sharding.check_tp(cfg, tp)
+            first = mesh.model_devices()[0]
+            if device is not None and torch.device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first device {first}")
+            device = first
         if cfg.has_ssm:
             raise ValueError(
                 f"{cfg.name} has SSM layers, whose state is a row of each "
@@ -240,10 +267,20 @@ class Engine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = T.resolve_device(device)
-        self.model = T.init_model(cfg, seed=seed, device=self.device, params=params)
+        self.mesh = mesh
+        self.tp = tp
+        # devices that really hold the engine: a tp run on one card is
+        # reported as such
+        self.distinct_devices = mesh.distinct_devices if mesh is not None else 1
+        if tp > 1:
+            if params is None:
+                params = T.init_model(cfg, seed=seed, device=self.device).state_dict()
+            self.model = T.shard_model(cfg, mesh, params)
+        else:
+            self.model = T.init_model(cfg, seed=seed, device=self.device, params=params)
         self.kv = PagedKVCache(
             cfg, ecfg.max_slots, ecfg.max_len, n_pages=ecfg.n_pages,
-            device=self.device,
+            device=self.device, mesh=mesh if tp > 1 else None,
         )
         # one metrics registry (ServeStats, SwapStats and PrefixStats are
         # views over it) and a span tracer; with trace off the no-op
@@ -330,7 +367,12 @@ class Engine:
     @property
     def paged_impl(self) -> str:
         """The paged decode read: the CUDA kernel on the card, the plain
-        gather on the CPU (``kernels.ops`` picks by device)."""
+        gather on the CPU (``kernels.ops`` picks by device). A
+        tensor-parallel engine runs it on every shard: where the JAX
+        package's ``paged_impl_for_mesh`` falls back to the gather at
+        tp > 1 (a ``pallas_call`` has no GSPMD partitioning rule), each
+        shard here holds whole pools of its own kv heads, the shard-local
+        form that function's docstring names as the fix."""
         return "cuda" if self.device.type == "cuda" else "plain"
 
     # ---- observability -----------------------------------------------
@@ -1160,7 +1202,15 @@ class Engine:
         decode write). Every slot sits at the last position of ``max_len``,
         so each reads its whole schedule, as the JAX record's HLO counts
         the step whatever the positions. The one run costs a decode step
-        and one host read a paged-attention call (the keys it sees)."""
+        and one host read a paged-attention call (the keys it sees).
+
+        A tensor-parallel engine raises: its roofline must count the
+        collectives, which the dry-run will (ROADMAP Queue 1 item 14)."""
+        if self.tp > 1:
+            raise ValueError(
+                f"roofline of a tp={self.tp} engine: the count has no collective term yet; "
+                f"{sharding.REFUSED['roofline']}"
+            )
         if self._roofline is not None:
             return self._roofline
         from repro_torch.analysis.roofline import HW, count, roofline_terms
@@ -1290,7 +1340,8 @@ class Engine:
 
     def stats_summary(self) -> dict:
         """``ServeStats.summary()`` with the swap counters, the prefix
-        cache's tree counters (when on) and the roofline record."""
+        cache's tree counters (when on) and the roofline record; an engine
+        on a mesh adds ``tp`` and ``distinct_devices``."""
         out = self.stats.summary()
         out["preemption"].update(self.swap.stats.snapshot())
         if self._prefix is not None:
@@ -1299,7 +1350,17 @@ class Engine:
             out["prefix_cache"]["cached_pages"] = self.kv.cached_pages
             # keep the prom gauge in step with the pool
             self._prefix.stats.set_cached_pages(self.kv.cached_pages)
-        out["roofline"] = self.roofline()
+        if self.tp > 1:  # the JAX record of an unavailable count
+            out["roofline"] = {
+                "available": False, "flops": 0.0, "bytes_accessed": 0.0, "collective_bytes": 0.0,
+                "arithmetic_intensity": 0.0, "bottleneck": "unknown", "compute_s": 0.0,
+                "memory_s": 0.0, "collective_s": 0.0, "waits": sharding.REFUSED["roofline"],
+            }
+        else:
+            out["roofline"] = self.roofline()
+        if self.mesh is not None:  # the JAX schema plus the mesh's size
+            out["tp"] = self.tp
+            out["distinct_devices"] = self.distinct_devices
         return out
 
     def export_perfetto(self, path: str) -> int:

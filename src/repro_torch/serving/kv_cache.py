@@ -7,7 +7,13 @@ O(b·log n) pages its schedule visits.
 The pools (``buffers``, one ``{"k", "v"}`` per layer group, built by
 ``transformer.init_paged_cache``) live on the model's device; the page
 table, free list and refcounts are host-side numpy/Python, updated between
-steps, as in the JAX package's ``serving/kv_cache.py``. Physical page 0 is
+steps, as in the JAX package's ``serving/kv_cache.py``. On a ``(1, tp)``
+mesh (``mesh=``) ``buffers`` holds one such list a shard, each pool
+``(count, n_pages, page, Hk / tp, D)`` on its shard's device, as
+``distributed.sharding.cache_specs(layout="paged")`` lays the pool out:
+the page axes stay whole on every shard, so the one host page table
+addresses every shard's pool, and a page copy (copy on write, swap) acts
+on every shard (``pools``). Physical page 0 is
 the shared trash page: idle slots and unallocated table entries point at
 it, and every read masks it by logical position.
 
@@ -37,6 +43,7 @@ import torch
 
 from repro_torch.analysis import guards
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import transformer as T
 
 __all__ = ["PagedKVCache"]
@@ -51,11 +58,13 @@ class PagedKVCache:
         *,
         n_pages: int = 0,
         device: str | torch.device | None = None,
+        mesh=None,
     ):
         """``n_pages=0`` sizes the pool worst-case (every slot full). A
         smaller pool oversubscribes the cache; the engine budgets each
         sequence's lifetime pages at admission so ``alloc_upto`` never runs
-        dry mid-decode."""
+        dry mid-decode. ``mesh``: a ``(1, tp)`` mesh with tp > 1, one pool
+        a shard (module docstring); ``device`` is then its first device."""
         page = cfg.attn_block
         if max_len % page:
             raise ValueError(
@@ -76,9 +85,11 @@ class PagedKVCache:
                 "trash .. every slot full + trash)"
             )
         self.device = T.resolve_device(device)
-        self.buffers = T.init_paged_cache(
-            cfg, self.n_pages, page, device=self.device
-        )
+        self.mesh = mesh
+        if mesh is None:
+            self.buffers = T.init_paged_cache(cfg, self.n_pages, page, device=self.device)
+        else:
+            self.buffers = _shard_pools(cfg, mesh, self.n_pages, page)
         self.page_table = np.zeros((max_slots, self.pages_per_seq), np.int32)
         # device mirror of the page table, uploaded lazily and kept until a
         # table mutation invalidates it
@@ -230,7 +241,7 @@ class PagedKVCache:
             raise RuntimeError("KV cache out of pages")
         dst = self._free.pop()
         self._ref[dst] = 1
-        for pool in self.buffers:
+        for pool in self.pools():
             for buf in pool.values():
                 buf[:, dst].copy_(buf[:, src])
         self._drop_ref(src, keep)
@@ -240,6 +251,13 @@ class PagedKVCache:
         return dst
 
     # ---- views -------------------------------------------------------
+    def pools(self) -> list[dict[str, torch.Tensor]]:
+        """Every ``{"k", "v"}`` pool, of every layer group and (on a mesh)
+        every shard, in a fixed order."""
+        if self.mesh is None:
+            return list(self.buffers)
+        return [pool for shard in self.buffers for pool in shard]
+
     def device_table(self) -> torch.Tensor:
         """The full page table on the device, cached across steps until a
         table mutation invalidates it."""
@@ -278,6 +296,32 @@ class PagedKVCache:
     def memory_bytes(self) -> int:
         return sum(
             b.numel() * b.element_size()
-            for pool in self.buffers
+            for pool in self.pools()
             for b in pool.values()
         )
+
+
+def _shard_pools(cfg: ModelConfig, mesh, n_pages: int, page: int) -> list[list[dict[str, torch.Tensor]]]:
+    """One list of zero pools a shard of ``mesh``: the full pools' shapes
+    (``init_paged_cache`` on the meta device) with the dimension that
+    ``cache_specs(layout="paged")`` puts on the model axis divided by tp,
+    on each shard's device. A layout that shards head_dim (kv heads the
+    mesh does not divide) is refused by ``sharding.check_tp`` first."""
+    st = sharding.Strategy(mesh, "tp")
+    sharding.check_tp(cfg, st.tp_size)
+    full = T.init_paged_cache(cfg, n_pages, page, device="meta")
+    specs = sharding.cache_specs(st, full, layout="paged")
+    out = []
+    for dev in mesh.model_devices():
+        shard = []
+        for pool, spec in zip(full, specs):
+            bufs = {}
+            for name, t in pool.items():
+                shape = list(t.shape)
+                d = sharding.model_dim(st, spec[name])
+                if d is not None:
+                    shape[d] //= st.tp_size
+                bufs[name] = torch.zeros(shape, dtype=t.dtype, device=dev)
+            shard.append(bufs)
+        out.append(shard)
+    return out

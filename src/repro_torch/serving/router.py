@@ -1,5 +1,5 @@
 """Data-parallel replica routing: one logical engine over N replicas, the
-port of the JAX package's ``serving/router.py`` at ``tp = 1``.
+port of the JAX package's ``serving/router.py``.
 
 Serving requests are independent, so data parallelism is N complete
 engines with a thin router in front, not a batch-sharded step: each
@@ -15,9 +15,10 @@ Router uids are replica-independent: ``submit`` returns a router-level uid
 and finished results are re-tagged with it.
 
 Replicas may share one card (``devices`` defaults to it N times): then
-they share the weights too, and each holds its own KV pools.
-Tensor-parallel replicas (``tp > 1``) need distribution, which the port
-does not have yet (ROADMAP Queue 1 item 9).
+they share the weights too, and each holds its own KV pools. With
+``tp > 1``, ``replicas * tp`` devices are carved into ``replicas``
+disjoint ``(1, tp)`` meshes, one tensor-parallel engine on each, as the
+JAX router carves its devices: both kinds of parallelism compose.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import make_tp_mesh
 from repro_torch.models import transformer as T
 from repro_torch.obs import MetricsRegistry, export_perfetto
 from repro_torch.serving.engine import Engine, EngineConfig
@@ -52,32 +54,33 @@ class ReplicaRouter:
         params: dict[str, torch.Tensor] | None = None,
         devices: list | None = None,
     ):
-        """One full engine on each of ``devices`` (torch devices, default
-        the card ``replicas`` times; "cpu" entries run the plain
-        versions). Replica 0 takes ``params`` (a state dict) or draws its
-        weights from ``seed``; every other replica takes replica 0's state
-        dict, shared where the device is the same."""
+        """One full engine on each ``tp`` of ``devices`` (torch devices,
+        default the card ``replicas * tp`` times; "cpu" entries run the
+        plain versions): replica r on the ``(1, tp)`` mesh of devices
+        [r * tp, (r + 1) * tp). Every replica takes ``params`` (a state
+        dict), or one draw from ``seed``, shared where the device is the
+        same."""
         if replicas < 1 or tp < 1:
             raise ValueError("replicas and tp must be >= 1")
-        if tp > 1:
-            raise ValueError(
-                f"tp={tp}: tensor-parallel replicas need distribution, which the port "
-                "does not have yet (ROADMAP Queue 1 item 9)"
-            )
+        need = replicas * tp
         if devices is None:
-            devices = [T.resolve_device(None)] * replicas
+            devices = [T.resolve_device(None)] * need
         devices = list(devices)
-        if len(devices) < replicas:
-            raise ValueError(f"{replicas} replicas need {replicas} devices, have {len(devices)}")
+        if len(devices) < need:
+            what = f"{replicas} replicas" + (f" x tp={tp}" if tp > 1 else "")
+            raise ValueError(f"{what} need {need} devices, have {len(devices)}")
         self.replicas = replicas
         self.tp = tp
         self.engines: list[Engine] = []
+        if params is None:
+            params = T.init_model(cfg, seed=seed, device=devices[0]).state_dict()
         for r in range(replicas):
-            if r:
-                params = self.engines[0].model.state_dict()
-            self.engines.append(
-                Engine(cfg, engine_cfg=engine_cfg, seed=seed, params=params, device=devices[r])
-            )
+            if tp > 1:
+                mesh = make_tp_mesh(tp, devices[r * tp : (r + 1) * tp])
+                eng = Engine(cfg, engine_cfg=engine_cfg, params=params, mesh=mesh)
+            else:
+                eng = Engine(cfg, engine_cfg=engine_cfg, params=params, device=devices[r])
+            self.engines.append(eng)
         self._outstanding = [0] * replicas
         # router uid -> (replica, replica-local uid); local uid -> router
         self._placed: dict[int, tuple[int, int]] = {}
@@ -144,8 +147,9 @@ class ReplicaRouter:
     def stats_summary(self) -> dict:
         """Fleet-level ``Engine.stats_summary()``: the same schema over the
         merged registry, plus ``per_replica`` (each replica's own
-        summary). Every replica runs the same decode step, so replica 0's
-        roofline stands for the fleet."""
+        summary), and at tp > 1 ``tp`` and the fleet's ``distinct_devices``.
+        Every replica runs the same decode step, so replica 0's roofline
+        stands for the fleet."""
         merged = self.merged_metrics()
         out = ServeStats(merged).summary()
         out["preemption"].update(SwapStats(merged).snapshot())
@@ -155,8 +159,12 @@ class ReplicaRouter:
             out["prefix_cache"]["cached_pages"] = sum(
                 eng.kv.cached_pages for eng in self.engines if eng._prefix is not None
             )
-        out["roofline"] = self.engines[0].roofline()
-        out["per_replica"] = [eng.stats_summary() for eng in self.engines]
+        per = [eng.stats_summary() for eng in self.engines]
+        out["roofline"] = per[0]["roofline"]
+        if self.tp > 1:
+            out["tp"] = self.tp
+            out["distinct_devices"] = len({str(d) for eng in self.engines for d in eng.mesh.model_devices()})
+        out["per_replica"] = per
         return out
 
     def windowed_vars(self, span_s: float | None = None) -> dict:

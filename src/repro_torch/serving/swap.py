@@ -53,16 +53,25 @@ class SwapRecord:
     pin_pages: list[int]
     # host-copied logical pages [len(pin_pages), n_logical)
     n_host: int
-    # per layer group {"k", "v"}: (count, n_host, page, Hk, D) host tensors
+    # per pool of ``kv.pools()`` {"k", "v"}: (count, n_host, page, Hk, D)
+    # host tensors (Hk a shard's on a mesh)
     host: list | None
-    # the device staging tensors and the copy's event, until ``finalize``
+    # the device staging tensors and the copy's events (one a card that
+    # holds a pool), until ``finalize``
     staging: list | None = None
-    event: "torch.cuda.Event | None" = None
+    events: list = dataclasses.field(default_factory=list)
     pending: bool = False
 
     @property
     def n_logical(self) -> int:
         return len(self.pin_pages) + self.n_host
+
+
+def _on_devices(array: np.ndarray, pools: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """``array`` uploaded once to each device that holds one of ``pools``,
+    keyed by the device's name."""
+    devs = {str(buf.device): buf.device for pool in pools for buf in pool.values()}
+    return {name: guards.device_put(array, dev) for name, dev in devs.items()}
 
 
 class SwapStats:
@@ -150,7 +159,7 @@ class SwapManager:
         # bytes one page occupies across every layer pool
         self.page_bytes = sum(
             buf[:, 0].numel() * buf.element_size()
-            for pool in kv.buffers
+            for pool in kv.pools()
             for buf in pool.values()
         )
 
@@ -174,10 +183,11 @@ class SwapManager:
         pin_pages, host_pages = owned[:n_pin], owned[n_pin:]
         record = SwapRecord(pin_pages=pin_pages, n_host=len(host_pages), host=None)
         if host_pages:
-            idx = guards.device_put(np.asarray(host_pages, np.int64), kv.device)
+            pools = kv.pools()
+            idx = _on_devices(np.asarray(host_pages, np.int64), pools)
             staging = [
-                {name: buf[:, idx] for name, buf in pool.items()}
-                for pool in kv.buffers
+                {name: buf[:, idx[str(buf.device)]] for name, buf in pool.items()}
+                for pool in pools
             ]
             if kv.device.type == "cuda":
                 record.host = [
@@ -189,8 +199,13 @@ class SwapManager:
                     }
                     for pool in staging
                 ]
-                record.event = torch.cuda.Event()
-                record.event.record()
+                # one event on each card that holds a pool (a shard each)
+                record.events = []
+                for dev in sorted(idx):
+                    with torch.cuda.device(torch.device(dev)):
+                        ev = torch.cuda.Event()
+                        ev.record()
+                    record.events.append(ev)
                 record.staging = staging
                 record.pending = True
             else:
@@ -213,9 +228,10 @@ class SwapManager:
         if not record.pending:
             return
         t0 = time.perf_counter()
-        guards.wait(record.event)
+        for ev in record.events:
+            guards.wait(ev)
         record.staging = None
-        record.event = None
+        record.events = []
         record.pending = False
         self.stats.out_s += time.perf_counter() - t0
 
@@ -250,14 +266,14 @@ class SwapManager:
             if rows:
                 # the whole record goes up from pinned memory (the rows the
                 # re-match covered are dropped on the device)
-                dst = guards.device_put(
-                    kv.page_table[slot, [n_pin + j for j in rows]].astype(np.int64), kv.device
-                )
-                sel = guards.device_put(np.asarray(rows, np.int64), kv.device)
-                for pool, hpool in zip(kv.buffers, record.host):
+                pools = kv.pools()
+                dst = _on_devices(kv.page_table[slot, [n_pin + j for j in rows]].astype(np.int64), pools)
+                sel = _on_devices(np.asarray(rows, np.int64), pools)
+                for pool, hpool in zip(pools, record.host):
                     for name, buf in pool.items():
+                        dev = str(buf.device)
                         up = hpool[name].to(buf.device, non_blocking=True)
-                        buf[:, dst] = up[:, sel]
+                        buf[:, dst[dev]] = up[:, sel[dev]]
             self.stats.record_in(len(rows), len(rows) * self.page_bytes)
         for p in record.pin_pages:
             kv.unpin(p)

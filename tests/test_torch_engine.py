@@ -112,11 +112,10 @@ def test_unported_options_raise(tmp_path):
         assert len(eng.drain(max_steps=30)) == 1
     assert eng.tracer.n_recorded > 0 and eng.windowed_vars()["enabled"] and eng.slo_state()["enabled"]
     smoke = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu"]
-    # tensor parallelism waits for distribution; --replicas alone serves
-    # through the router (tests/test_torch_router.py), tensor-parallel
-    # replicas wait too
+    # --tp needs --strategy tp, as the JAX CLI (tensor-parallel serving is
+    # tests/test_torch_tp_serving.py's), also with --replicas
     for flag in (["--tp", "2"], ["--replicas", "2", "--tp", "2"]):
-        with pytest.raises(SystemExit, match="Queue 1 item 9"):
+        with pytest.raises(SystemExit, match="pass --strategy tp"):
             serve.main(smoke + flag)
 
 

@@ -1073,3 +1073,97 @@ def test_guard_on_card_passes_host_tensors(cuda):
         with pytest.raises(HostSyncError):
             on_card[1].item()
     assert (g.implicit_syncs, g.explicit_syncs) == (1, 1)
+
+
+# ----------------------------------------------------------------------
+# tensor-parallel serving: the kernels at a shard's shapes, the tp engine
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("linear", ["q", "kv", "gate/up", "down"])
+@pytest.mark.parametrize("m", [8, 300])
+def test_bsr_matmul_kernel_tp_shard_shapes(cuda, tp, linear, m):
+    """Full-width qwen3-1.7b's linears as tp shards hold them: each rank's
+    block rows of the global pattern (q 16, kv 8, gate/up 48, down 16 rows
+    of 128 over tp), bf16, against the plain version (2e-2)."""
+    full = registry.get("qwen3-1.7b", sparse=True)
+    dims = {"q": (full.d_model, full.q_dim), "kv": (full.d_model, full.kv_dim),
+            "gate/up": (full.d_model, full.d_ff), "down": (full.d_ff, full.d_model)}[linear]
+    pat = linear_spec(full, *dims, False).pattern()
+    nb = pat.nb_out // tp
+    rng = np.random.default_rng(tp * 100 + m)
+    x = _t(rng.standard_normal((m, dims[0])), torch.bfloat16, cuda)
+    for r in range(tp):
+        cols = torch.as_tensor(pat.cols[r * nb : (r + 1) * nb], device=cuda)
+        blocks = _t(rng.standard_normal((nb, pat.r, pat.block, pat.block)) / np.sqrt(pat.r * pat.block),
+                    torch.bfloat16, cuda)
+        y = bsr_matmul_cuda(x, blocks, cols)
+        assert y.shape == (m, nb * pat.block)
+        torch.testing.assert_close(y.float(), ref.bsr_matmul_gather(x, blocks, cols).float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_attention_kernels_tp_shard_shapes(cuda, tp):
+    """Each shard's heads of full-width qwen3-1.7b (H 16 / tp, Hk 8 / tp,
+    D 128, bf16): the paged decode read on a shard's pool and the
+    block-sparse prefill, against their plain versions (1e-2, 2e-2)."""
+    h, hk, d, page = 16 // tp, 8 // tp, 128, 128
+    g = h // hk
+    rng = np.random.default_rng(tp)
+    b, pps = 8, 16
+    n_pages = b * pps + 1
+    k = _t(rng.standard_normal((n_pages, page, hk, d)), torch.bfloat16, cuda)
+    v = _t(rng.standard_normal((n_pages, page, hk, d)), torch.bfloat16, cuda)
+    table = torch.as_tensor(rng.permutation(n_pages - 1)[: b * pps].reshape(b, pps) + 1, dtype=torch.int32,
+                            device=cuda)
+    pos = torch.as_tensor(rng.integers(0, pps * page, b), dtype=torch.int32, device=cuda)
+    q = _t(rng.standard_normal((b, hk, g, d)), torch.bfloat16, cuda)
+    logical, phys, keep = paged_sparse_schedule(table, pos, page, local_blocks=2, global_blocks=1)
+    args = (q, k, v, phys, logical, keep, pos)
+    torch.testing.assert_close(paged_decode_attention_cuda(*args, sm_scale=d ** -0.5).float(),
+                               ref.paged_decode_attention_gather(*args, sm_scale=d ** -0.5).float(),
+                               rtol=1e-2, atol=1e-2)
+    s = 1024
+    sched = ap.block_schedule(ap.pixelfly_attention_block_mask(
+        s, s, ap.AttentionPatternConfig(block=page, local_blocks=2, global_blocks=1), causal=True), page, page)
+    qs = _t(rng.standard_normal((1, s, h, d)), torch.bfloat16, cuda)
+    ks = _t(rng.standard_normal((1, s, hk, d)), torch.bfloat16, cuda)
+    vs = _t(rng.standard_normal((1, s, hk, d)), torch.bfloat16, cuda)
+    kv_index, valid = torch.as_tensor(sched.kv_index, device=cuda), torch.as_tensor(sched.valid, device=cuda)
+    kw = dict(block=page, causal=True, sm_scale=d ** -0.5)
+    got = block_sparse_attention_cuda(qs, ks, vs, kv_index, valid, **kw)
+    want = ref.sparse_attention(qs.reshape(1, s, hk, g, d), ks, vs, kv_index, valid, **kw).reshape(1, s, h, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_tp2_engine_streams_on_card_equal_tp1(cuda, sampled):
+    """Smoke qwen3-1.7b (fp32) at tp 2 on the card twice (a (1, 2) mesh of
+    one device): streams equal the tp 1 engine's on the same weights, the
+    three kernels launch, and every shard's pool lies on the card."""
+    from repro_torch.kernels import bsr_attention, bsr_matmul, paged_attention
+    from repro_torch.launch.mesh import make_tp_mesh
+
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True).replace(num_layers=2, vocab_size=256)
+    ecfg = EngineConfig(max_slots=4, max_len=256, prefix_cache=True)
+    one = Engine(cfg, engine_cfg=ecfg, device=cuda)
+    eng = Engine(cfg, engine_cfg=ecfg, params=one.model.state_dict(), mesh=make_tp_mesh(2, [cuda, cuda]))
+    assert eng.paged_impl == "cuda" and eng.distinct_devices == 1
+    assert all(buf.is_cuda for pool in eng.kv.pools() for buf in pool.values())
+    rng = np.random.default_rng(6)
+    work = [rng.integers(1, 250, int(n)).astype(np.int32) for n in (9, 70, 5, 130, 30, 64)]
+
+    def serve_all(e):
+        uids = {}
+        for i, p in enumerate(work):
+            sp = SamplingParams(temperature=0.8, top_k=40, seed=100 + i) if sampled else None
+            uids[e.submit(p, 10, sampling=sp)] = i
+        return {uids[f.uid]: f.tokens.tolist() for f in e.drain(max_steps=200)}
+
+    want = serve_all(one)
+    kernels = (bsr_matmul.KERNEL, paged_attention.KERNEL, bsr_attention.KERNEL)
+    for k in kernels:
+        k.launches = 0
+    assert serve_all(eng) == want
+    assert all(k.launches > 0 for k in kernels)

@@ -6,8 +6,9 @@ sampled (here the JAX single ``Engine`` on ``make_tp_mesh(1)``, its
 weights carried across by ``bridge.params_from_jax``), least-loaded
 routing with router uids, merged fleet metrics, a replica that never saw
 a request, ``obs.http.attach`` over the router, and the serve CLI's
-``--replicas`` (``--tp``, ``--production-mesh`` and ``--strategy tp``
-still exit). Streams and counts exact."""
+``--replicas`` (``--tp`` without ``--strategy tp``, ``--production-mesh``
+and the Server at tp 2 exit; tensor parallelism is
+``tests/test_torch_tp_serving.py``'s). Streams and counts exact."""
 
 import json
 import urllib.request
@@ -180,8 +181,8 @@ def test_router_perfetto_has_one_process_a_replica(tmp_path):
 
 def test_router_refusals():
     cfg, _ = _cfgs()
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        ReplicaRouter(cfg, replicas=2, tp=2, devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="2 replicas x tp=2 need 4 devices, have 3"):
+        ReplicaRouter(cfg, replicas=2, tp=2, devices=["cpu"] * 3)
     with pytest.raises(ValueError, match=">= 1"):
         ReplicaRouter(cfg, replicas=0, devices=["cpu"])
     with pytest.raises(ValueError, match="need 3 devices"):
@@ -207,7 +208,16 @@ def test_serve_cli_replicas(capsys, tmp_path):
     assert json.loads(trace.read_text())["traceEvents"]
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--production-mesh"], ["--strategy", "tp"]])
+# each flag and why it exits: tp without the tp layout (as the JAX CLI),
+# the production mesh on a machine with fewer devices, the Server at tp 2
+CLI_EXITS = {
+    ("--tp", "2"): "pass --strategy tp",
+    ("--production-mesh",): "needs 256 devices",
+    ("--strategy", "tp", "--tp", "2", "--legacy-server"): "item 18",
+}
+
+
+@pytest.mark.parametrize("flag", [list(f) for f in CLI_EXITS])
 def test_serve_cli_tensor_parallel_still_exits(flag):
-    with pytest.raises(SystemExit, match="Queue 1 item 9"):
+    with pytest.raises(SystemExit, match=CLI_EXITS[tuple(flag)]):
         serve.main(CLI + flag)

@@ -320,11 +320,12 @@ def test_sampled_decode_same_host_fetches_as_greedy():
     assert greedy["host_syncs"] == greedy["prefill_calls"] + greedy["decode_steps"]
     real_item = torch.Tensor.item
     calls = []
-    try:
-        torch.Tensor.item = lambda self: (calls.append("item"), real_item(self))[1]
+    # MonkeyPatch deletes the class attribute again on exit (``item`` is
+    # inherited, not in torch.Tensor.__dict__), so no later test in this
+    # process sees it set on torch.Tensor
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.Tensor, "item", lambda self: (calls.append("item"), real_item(self))[1])
         sampled = serve(SamplingParams(temperature=0.8, top_k=20, top_p=0.9, seed=5))
-    finally:
-        torch.Tensor.item = real_item
     assert sampled == greedy
     assert calls == []  # no .item() anywhere on the sampled path
 

@@ -161,12 +161,22 @@ def test_cli_observability_outputs(tmp_path, monkeypatch, capsys):
     assert eng.slo_state()["enabled"] and eng.windowed_vars()["enabled"]
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--replicas", "2", "--tp", "2"], ["--production-mesh"],
-                                  ["--strategy", "tp"]])
+# each flag and why it exits (tensor-parallel serving itself is
+# tests/test_torch_tp_serving.py's)
+CLI_EXITS = {
+    ("--tp", "2"): "pass --strategy tp",
+    ("--replicas", "2", "--tp", "2"): "pass --strategy tp",
+    ("--production-mesh",): "needs 256 devices",
+    ("--strategy", "tp", "--tp", "2", "--legacy-server"): "item 18",
+}
+
+
+@pytest.mark.parametrize("flag", [list(f) for f in CLI_EXITS])
 def test_cli_refuses_distribution(flag):
-    """Tensor parallelism waits for distribution; ``--replicas`` alone
-    serves through the router, tensor-parallel replicas wait too."""
-    with pytest.raises(SystemExit, match="Queue 1 item 9"):
+    """``--tp`` needs ``--strategy tp`` (as the JAX CLI), alone or with
+    ``--replicas``; the production mesh needs 256 devices; the fixed-batch
+    Server is not sharded (ROADMAP Queue 1 item 18)."""
+    with pytest.raises(SystemExit, match=CLI_EXITS[tuple(flag)]):
         serve.main(SMOKE + flag)
 
 

@@ -62,7 +62,8 @@ def test_bench_smoke_runs_every_scenario_with_the_reference_keys(tmp_path, monke
     assert json.loads(out.read_text()) == json.loads(json.dumps(payload, default=float))
     ref = json.loads((ROOT / "BENCH_serve.json").read_text())
     assert set(payload) == set(ref)
-    assert payload["mesh"] == {"waits": "ROADMAP Queue 1 item 9"}
+    mesh = payload["mesh"]  # bench.serve_mesh's payload on the same weights
+    assert mesh["streams_equal"] and mesh["router"]["streams_equal"] and set(mesh["by_tp"]) == {"1", "2"}
     guard = payload["dispatch_guard"]  # enforced at --smoke: a trip raises
     assert guard["enforced"] and guard["clean"] and guard["explicit_syncs"] == guard["steps"]
     assert payload["paged_impl_default"] == "plain" and set(payload["decode_by_impl"]) == {"plain"}
