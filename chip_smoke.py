@@ -192,12 +192,29 @@ Phases; any failure raises and the script exits non-zero:
    H = 8 / 4, Hk = 4 / 2. (c) ``ReplicaRouter(replicas=2, tp=2)`` (4
    shards on the card) serves 16 greedy requests: streams equal to one
    tp 2 engine's bit for bit. (d) ``repro_torch.bench.serve_mesh`` at
-   full width on (a)'s weights, at tp 1 and 8 (its oracle and what (a)
-   does not run; (a) has tp 2 and 4) with its 2-replica router: its rows
+   full width on (a)'s weights, at tp 1 and 2 (its oracle and the
+   smallest split; tp 8 is cut for the time budget) with its 2-replica
+   router: its rows
    beside the card's name and power limit; then the serve CLI with ``--tp 2
    --strategy tp``. The kernels' counts are set to 0 just before each of
    (a), (c) and (d) and read just after: all three launch.
-15. The kernels line (with each kernel's launches in phases 5 to 14, a
+15. Training on a mesh (one card, every position on it): (a) full-width
+   sparse qwen3-1.7b through ``Trainer(mesh=...)`` at B = 4, S = 2048, bf16,
+   1 warm-up and 2 timed steps on the (1, 1) reference, fsdp (2, 1), tp
+   (1, 2) and tp (2, 2) from one state dict: step ms, tokens/s, peak memory,
+   positions and distinct devices; each step's loss and grad norm and the
+   first step's gradient by parameter kind held against (1, 1)'s within
+   ``MESH_TOL``, the parameters' difference relative to (1, 1)'s update
+   printed; two planted faults (``MESH_FAULTS``: a tensor every model shard
+   holds taking its gradient from shard 0 alone; a replica's rows left out
+   of the global label count), one step each, must read above ``MESH_TOL``. (b)
+   ``bsr_matmul`` forward and dX at an fsdp position's M = 4096 and a tp 2
+   shard's block rows at M = 8192 (dX on the transposed pattern of a row
+   slice), ``block_sparse_attention`` at H = 8, Hk = 4, B = 4 and H = 16,
+   Hk = 8, B = 2, each against its plain version and timed as in phase 3.
+   The kernels' counts are set to 0 after each run's warm-up step and read
+   after its last.
+16. The kernels line (with each kernel's launches in phases 5 to 15, a
    row for the b = 32 tensor-core path at ViT-B/16's shapes and one for
    attention at head dim 80), the script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -1038,9 +1055,10 @@ def smoke_step_cpu_vs_card(smoke, tag="7b", batch=None):
     gradient near 0 takes a sign-like first Adam step on either side).
     ``batch`` defaults to 4 x 128 tokens of ``SyntheticLM``; a parameter
     the loss does not reach has a zero gradient."""
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import transformer as T
     from repro_torch.training.data import SyntheticLM
-    from repro_torch.training.loop import make_train_step
+    from repro_torch.training.loop import MeshState, make_train_step
     from repro_torch.training.optimizer import OptConfig, init_opt_state
 
     opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
@@ -1049,13 +1067,14 @@ def smoke_step_cpu_vs_card(smoke, tag="7b", batch=None):
     out = {}
     for dev in ("cpu", "cuda"):
         model = T.init_model(smoke, seed=0, device=dev)
-        params = dict(model.named_parameters())
         if dev == "cpu":
+            params = dict(model.named_parameters())
             loss, _ = T.forward_train(smoke, model, batch)
             g = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
             grads = {n: torch.zeros_like(p) if x is None else x for (n, p), x in zip(params.items(), g)}
-        m = make_train_step(smoke, opt)(model, init_opt_state(opt, params), batch)
-        out[dev] = ({k: float(v) for k, v in m.items()}, {n: p.detach().cpu() for n, p in params.items()})
+        ms = MeshState(smoke, make_local_mesh(devices=[dev]), "fsdp", model.state_dict())
+        m = make_train_step(smoke, opt)(ms, init_opt_state(opt, ms.shards), batch)
+        out[dev] = ({k: float(v) for k, v in m.items()}, ms.state_dict())
     (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
     for key in ("loss", "grad_norm"):
         if not abs(mg[key] - mc[key]) <= 1e-4 * abs(mc[key]):
@@ -1104,7 +1123,7 @@ def full_width_training(full, seed, smi, kernels):
         device="cuda",
     )
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in trainer.params.values())
+    n_params = trainer.model.n_params
     log(f"[7c] full-width trainer: {n_params / 1e6:.1f} M parameters, weights and AdamW state in "
         f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     warm = trainer.run(1)
@@ -1198,21 +1217,22 @@ def smoke_checkpoint_round_trip(smoke):
     a = trainer()
     a.run(2)
     a.checkpoint()
-    snap = {n: p.detach().clone() for n, p in a.params.items()}
-    moments = {key: {n: t.clone() for n, t in a.opt[key].items()} for key in ("mu", "nu")}
+    snap = a.state()
     loss3 = a.run(1)[0]["loss"]
     b = trainer()
     if (b.step, b.opt["step"]) != (2, 2):
         raise AssertionError(f"restored step {b.step}, optimizer step {b.opt['step']}, expected 2")
-    for n, p in b.params.items():
-        if not (torch.equal(p, snap[n]) and all(torch.equal(b.opt[k][n], moments[k][n]) for k in moments)):
+    got = b.state()
+    for n, p in got["params"].items():
+        if not (torch.equal(p, snap["params"][n])
+                and all(torch.equal(got["opt"][k][n], snap["opt"][k][n]) for k in ("mu", "nu"))):
             raise AssertionError(f"checkpoint round trip on the card changed {n}")
     loss3_b = b.run(1)[0]["loss"]
     if loss3_b != loss3:
         raise AssertionError(f"step 3 after restore: loss {loss3_b} != {loss3}")
     shutil.rmtree(ckpt, ignore_errors=True)
     log(f"[7d] smoke checkpoint round trip on the card: step 2 restored bit for bit "
-        f"({len(snap)} parameters and their moments), step 3 loss {loss3:.6f} on both")
+        f"({len(snap['params'])} parameters and their moments), step 3 loss {loss3:.6f} on both")
     return {"loss3": loss3}
 
 
@@ -1536,7 +1556,7 @@ def trainer_steps(full, seed, smi, kernels, tag, traced=False, must_launch=("bsr
     med = statistics.median(step_ms)
     training = {
         "shape": f"B={b} S={s}",
-        "parameters": sum(p.numel() for p in trainer.params.values()),
+        "parameters": trainer.model.n_params,
         "loss": [h["loss"] for h in warm + hist],
         "grad_norm": [h["grad_norm"] for h in warm + hist],
         "step_ms": step_ms,
@@ -2757,9 +2777,10 @@ def tools_on_card(kernels):
 # ----------------------------------------------------------------------
 
 # the tensor-parallel degrees of 14a, and of 14d's bench: its tp 1 oracle
-# and the degree 14a does not run
+# and tp 2 (its tp 8 row is cut for the script's time budget since phase
+# 15 joined it; 14a runs tp 2 and 4)
 TP_DEGREES = (1, 2, 4)
-TP_BENCH = (1, 8)
+TP_BENCH = (1, 2)
 # bf16 logits of a tp engine against tp 1's, absolute, for logits whose
 # largest magnitude is ~4.4 here: a column-parallel shard computes its
 # output slice from the whole input, so the prefill's logits come out
@@ -3070,8 +3091,8 @@ def tp_router(full, sd, eng, seed, smi, kernels):
 
 def tp_bench(sd, smi, kernels):
     """(d) ``repro_torch.bench.serve_mesh`` at full width on the card, on
-    (a)'s weights, at ``TP_BENCH``: tp 1 (its oracle) and tp 8, which (a)
-    does not run, and its 2-replica router, streams asserted equal; its
+    (a)'s weights, at ``TP_BENCH``: tp 1 (its oracle) and tp 2, and its
+    2-replica router, streams asserted equal; its
     payload line goes to the report, its rows to the log beside the card. Then the serve CLI at full width with
     ``--tp 2 --strategy tp``: 8 requests of 512 tokens, 16 new each. The
     kernels' counts are set to 0 just before each and read just after:
@@ -3117,6 +3138,277 @@ def tp_bench(sd, smi, kernels):
     for name in launches:
         launches[name] += cli_launches[name]
     return {"wall_s": wall, "launches": launches, "result": res, "cli": lines[:2], "card": smi}
+
+
+# ----------------------------------------------------------------------
+# phase 15: training on a mesh
+# ----------------------------------------------------------------------
+
+# the meshes of 15a, every position the card: (1, 1) is the reference
+MESH_TRAIN = (("fsdp", (1, 1)), ("fsdp", (2, 1)), ("tp", (1, 2)), ("tp", (2, 2)))
+# a mesh against (1, 1), bf16 at full width: each step's loss (relative),
+# each step's grad norm (relative), and the first step's gradient (the
+# first moment after it) by parameter kind (``tok``, ``blocks``, ``U``, ...:
+# 1 - the cosine of the whole kind's gradient with (1, 1)'s). The first
+# step starts from the same weights, so only rounding separates the meshes
+# there; later steps also carry the sign flips of AdamW's first update
+# where a gradient is near 0. Each planted fault (``planted_train_fault``)
+# must read above one of them: the phase fails if one does not.
+MESH_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "grad_direction": 2e-3}
+# the faults 15a plants, each on the mesh it needs
+MESH_FAULTS = (("replicated grad", "tp", (1, 2)), ("global count", "fsdp", (2, 1)))
+
+
+@contextlib.contextmanager
+def planted_train_fault(kind):
+    """A fault in the mesh trainer for the length of the block. "replicated
+    grad": a tensor every model shard holds (the norm scales, U, γ) takes
+    its gradient from shard 0 alone, where the sum over the shards is
+    right. "global count": the second data replica's rows are left out of
+    the global count of labels that divides every replica's NLL sum."""
+    from repro_torch.training import loop
+
+    if kind == "replicated grad":
+        name, orig = "accumulate", loop.MeshState.accumulate
+
+        def faulty(self, acc, param, m, grad):
+            if m and self.model_dim[param] is None:
+                return None
+            return orig(self, acc, param, m, grad)
+
+        owner = loop.MeshState
+    elif kind == "global count":
+        name, orig, owner = "_global_count", loop._global_count, loop
+
+        def faulty(labels, device):
+            return orig(labels[:1] + labels[2:], device)
+    else:
+        raise ValueError(kind)
+    setattr(owner, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def _kind_of(name: str) -> str:
+    return name.rsplit(".", 1)[-1]
+
+
+def mesh_run(full, sd, data, opt, strategy, shape, device, kernels, *, ref=None, fault=None, steps=3):
+    """One ``Trainer`` on a mesh of ``shape`` whose every position is
+    ``device``, from the state dict ``sd``: ``steps`` steps (the first a
+    warm-up, the kernels' counts set to 0 after it and read after the
+    last), each step's loss and grad norm; with ``ref`` (the (1, 1) run's)
+    the comparison of ``MESH_TOL`` and each step's parameter difference
+    relative to the (1, 1) update, else the snapshots and first moments a
+    comparison needs."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.training.loop import TrainConfig, Trainer
+
+    import shutil
+
+    ckpt = ROOT / "build" / "chip_smoke_mesh_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    n = shape[0] * shape[1]
+    mesh = make_local_mesh(*shape, devices=[device] * n)
+    t0 = time.perf_counter()
+    tr = Trainer(full, opt, data, TrainConfig(ckpt_dir=str(ckpt), ckpt_every=10 ** 9, log_every=10 ** 9),
+                 mesh=mesh, strategy=strategy, params=sd)
+    build_s = time.perf_counter() - t0
+    ms = tr.model
+    out = {"strategy": strategy, "mesh": list(shape), "positions": n, "distinct_devices": mesh.distinct_devices,
+           "build_s": build_s, "fault": fault}
+    snaps = [ms.state_dict(device)] if ref is None else None
+    hist, param_rel, launches = [], [], {}
+    with planted_train_fault(fault) if fault else contextlib.nullcontext():
+        for i in range(steps):
+            if i == 1:
+                for k in kernels.values():
+                    k.launches = 0
+            hist += tr.run(1)
+            if i == 0:
+                # the first step's gradient by kind: its first moment
+                mu = {name: ms.unshard({name: tr.opt["mu"][name]}, device)[name] for name in ms.shapes}
+                if ref is None:
+                    out["mu"] = mu
+                else:
+                    sums = {}
+                    for name, m in mu.items():
+                        r = ref["mu"][name]
+                        a, b, c = sums.get(_kind_of(name), (0.0, 0.0, 0.0))
+                        sums[_kind_of(name)] = (a + float((m * r).sum()), b + float((m * m).sum()),
+                                                c + float((r * r).sum()))
+                    out["grad_direction"] = {k: 1.0 - a / math.sqrt(b * c) if b * c > 0 else 0.0
+                                             for k, (a, b, c) in sums.items()}
+                del mu
+            if ref is None:
+                snaps.append(ms.state_dict(device))
+            else:
+                worst = upd = num = den = 0.0
+                for name in ms.shapes:
+                    p = ms.unshard({name: ms.shards[name]}, device)[name].float()
+                    r1, r0 = ref["snaps"][i + 1][name].float(), ref["snaps"][i][name].float()
+                    worst, upd = max(worst, float((p - r1).abs().max())), max(upd, float((r1 - r0).abs().max()))
+                    num, den = num + float((p - r1).square().sum()), den + float((r1 - r0).square().sum())
+                param_rel.append({"max": worst / upd if upd else 0.0,
+                                  "l2": math.sqrt(num / den) if den else 0.0})
+    if device == "cuda":
+        torch.cuda.synchronize()
+        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = {name: k.launches for name, k in kernels.items()}
+    out["loss"] = [h["loss"] for h in hist]
+    out["grad_norm"] = [h["grad_norm"] for h in hist]
+    out["step_ms"] = [1e3 * h["step_time_s"] for h in hist[1:]]
+    med = statistics.median(out["step_ms"]) if out["step_ms"] else float("nan")
+    out["step_ms_median"] = med
+    out["train_tok_s"] = data.batch_size * data.seq_len / (med / 1e3)
+    for h in hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"15a {strategy} {shape}: step {h['step']} loss {h['loss']} grad_norm {h['grad_norm']}")
+    if ref is None:
+        out["snaps"] = snaps
+    else:
+        out["param_update_rel"] = param_rel
+        out["read"] = {
+            "loss": max(abs(a - b) / abs(b) for a, b in zip(out["loss"], ref["loss"])),
+            "grad_norm": max(abs(a - b) / abs(b) for a, b in zip(out["grad_norm"], ref["grad_norm"])),
+            "grad_direction": max(out["grad_direction"].values()),
+        }
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del tr, ms
+    return out
+
+
+def mesh_training(full, seed, smi, kernels, device="cuda"):
+    """(a) Full-width sparse qwen3-1.7b (bf16, seed 0) through ``Trainer`` on
+    the meshes of ``MESH_TRAIN``, every position the card, at B = 4, S =
+    2048: 1 warm-up and 2 timed steps each, from one state dict. Each mesh
+    against (1, 1): its losses, grad norms and first-step gradient by
+    parameter kind within ``MESH_TOL``, its parameters after each step
+    beside (1, 1)'s update (printed, not held: bf16 rounding and AdamW's
+    sign-like first step flip near-zero updates), its step ms, tokens/s,
+    peak memory, positions and distinct devices. Then each of
+    ``MESH_FAULTS`` for one step (its first step reads both faults): it
+    must read above ``MESH_TOL``. The kernels' counts are set to 0 after each run's warm-up step and read
+    after its last: both training kernels must launch, the paged read
+    never."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import OptConfig
+
+    t0 = time.perf_counter()
+    sd = T.init_model(full, seed=seed, device=device).state_dict()
+    log(f"[15a] full-width qwen3-1.7b sparse weights in {time.perf_counter() - t0:.1f} s (shared by every mesh)")
+    data = SyntheticLM(full.vocab_size, 2048, 4, seed=seed)
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    runs, ref = {}, None
+    for strategy, shape in MESH_TRAIN:
+        row = mesh_run(full, sd, data, opt, strategy, shape, device, kernels, ref=ref)
+        key = f"{strategy} {tuple(shape)}"
+        if ref is None:
+            ref = row
+        for name in ("bsr_matmul", "block_sparse_attention"):
+            if device == "cuda" and row["launches"][name] <= 0:
+                raise AssertionError(f"15a: kernel {name} was never launched at {key}")
+        if row["launches"]["paged_decode_attention"]:
+            raise AssertionError(f"15a: paged_decode_attention launched in training at {key}")
+        read = row.get("read", {})
+        log(f"[15a] {key} ({row['positions']} position(s) on {row['distinct_devices']} device(s); {smi}): "
+            f"steps {', '.join(f'{x:.1f}' for x in row['step_ms'])} ms (median {row['step_ms_median']:.1f}, "
+            f"{row['train_tok_s']:.0f} train tokens/s), peak memory {row.get('max_memory_allocated_gb', 0):.2f} GB; "
+            f"losses {', '.join(f'{x:.6f}' for x in row['loss'])}, grad norms "
+            f"{', '.join(f'{x:.6f}' for x in row['grad_norm'])}; launches {row['launches']}")
+        if read:
+            log(f"[15a] {key} vs (1, 1): loss {read['loss']:.3e} (tol {MESH_TOL['loss']:g}), grad norm "
+                f"{read['grad_norm']:.3e} (tol {MESH_TOL['grad_norm']:g}), first-step gradient direction "
+                f"{read['grad_direction']:.3e} (tol {MESH_TOL['grad_direction']:g}; by kind "
+                + ", ".join(f"{k} {v:.2e}" for k, v in row["grad_direction"].items())
+                + "); parameters after each step vs (1, 1)'s, relative to its update: max "
+                + ", ".join(f"{x['max']:.3f}" for x in row["param_update_rel"]) + "; l2 "
+                + ", ".join(f"{x['l2']:.4f}" for x in row["param_update_rel"]))
+            bad = {k: v for k, v in read.items() if v > MESH_TOL[k]}
+            if bad:
+                raise AssertionError(f"15a: {key} off (1, 1) by {bad} (tol {MESH_TOL})")
+        runs[key] = {k: v for k, v in row.items() if k not in ("snaps", "mu")}
+    faults = {}
+    for kind, strategy, shape in MESH_FAULTS:
+        row = mesh_run(full, sd, data, opt, strategy, shape, device, kernels, ref=ref, fault=kind, steps=1)
+        read = row["read"]
+        over = {k: v / MESH_TOL[k] for k, v in read.items()}
+        log(f"[15a] a planted {kind} fault at {strategy} {tuple(shape)}: vs (1, 1) loss {read['loss']:.3e}, grad "
+            f"norm {read['grad_norm']:.3e}, gradient direction {read['grad_direction']:.3e} ("
+            + ", ".join(f"{k} {v:.1f}x" for k, v in over.items()) + " its tolerance)")
+        if max(over.values()) <= 1.0:
+            raise AssertionError(f"15a: a planted {kind} fault reads {read}, within {MESH_TOL}")
+        faults[kind] = {k: v for k, v in row.items() if k not in ("snaps", "mu")}
+    del ref, sd
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    launches = {name: sum(r["launches"][name] for r in runs.values()) for name in kernels}
+    return {"runs": runs, "faults": faults, "tol": MESH_TOL, "launches": launches, "card": smi}
+
+
+def mesh_kernels(timer, full, seed):
+    """(b) The two training kernels at the shard shapes 15a adds, against
+    their plain versions and timed as phase 3 times them: ``bsr_matmul``
+    forward and dX (on the transposed pattern, its padding share reported)
+    for q, k/v, gate/up and down at an fsdp (2, 1) position's M = 4096 and
+    at a tp 2 shard's block rows (rank 0 timed, rank 1 checked) at M =
+    8192, where dX runs on the transposed pattern of a row slice over all
+    input blocks; ``block_sparse_attention`` at H = 8, Hk = 4, B = 4 (tp 2)
+    and H = 16, Hk = 8, B = 2 (fsdp 2)."""
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.models import layers as L
+
+    specs = {
+        "q": L.linear_spec(full, full.d_model, full.q_dim, False),
+        "k/v": L.linear_spec(full, full.d_model, full.kv_dim, False),
+        "gate/up": L.linear_spec(full, full.d_model, full.d_ff, False),
+        "down": L.linear_spec(full, full.d_ff, full.d_model, False),
+    }
+    out = {"bsr_matmul": [], "block_sparse_attention": []}
+    for label, spec in specs.items():
+        pat = spec.pattern()
+        nb_in = spec.in_features // pat.block
+        for where, m, tp in (("fsdp (2, 1) position", 4096, 1), ("tp 2 shard", 8192, 2)):
+            nb = pat.nb_out // tp
+            g = torch.Generator(device="cuda").manual_seed(seed + 150 + m + tp)
+            x = torch.randn((m, spec.in_features), generator=g, device="cuda").to(torch.bfloat16)
+            dy = torch.randn((m, nb * pat.block), generator=g, device="cuda").to(torch.bfloat16)
+            for r in range(tp):
+                blocks = (torch.randn((nb, pat.r, pat.block, pat.block), generator=g, device="cuda")
+                          / math.sqrt(pat.r * pat.block)).to(torch.bfloat16)
+                tables = AG.bsr_tables(pat.cols[r * nb : (r + 1) * nb], nb_in, "cuda")
+                fwd = bsr_row(timer, x, blocks, tables.cols, spec.in_features, nb * pat.r, 2e-2,
+                              f"{where} {label} rank {r}", timed=r == 0)
+                bt = AG.transposed_blocks(blocks, tables)
+                dx = bsr_row(timer, dy, bt, tables.cols_t, nb * pat.block, nb * pat.r, 2e-2,
+                             f"{where} {label} dX rank {r}", timed=r == 0)
+                if r:
+                    continue
+                real = float(tables.valid.float().mean())
+                fwd.update(where=where, linear=label)
+                dx.update(where=where, linear=label, transposed=list(tables.cols_t.shape), real_slot_share=real)
+                fwd["pass"], dx["pass"] = "forward", "dX"
+                out["bsr_matmul"] += [fwd, dx]
+                for row in (fwd, dx):
+                    log(f"[15b] bsr_matmul {where} {label:7s} {row['pass']:7s} {row['shape']}"
+                        + (f" (transposed {tuple(tables.cols_t.shape)}, {real:.0%} real slots)" if row is dx else "")
+                        + f": err {row['max_abs_err']:.2e} kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+                        f"x@dense {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    for where, b, h, hk in (("tp 2 shard", 4, 8, 4), ("fsdp (2, 1) position", 2, 16, 8)):
+        row = attention_case(timer, b=b, s=2048, h=h, hk=hk, d=128, block=128, dtype=torch.bfloat16,
+                             seed=seed + 160 + b, tol=2e-2)
+        row["where"] = where
+        out["block_sparse_attention"].append(row)
+        log(f"[15b] block_sparse_attention {where} {row['shape']}: err {row['max_abs_err']:.2e} (tol {row['tol']:g}) "
+            f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms "
+            f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return out
 
 
 def main(argv=None) -> int:
@@ -3455,7 +3747,15 @@ def main(argv=None) -> int:
     report["tensor_parallel"] = tp
     log(f"[14] phase 14 took {tp['wall_s']:.1f} s")
 
-    # ---- 15. report ------------------------------------------------
+    # ---- 15. training on a mesh -------------------------------------
+    t15 = time.perf_counter()
+    mesh_train = {"training": mesh_training(full, args.seed, smi, kernels),
+                  "kernels": mesh_kernels(timer, full, args.seed)}
+    mesh_train["wall_s"] = time.perf_counter() - t15
+    report["mesh_training"] = mesh_train
+    log(f"[15] phase 15 took {mesh_train['wall_s']:.1f} s")
+
+    # ---- 16. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -3550,6 +3850,8 @@ def main(argv=None) -> int:
                                  + analysis["tools"]["launches"][k["name"]])
         k["launches_phase14"] = (sum(r["launches"][k["name"]] for r in tp["serving"].values())
                                  + tp["router"]["launches"][k["name"]] + tp["bench"]["launches"][k["name"]])
+        if k["name"] != "paged_decode_attention":  # training on a mesh runs the other two
+            k["launches_phase15"] = mesh_train["training"]["launches"][k["name"]]
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -3559,7 +3861,7 @@ def main(argv=None) -> int:
                              f"SDPA's {paged_main['library_ms']:.4f} ms on the same inputs")
     report["wall_s"] = time.perf_counter() - T_START
     out.write_text(json.dumps(report, indent=1))
-    log(f"[15] chip_smoke.py took {report['wall_s']:.1f} s")
+    log(f"[16] chip_smoke.py took {report['wall_s']:.1f} s")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -99,7 +99,7 @@ def run_arm(
     out = {
         "config": cfg.name,
         "sparse": cfg.sparse,
-        "parameters": sum(p.numel() for p in trainer.params.values()),
+        "parameters": trainer.model.n_params,
         "step_ms": step_ms,
         "step_ms_median": med,
         "train_tok_s": batch * seq / (med / 1e3),

@@ -1,6 +1,6 @@
-"""Collectives of the one-controller tensor-parallel engine: each takes one
-tensor a shard (a list in rank order) and gives each shard its result on
-that shard's device.
+"""Collectives of the one-controller tensor-parallel engine and mesh
+trainer: each takes one tensor a shard (a list in rank order) and gives
+each shard its result on that shard's device.
 
 A collective here is a device-to-device copy (peer to peer between two
 cards; nothing on one card) followed by a concatenation or a sum, taken in
@@ -8,7 +8,10 @@ rank order, so a result does not depend on which device computed it. A
 result is computed once for each distinct device and shared by the shards
 on that device: on one card, ``tp`` shards share one tensor. There are no
 process groups: the engine's one Python process drives every shard, as
-the JAX package's engine drives one GSPMD program over its mesh.
+the JAX package's engine drives one GSPMD program over its mesh. Every
+join is differentiable (one process holds the whole autograd graph):
+``all_gather``'s backward sums each shard's slice of the gradient, and
+``reduce_scatter`` is what the mesh trainer's gradients go through.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Callable, Sequence, TypeVar
 
 import torch
 
-__all__ = ["per_device", "broadcast", "gather", "all_gather", "all_reduce"]
+__all__ = ["per_device", "broadcast", "gather", "all_gather", "all_reduce", "reduce_scatter", "reduce_scalars"]
 
 T = TypeVar("T")
 
@@ -63,3 +66,47 @@ def all_reduce(shards: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         return acc.to(shards[0].dtype)
 
     return per_device(total, [s.device for s in shards])
+
+
+def reduce_scatter(
+    fulls: Sequence[torch.Tensor],
+    dim: int | None,
+    shard_sizes: Sequence[int],
+    devices: Sequence[torch.device] | None = None,
+    *,
+    out: list[torch.Tensor] | None = None,
+) -> list[torch.Tensor]:
+    """The sum of ``fulls`` (one tensor a position, in rank order), cut
+    along ``dim`` into ``shard_sizes``: shard i gets slice i of the sum,
+    on ``devices[i]`` (default: ``fulls[i]``'s device, one shard a
+    position). ``dim=None`` is one whole shard (an all-reduce to one
+    owner; ``shard_sizes`` then has one entry, unread). With ``out`` (the
+    shards of an earlier call, None where there are none yet) the slices
+    are added to it, so a caller that computes the positions' tensors in
+    turn holds one at a time; the sum is the same, term by term in rank
+    order. A sum of two or more terms is fp32; a slice with one term is
+    that term, in its own dtype (exact, and no copy)."""
+    if devices is None:
+        devices = [f.device for f in fulls]
+    if out is None:
+        out = [None] * len(shard_sizes)
+    for full in fulls:
+        a = 0
+        for i, n in enumerate(shard_sizes):
+            part = full if dim is None else full.narrow(dim, a, n)
+            a += 0 if dim is None else n
+            part = part.to(out[i].device if out[i] is not None else devices[i])
+            out[i] = part if out[i] is None else out[i].float() + part.float()
+    return out
+
+
+def reduce_scalars(values: Sequence[torch.Tensor], op: str, device: torch.device | str) -> torch.Tensor:
+    """The sum or max (``op``) of 0-d tensors, in the order given, on
+    ``device``: one stack and one reduction, so the same values in the
+    same order give the same bits on one device."""
+    stacked = torch.stack([v.to(device) for v in values])
+    if op == "sum":
+        return stacked.sum()
+    if op == "max":
+        return stacked.max()
+    raise ValueError(f"unknown op {op!r}")

@@ -17,14 +17,18 @@ one as None, as ``jax.sharding.PartitionSpec`` normalises them).
 The JAX package gives a spec to GSPMD, which lays the array out across the
 mesh (``named``) and keeps it there inside a jitted step
 (``constrain_pools``). Those two have no counterpart here: in the port a
-layout *is* its shards. ``shard_state_dict`` cuts a state dict into one
-dict a position of the model axis, each tensor sliced along the axis its
-spec puts on ``model``; a tensor-parallel engine holds those shards, one
-on each device of its mesh, and joins their results with
-``distributed.collectives``. The state dict is the port's (one module a
-layer), so a spec has no leading layer entry: the JAX spec of a leaf
-stacked over a layer group, without its first entry, is the spec of each
-layer's tensor (``bridge.port_names``).
+layout *is* its shards. ``position_slices`` gives each position of a mesh
+its slice of a tensor, as ``NamedSharding(mesh, spec).devices_indices_map``
+places it (a dimension whose entry is a tuple of axes is cut into the
+product of their sizes, position ``(i_a, i_b)`` taking block ``i_a * size_b
++ i_b``); ``shard_state_dict`` cuts a state dict into one dict a position,
+``unshard_state_dict`` puts it back. A tensor-parallel engine holds the
+shards of a ``(1, tp)`` mesh, one on each device, and joins their results
+with ``distributed.collectives``; the mesh ``Trainer`` holds the shards of
+any mesh and gathers and reduce-scatters them (``training.loop``). The
+state dict is the port's (one module a layer), so a spec has no leading
+layer entry: the JAX spec of a leaf stacked over a layer group, without its
+first entry, is the spec of each layer's tensor (``bridge.port_names``).
 
 ``check_tp`` refuses what the port's shard-local forms do not cover, each
 refusal naming the ROADMAP item that would shard it.
@@ -32,6 +36,7 @@ refusal naming the ROADMAP item that would shard it.
 
 from __future__ import annotations
 
+import itertools
 import re
 from typing import Any, Mapping
 
@@ -48,6 +53,9 @@ __all__ = [
     "batch_specs",
     "cache_specs",
     "model_dim",
+    "positions",
+    "position_slices",
+    "take",
     "shard_state_dict",
     "unshard_state_dict",
     "check_tp",
@@ -60,7 +68,8 @@ REFUSED = {
                  "fallback and the other layouts of the JAX rules)",
     "experts": "ROADMAP Queue 1 item 17 (expert parallelism)",
     "ssm": "ROADMAP Queue 1 item 18 (the SSM Server at tp > 1)",
-    "fsdp": "ROADMAP Queue 1 item 15 (--strategy and the FSDP-sharded state, item 9's training half)",
+    "engine_fsdp": "ROADMAP Queue 1 item 20 (an Engine holding FSDP-sharded weights on a (data, model) mesh, "
+                   "the JAX Engine's strategy=\"fsdp\" on such a mesh)",
     "roofline": "ROADMAP Queue 1 item 14 (the dry-run, which counts the collectives)",
 }
 
@@ -307,9 +316,11 @@ def cache_specs(st: Strategy, caches, *, layout: str = "decode") -> Any:
 
 
 def model_dim(st: Strategy, spec: PartitionSpec) -> int | None:
-    """The dimension a spec shards over the model axis alone (None if it
-    is replicated there). A spec that puts the model axis in a tuple with
-    other axes is not a layout of this port."""
+    """The dimension a tensor-parallel spec shards over the model axis (None
+    if it is replicated there, and always under ``Strategy("fsdp")``, which
+    has no model axis). The tensor-parallel forms shard a dimension over
+    the model axis alone: a spec that puts the model axis in a tuple with
+    other axes is not one of their layouts."""
     for d, e in enumerate(spec):
         if e == st.model_axis and e is not None:
             return d
@@ -318,38 +329,91 @@ def model_dim(st: Strategy, spec: PartitionSpec) -> int | None:
     return None
 
 
-def _slice(t: torch.Tensor, dim: int | None, rank: int, tp: int) -> torch.Tensor:
-    if dim is None:
-        return t
-    n = t.shape[dim] // tp
-    # a slice of dim 0 is a view that shares the state dict's storage
-    return t.narrow(dim, rank * n, n).contiguous()
+def _axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def positions(mesh: Mesh) -> list[dict[str, int]]:
+    """Every position's coordinates (axis -> index), row-major over the
+    mesh's axes: position i stands at ``mesh.devices.flat[i]``."""
+    return [dict(zip(mesh.axis_names, c)) for c in itertools.product(*(range(n) for n in mesh.shape.values()))]
+
+
+def position_slices(mesh: Mesh, spec: PartitionSpec, shape) -> list[tuple[tuple[int, int], ...]]:
+    """Each position's slice of a tensor of ``shape`` laid out by ``spec``,
+    row-major over the positions: one (start, stop) a dimension. A
+    dimension whose entry names axes ``(a, b, ...)`` is cut into the
+    product of their sizes and position ``(i_a, i_b, ...)`` takes block
+    ``(i_a * size_b + i_b) ...`` (row-major in the tuple's order), as
+    ``NamedSharding(mesh, spec).devices_indices_map(shape)`` places it."""
+    shape = tuple(int(n) for n in shape)
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for coords in positions(mesh):
+        sl = []
+        for n, e in zip(shape, entries):
+            idx, count = 0, 1
+            for a in _axes(e):
+                idx, count = idx * mesh.shape[a] + coords[a], count * mesh.shape[a]
+            if n % count:
+                raise ValueError(f"spec {spec} cuts a dimension of {n} into {count}")
+            sl.append((idx * n // count, (idx + 1) * n // count))
+        out.append(tuple(sl))
+    return out
+
+
+def take(t: torch.Tensor, sl: tuple[tuple[int, int], ...]) -> torch.Tensor:
+    """The slice ``sl`` of ``t`` (``position_slices``'s form), contiguous:
+    ``t`` itself where the slice is the whole tensor, a view where only
+    dimension 0 is cut."""
+    for d, (a, b) in enumerate(sl):
+        if (a, b) != (0, t.shape[d]):
+            t = t.narrow(d, a, b - a)
+    return t.contiguous()
 
 
 def shard_state_dict(
     st: Strategy, mesh: Mesh, state_dict: Mapping[str, torch.Tensor]
 ) -> list[dict[str, torch.Tensor]]:
-    """One state dict a position of the model axis: each tensor sliced
-    along the dimension its spec puts on ``model`` (replicated tensors are
-    the same tensor in every shard). Tensors stay where they are; the
-    engine moves each shard to its device."""
-    tp = st.tp_size
+    """One state dict a position of ``mesh`` (row-major), each tensor cut
+    by its spec (``position_slices``); positions that hold the same slice
+    share one tensor, and a replicated tensor is the state dict's own in
+    every position. Tensors stay where they are; the caller moves each
+    shard to its device."""
     specs = param_specs(st, state_dict)
-    dims = {name: model_dim(st, s) for name, s in specs.items()}
-    return [{name: _slice(t, dims[name], r, tp) for name, t in state_dict.items()} for r in range(tp)]
+    out: list[dict[str, torch.Tensor]] = [{} for _ in range(mesh.size)]
+    for name, t in state_dict.items():
+        cut: dict = {}
+        for p, sl in enumerate(position_slices(mesh, specs[name], t.shape)):
+            if sl not in cut:
+                cut[sl] = take(t, sl)
+            out[p][name] = cut[sl]
+    return out
 
 
 def unshard_state_dict(
     st: Strategy, shards: list[Mapping[str, torch.Tensor]], specs: Mapping[str, PartitionSpec]
 ) -> dict[str, torch.Tensor]:
-    """The inverse of ``shard_state_dict``, given the full tensors' specs
-    (``param_specs`` of the state dict that was cut), on the first shard's
-    device: a sharded tensor's slices concatenated in rank order, a
-    replicated tensor taken from the first shard."""
+    """The inverse of ``shard_state_dict`` over ``st.mesh``, given the full
+    tensors' specs (``param_specs`` of the state dict that was cut), on the
+    first shard's device: each slice put back where its first position
+    holds it; a replicated tensor is the first shard's."""
     out = {}
     for name, t in shards[0].items():
-        d = model_dim(st, specs[name])
-        out[name] = t if d is None else torch.cat([s[name].to(t.device) for s in shards], dim=d)
+        shape = [n * max(1, int(np.prod([st.mesh.shape[a] for a in _axes(e)], dtype=np.int64)))
+                 for n, e in zip(t.shape, tuple(specs[name]) + (None,) * t.ndim)]
+        if list(t.shape) == shape:
+            out[name] = t
+            continue
+        full = torch.empty(shape, dtype=t.dtype, device=t.device)
+        done = set()
+        for p, sl in enumerate(position_slices(st.mesh, specs[name], shape)):
+            if sl not in done:
+                done.add(sl)
+                full[tuple(slice(a, b) for a, b in sl)] = shards[p][name].to(t.device)
+        out[name] = full
     return out
 
 

@@ -58,7 +58,7 @@ def run_one(density: float, lowrank_frac: float, steps: int, device=None) -> tup
         device=device,
     )
     hist = tr.run()
-    n = sum(p.numel() for p in tr.params.values())
+    n = tr.model.n_params
     del tr
     shutil.rmtree(CKPT, ignore_errors=True)
     return float(np.mean([h["loss"] for h in hist[-5:]])), n

@@ -1,9 +1,13 @@
-"""Training launcher of the port, on one device (the card by default).
+"""Training launcher of the port, the JAX ``launch/train.py``'s flags: the
+``Trainer`` on ``make_local_mesh()`` over every card (over ``[--device]``
+when a device is given) under ``--strategy`` (``fsdp``, the default, or
+``tp``); ``--production-mesh`` exits on a machine with fewer than the 256
+devices of the 16 x 16 mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --sparse \\
       --steps 20 --batch 4 --seq 2048 --ckpt-dir build/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --sparse \\
-      --smoke --steps 30 --batch 4 --seq 128 --device cpu
+      --smoke --steps 30 --batch 4 --seq 128 --device cpu --strategy tp
 
 With ``--smoke`` the reduced config trains on a 512-token synthetic
 vocabulary; ``--data-file`` trains on the bytes of a local file instead.
@@ -15,7 +19,10 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
 from repro_torch.configs import registry
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.training.data import EmbedsWrapper, SyntheticLM, TextFileLM
 from repro_torch.training.loop import TrainConfig, Trainer
 from repro_torch.training.optimizer import OptConfig
@@ -50,9 +57,18 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data-file", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--strategy", choices=["tp", "fsdp"], default="fsdp")
+    ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--compress-grads", action="store_true")
-    ap.add_argument("--device", default=None, help="default: the card; 'cpu' for the plain versions")
+    ap.add_argument("--device", default=None, help="default: every card; 'cpu' for the plain versions")
     args = ap.parse_args(argv)
+    if args.production_mesh:
+        mesh = make_production_mesh()
+        have = torch.cuda.device_count() if args.device is None else 1
+        raise SystemExit(
+            f"--production-mesh: the {mesh.shape} mesh needs {mesh.size} devices, this machine "
+            f"has {have}"
+        )
 
     if args.smoke:
         cfg = registry.get_smoke(args.arch, sparse=args.sparse)
@@ -72,7 +88,8 @@ def main(argv=None):
             steps=args.steps, ckpt_dir=args.ckpt_dir,
             ckpt_every=args.ckpt_every, seed=args.seed,
         ),
-        device=args.device,
+        mesh=make_local_mesh(devices=None if args.device is None else [args.device]),
+        strategy=args.strategy,
     )
     hist = trainer.run()
     if hist:

@@ -39,7 +39,7 @@ from repro_torch.core import budget as budget_lib
 from repro_torch.core import butterfly
 from repro_torch.models import layers as L
 
-__all__ = ["MoeSpec", "Routing", "Moe", "capacity", "route", "apply_moe"]
+__all__ = ["MoeSpec", "Routing", "Moe", "capacity", "routing_groups", "route", "apply_moe"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +145,15 @@ class Routing:
     lb_loss: torch.Tensor
 
 
+def routing_groups(cfg: ModelConfig, tokens: int) -> int:
+    """The routing groups of ``tokens`` tokens: ``cfg.moe_routing_groups``,
+    lowered until it divides them (at least 1)."""
+    groups = max(1, min(cfg.moe_routing_groups, tokens))
+    while tokens % groups:
+        groups -= 1
+    return groups
+
+
 def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor) -> Routing:
     """The reference's routing of x (B, S, D): groups, fp32 softmax over
     the router's logits, top-k with gates renormalised, the Switch-style
@@ -152,9 +161,7 @@ def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor) -> Routing:
     b, s, d = x.shape
     e, k = cfg.moe_num_experts, cfg.moe_top_k
     tokens = b * s
-    groups = max(1, min(cfg.moe_routing_groups, tokens))
-    while tokens % groups:
-        groups -= 1
+    groups = routing_groups(cfg, tokens)
     t = tokens // groups
     xf = x.reshape(groups, t, d)
     logits = torch.matmul(xf.float(), router.float())

@@ -23,6 +23,7 @@ Entry points:
                                   -> ((B, V) last-token logits, caches)
   decode_step(cfg, model, caches, tokens, pos)     -> ((B, V) logits, caches)
   shard_model(cfg, mesh, state_dict)               -> ShardedLM (tp shards)
+  build_shards(cfg, devices, parts, trainable=)    -> ShardedLM of given slices
   init_paged_cache(cfg, n_pages, page, device=)    -> [{"k", "v"}] per group
   prefill_paged(cfg, model, tokens, plens, caches, page_rows,
                 prefix_rows=, prefix_lens=, full_tokens=, full_plens=,
@@ -33,7 +34,8 @@ Entry points:
                     sampler=, sampler_candidates=)
                                   -> ((B, V) logits, caches)
                                      or (tokens (B,), caches, presence)
-  forward_train(cfg, model, batch) -> (loss, {"nll", "lb_loss"})
+  forward_train(cfg, model, batch, count=)  -> (loss, {"nll", "lb_loss"})
+                                     (model an LM or a ShardedLM)
 Every entry point runs on the card unless the caller passes another device.
 ``forward_train`` and ``prefill`` take a batch of ``tokens`` or of
 ``embeds`` (B, S, d_model), the stub modality frontends' contract (vlm,
@@ -57,6 +59,9 @@ and its slice of the MLP, and ``layers.tp_project`` and the vocab-sharded
 embedding and logits join them (``distributed.collectives``); the
 residual stream and the norms are replicated. The logits are gathered
 onto the first shard's device, where the fused sampler runs once.
+``forward_train`` takes a ``ShardedLM`` too (``build_shards(...,
+trainable=True)``, the mesh trainer's, ``training.loop``): the same layers
+in training mode, and a vocab-sharded cross-entropy.
 """
 
 from __future__ import annotations
@@ -85,6 +90,10 @@ __all__ = [
     "init_model",
     "ShardedLM",
     "shard_model",
+    "build_shards",
+    "check_tp_layout",
+    "skeleton",
+    "assign",
     "init_cache",
     "prefill",
     "decode_step",
@@ -204,16 +213,16 @@ def init_model(
 
 
 class ShardedLM(nn.Module):
-    """``tp`` shards of an ``LM`` for tensor-parallel serving, built by
-    ``shard_model``. ``shards[r]`` is an ``LM`` whose tensors are shard r's
+    """``tp`` shards of an ``LM``, built by ``shard_model`` or
+    ``build_shards``. ``shards[r]`` is an ``LM`` whose tensors are shard r's
     slices, on ``devices[r]``; ``vocab_first[r]`` is the first token id of
     its rows of the token table."""
 
-    def __init__(self, cfg: ModelConfig, mesh: Mesh, shards: list[LM]):
+    def __init__(self, cfg: ModelConfig, devices: list[torch.device], shards: list[LM]):
         super().__init__()
         self.cfg = cfg
         self.shards = nn.ModuleList(shards)
-        self.devices = mesh.model_devices()
+        self.devices = list(devices)
         rows = shards[0].embed.tok.shape[0]
         self.vocab_first = [r * rows for r in range(len(shards))]
 
@@ -232,45 +241,75 @@ _TP_LAYOUT = (
 )
 
 
-def shard_model(cfg: ModelConfig, mesh: Mesh, state_dict: dict[str, torch.Tensor]) -> ShardedLM:
-    """Cut ``state_dict`` (an ``LM``'s, full) into the shards of a ``(1,
-    tp)`` mesh by ``distributed.sharding``'s tensor-parallel specs; shard r
-    goes to the mesh's device r (a slice of dim 0 stays a view where the
-    device and dtype already match, so shards on the state dict's own
-    device share its memory). Each shard is an ``LM`` built on the meta
-    device that takes its tensors; its pixelfly linears learn their block
-    rows of the global pattern (``Linear.rows``). Refuses (``ValueError``)
-    any configuration ``sharding.check_tp`` refuses and any tensor whose
-    spec is not the layout the shard-local forms compute."""
-    st = sharding.Strategy(mesh, "tp")
+def check_tp_layout(cfg: ModelConfig, st: sharding.Strategy, shapes: dict) -> dict:
+    """Refuse (``ValueError``) any configuration ``sharding.check_tp``
+    refuses and any tensor whose tensor-parallel spec is not the layout the
+    shard-local forms compute. ``shapes``: a state dict (or anything with
+    shapes). Returns the specs."""
     tp = st.tp_size
     sharding.check_tp(cfg, tp)
-    specs = sharding.param_specs(st, state_dict)
+    specs = sharding.param_specs(st, shapes)
     for name, spec in specs.items():
         want = next((d for pat, d in _TP_LAYOUT if re.search(pat, name)), "none of the port's")
         got = sharding.model_dim(st, spec)
         if got != want:
             raise ValueError(
-                f"{cfg.name} at tp={tp}: {name} {tuple(state_dict[name].shape)} has spec {spec}, not the "
+                f"{cfg.name} at tp={tp}: {name} {tuple(shapes[name].shape)} has spec {spec}, not the "
                 f"layout of the port's tensor-parallel forms; {sharding.REFUSED['attention']}"
             )
-    parts = sharding.shard_state_dict(st, mesh, state_dict)
-    devices = mesh.model_devices()
+    return specs
+
+
+def skeleton(cfg: ModelConfig) -> LM:
+    """An ``LM`` on the meta device (no random draw), to take tensors by
+    ``assign``."""
+    meta = torch.device("meta")
+    with meta:
+        return LM(cfg, gen=torch.Generator(), device=meta)
+
+
+def assign(model: nn.Module, tensors: dict[str, torch.Tensor], *, trainable: bool = False) -> None:
+    """Make each ``tensors[name]`` the parameter ``name`` of ``model`` (a new
+    ``nn.Parameter`` on the same storage, cast to the parameter's dtype):
+    every wrapper is a leaf of its own, so two modules assigned one tensor
+    get their gradients apart."""
+    for name, t in tensors.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        setattr(mod, leaf, nn.Parameter(t.to(dtype=getattr(mod, leaf).dtype), requires_grad=trainable))
+
+
+def build_shards(
+    cfg: ModelConfig, devices: list[torch.device], parts: list[dict[str, torch.Tensor]], *, trainable: bool = False
+) -> ShardedLM:
+    """A ``ShardedLM`` whose shard r takes the tensors ``parts[r]`` (its
+    model-axis slices) on ``devices[r]``; its pixelfly linears learn their
+    block rows of the global pattern (``Linear.rows``). ``trainable``: the
+    parameters require grad (the mesh trainer's tensor-parallel forward)."""
     shards = []
     for r, (part, dev) in enumerate(zip(parts, devices)):
-        meta = torch.device("meta")
-        with meta:
-            shard = LM(cfg, gen=torch.Generator(), device=meta)
-        for name, t in part.items():
-            owner, _, leaf = name.rpartition(".")
-            mod = shard.get_submodule(owner)
-            setattr(mod, leaf, nn.Parameter(t.to(dev, getattr(mod, leaf).dtype), requires_grad=False))
-        for name, mod in shard.named_modules():
+        shard = skeleton(cfg)
+        assign(shard, {name: t.to(dev) for name, t in part.items()}, trainable=trainable)
+        for mod in shard.modules():
             if isinstance(mod, Linear) and mod.spec.sparse:
                 n = mod.blocks.shape[0]
                 mod.rows = (r * n, (r + 1) * n)
         shards.append(shard)
-    return ShardedLM(cfg, mesh, shards)
+    return ShardedLM(cfg, devices, shards)
+
+
+def shard_model(cfg: ModelConfig, mesh: Mesh, state_dict: dict[str, torch.Tensor]) -> ShardedLM:
+    """Cut ``state_dict`` (an ``LM``'s, full) into the shards of a ``(1,
+    tp)`` mesh by ``distributed.sharding``'s tensor-parallel specs; shard r
+    goes to the mesh's device r (a slice of dim 0 stays a view where the
+    device and dtype already match, so shards on the state dict's own
+    device share its memory). Refuses what ``check_tp_layout`` refuses.
+    The mesh trainer builds its trainable shards with ``build_shards``
+    from tensors it gathers over the data axes."""
+    st = sharding.Strategy(mesh, "tp")
+    check_tp_layout(cfg, st, state_dict)
+    parts = sharding.shard_state_dict(st, mesh, state_dict)
+    return build_shards(cfg, mesh.model_devices(), parts)
 
 
 def init_cache(
@@ -492,23 +531,34 @@ def _layers_tp(
     layers = [[blk for _, blk in sh.blocks()] for sh in model.shards]
     pools = [_layer_pools(cfg, c) for c in caches]
     for i in range(len(layers[0])):
-        blks = [ls[i] for ls in layers]
-        heads = []
-        for r, blk in enumerate(blks):
-            h = L.rmsnorm(blk.attn_norm.scale, x[r], cfg.norm_eps)
-            o, fresh = L.attention_heads(cfg, blk.attn, h, cos[r], sin[r], cache=pools[r][i], **kws[r])
-            if rows[r] is not None:
-                _scatter_pages(pools[r][i], fresh, rows[r])
-            heads.append(o)
-        y = L.tp_project([blk.attn.wo for blk in blks], heads)
-        x = [a + b for a, b in zip(x, y)]
-        hidden = [L.mlp_hidden(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, a, cfg.norm_eps)) for blk, a in zip(blks, x)]
-        y = L.tp_project([blk.mlp.wd for blk in blks], hidden)
-        x = [a + b for a, b in zip(x, y)]
+        x = _tp_block(cfg, [ls[i] for ls in layers], x, cos, sin, kws, [p[i] for p in pools], rows)
     out = [L.rmsnorm(sh.final_norm.scale, a, cfg.norm_eps) for sh, a in zip(model.shards, x)]
     if plens is None:
         return out
     return [a[torch.arange(a.shape[0], device=a.device), p.long() - 1] for a, p in zip(out, C.broadcast(plens, devs))]
+
+
+def _tp_block(
+    cfg: ModelConfig, blks: list[Block], x: list, cos: list, sin: list, kws: list,
+    pools: list | None = None, rows: list | None = None,
+) -> list[torch.Tensor]:
+    """One dense block on every shard: its heads (``attention_heads`` with
+    its ``kws``, on its ``pools`` with the fresh K/V scattered into them at
+    ``rows`` when given), ``tp_project`` of ``o``, its SwiGLU slice,
+    ``tp_project`` of ``down``. Returns each shard's residual stream."""
+    heads = []
+    for r, blk in enumerate(blks):
+        h = L.rmsnorm(blk.attn_norm.scale, x[r], cfg.norm_eps)
+        o, fresh = L.attention_heads(cfg, blk.attn, h, cos[r], sin[r],
+                                     cache=None if pools is None else pools[r], **kws[r])
+        if rows is not None and rows[r] is not None:
+            _scatter_pages(pools[r], fresh, rows[r])
+        heads.append(o)
+    y = L.tp_project([blk.attn.wo for blk in blks], heads)
+    x = [a + b for a, b in zip(x, y)]
+    hidden = [L.mlp_hidden(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, a, cfg.norm_eps)) for blk, a in zip(blks, x)]
+    y = L.tp_project([blk.mlp.wd for blk in blks], hidden)
+    return [a + b for a, b in zip(x, y)]
 
 
 @torch.no_grad()
@@ -663,7 +713,7 @@ def _train_block(
 
 
 def forward_train(
-    cfg: ModelConfig, model: LM, batch: dict
+    cfg: ModelConfig, model: LM | ShardedLM, batch: dict, *, count: torch.Tensor | float | None = None
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The JAX package's ``forward_train``: batch {"tokens" | "embeds",
     "labels"} with optional "positions" (tensors or numpy, moved to the
@@ -677,7 +727,10 @@ def forward_train(
     log-partition by logsumexp over the fp32 logits, the gold logit by an
     indicator reduce over the vocabulary, as the reference computes both.
     ``loss = nll + 0.01 * lb``, where lb sums the MoE layers' load-balance
-    losses (0 for the other families).
+    losses (0 for the other families). ``count``: the mean's denominator
+    in place of this batch's count of ``labels >= 0`` (a mesh position's
+    rows are a part of the global batch, whose count divides each part's
+    sum, so the parts' losses add up to the global mean).
 
     With ``cfg.remat`` each layer runs under non-reentrant activation
     checkpointing: the backward keeps one residual per layer and runs the
@@ -685,7 +738,18 @@ def forward_train(
     outer checkpoint over about sqrt(n) layers); one level keeps 28 rather
     than 7 + 4 residuals of (B, S, d_model) at full width and does not run
     every layer's forward a third time.
+
+    A ``ShardedLM`` (``build_shards(..., trainable=True)``, the dense family
+    in the heads mode) runs the tensor-parallel forward: the vocab-sharded
+    embedding (or the embeds on every shard), each layer's ``_tp_block``,
+    then a vocab-sharded cross-entropy. Each shard takes its rows' fp32
+    logits over its vocabulary slice, their logsumexp and the gold logit
+    (zero outside its slice); ``logz`` is the log-sum-exp of the shards'
+    values and ``gold`` their sum, taken in rank order on the first shard's
+    device, so no device holds the whole (B, S, V) logits.
     """
+    if isinstance(model, ShardedLM):
+        return _forward_train_tp(cfg, model, batch, count)
     dev = model.embed.tok.device
     labels = torch.as_tensor(batch["labels"], device=dev).long()
     x = _inputs_to_x(cfg, model, batch)
@@ -704,5 +768,51 @@ def forward_train(
     vocab = torch.arange(logits.shape[-1], device=dev)
     gold = torch.where(vocab == labels[..., None], logits, 0.0).sum(dim=-1)
     mask = (labels >= 0).float()
-    nll = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+    denom = mask.sum().clamp(min=1.0) if count is None else torch.as_tensor(count, device=dev)
+    nll = ((logz - gold) * mask).sum() / denom
+    return nll + 0.01 * lb, {"nll": nll, "lb_loss": lb}
+
+
+def _tp_train_layer(cfg: ModelConfig, blks: list[Block], x: list, cos: list, sin: list) -> list[torch.Tensor]:
+    return _tp_block(cfg, blks, x, cos, sin, [{"mode": "train"}] * len(blks))
+
+
+def _forward_train_tp(
+    cfg: ModelConfig, model: ShardedLM, batch: dict, count
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """``forward_train`` on a ``ShardedLM`` (its docstring)."""
+    devs = model.devices
+    dev = devs[0]
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    if "embeds" in batch:
+        x = C.broadcast(torch.as_tensor(batch["embeds"], device=dev).to(cfg.torch_dtype), devs)
+    else:
+        toks = C.broadcast(torch.as_tensor(batch["tokens"], device=dev).long(), devs)
+        x = L.embed_tokens_tp([sh.embed for sh in model.shards], toks, model.vocab_first)
+    b, s = labels.shape
+    cos, sin = _angles(cfg, _positions(cfg, batch, b, s, dev))
+    cos, sin = C.broadcast(cos, devs), C.broadcast(sin, devs)
+    layers = [[blk for _, blk in sh.blocks()] for sh in model.shards]
+    for i in range(len(layers[0])):
+        blks = [ls[i] for ls in layers]
+        if cfg.remat:
+            x = checkpoint(_tp_train_layer, cfg, blks, x, cos, sin, use_reentrant=False)
+        else:
+            x = _tp_train_layer(cfg, blks, x, cos, sin)
+    logz, gold = [], []
+    for sh, h, lab, lo in zip(model.shards, x, C.broadcast(labels, devs), model.vocab_first):
+        logits = L.lm_logits(cfg, sh.head, sh.embed, L.rmsnorm(sh.final_norm.scale, h, cfg.norm_eps))
+        vocab = torch.arange(lo, lo + logits.shape[-1], device=logits.device)
+        logz.append(torch.logsumexp(logits, dim=-1).to(dev))
+        gold.append(torch.where(vocab == lab[..., None], logits, 0.0).sum(dim=-1).to(dev))
+    top = logz[0].detach()
+    for z in logz[1:]:
+        top = torch.maximum(top, z.detach())
+    total, g = torch.exp(logz[0] - top), gold[0]
+    for z, gg in zip(logz[1:], gold[1:]):
+        total, g = total + torch.exp(z - top), g + gg
+    mask = (labels >= 0).float()
+    denom = mask.sum().clamp(min=1.0) if count is None else torch.as_tensor(count, device=dev)
+    nll = ((top + torch.log(total) - g) * mask).sum() / denom
+    lb = torch.zeros((), device=dev)
     return nll + 0.01 * lb, {"nll": nll, "lb_loss": lb}

@@ -242,15 +242,16 @@ class Engine:
         allocator, page table, prefix cache and sampler state stay once,
         on the host and the first shard's device (``device`` must be None
         or that device). A mesh with positions off the model axis raises:
-        serving does not shard by data (``ReplicaRouter`` replicates) and
-        the FSDP layout is not ported (ROADMAP Queue 1 item 15)."""
+        serving does not shard by data (``ReplicaRouter`` replicates), and
+        an engine holding FSDP-sharded weights is ROADMAP Queue 1 item
+        20."""
         tp = 1
         if mesh is not None:
             tp = sharding.Strategy(mesh, "tp").tp_size
             if mesh.size != tp:
                 raise ValueError(
                     f"a mesh of shape {mesh.shape}: serving shards over the model axis only, "
-                    f"a (1, tp) mesh; {sharding.REFUSED['fsdp']}"
+                    f"a (1, tp) mesh; {sharding.REFUSED['engine_fsdp']}"
                 )
             sharding.check_tp(cfg, tp)
             first = mesh.model_devices()[0]

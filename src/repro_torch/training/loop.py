@@ -1,31 +1,56 @@
-"""Training loop on one device, the port of the JAX package's
-``training/loop.py`` without its mesh:
+"""Training loop, the port of the JAX package's ``training/loop.py``:
 
-- checkpoint/restart (atomic, integrity-checked, ``training.checkpoint``);
+- checkpoint/restart (atomic, integrity-checked, ``training.checkpoint``),
+  elastic across meshes: a checkpoint holds every tensor whole, by name,
+  and a restore cuts it for whatever mesh the new ``Trainer`` has;
 - preemption: SIGTERM during ``run`` sets a flag, and the next step
   checkpoints and returns;
 - a straggler watchdog: an EWMA of the step time flags outliers, through
   an injectable hook;
 - deterministic resume of the data stream (step-addressable batches, the
   data state in the checkpoint's ``extra``).
+
+A ``Trainer`` trains on a mesh (``launch.mesh``) as the JAX ``Trainer``
+does under ``Strategy("fsdp")`` or ``Strategy("tp")``, with one
+controller; one device is the (1, 1) mesh of that device, the same code.
+``MeshState`` holds each parameter and each optimizer moment as its
+shards (``sharding.position_slices``), each on the device of its first
+mesh position, and a step runs each data replica (a distinct slice of the
+batch's rows, ``sharding.batch_specs``) in turn. A replica gathers the
+parameters from their shards onto its device (under tp: each model
+shard's slice onto that shard's device, ``transformer.build_shards``),
+runs the forward and the backward on its rows, and its gradients reach
+the shards as a rank-ordered reduce-scatter, summed in fp32
+(``collectives.reduce_scatter``; a shard with one contributor, as on one
+device, takes its gradient as it is); its gathered copy is freed before
+the next replica runs. The masked NLL of a replica's rows is divided by
+the global batch's count, so the replicas' losses add up to the
+single-device loss; GSPMD does not change what a step computes, and
+neither does the mesh here, up to the order of fp32 sums.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import signal
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import MODEL_AXIS, Mesh, make_local_mesh
+from repro_torch.models import moe
 from repro_torch.models import transformer as T
 from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training.optimizer import OptConfig, apply_updates, init_opt_state
 
-__all__ = ["TrainConfig", "make_train_step", "Trainer"]
+__all__ = ["TrainConfig", "MeshState", "make_train_step", "Trainer"]
 
 
 @dataclasses.dataclass
@@ -39,14 +64,247 @@ class TrainConfig:
     seed: int = 0
 
 
+class MeshState:
+    """A model's parameters laid out on ``mesh`` by ``strategy``'s specs.
+
+    For each parameter: ``keys[name]``, its distinct slices in the order of
+    the first position holding each (``sharding.position_slices``);
+    ``shards[name]``, one tensor a slice, on that first position's device
+    (positions that hold the same slice read it there: one controller);
+    ``model_dim[name]``, the dimension the model axis cuts (tp only).
+    ``tp`` > 1 runs the tensor-parallel forms, refused where
+    ``transformer.check_tp_layout`` refuses them. The shards own their
+    memory: the state dict they are cut from is not changed by training.
+    ``copy=False`` hands the state dict over: a slice that is a whole
+    tensor already on its device is then taken as it is, not copied (a
+    one-device trainer's own weights)."""
+
+    def __init__(self, cfg: ModelConfig, mesh: Mesh, strategy: str, state_dict: dict[str, torch.Tensor],
+                 *, copy: bool = True):
+        if mesh.devices is None:
+            raise ValueError(f"mesh {mesh.shape} is a descriptor without devices")
+        self.cfg, self.mesh = cfg, mesh
+        like = T.skeleton(cfg).state_dict()
+        if set(state_dict) != set(like):
+            raise ValueError(f"{cfg.name}: state dict keys differ from the model's: missing "
+                             f"{sorted(set(like) - set(state_dict))}, unexpected {sorted(set(state_dict) - set(like))}")
+        state_dict = {name: t.detach().to(like[name].dtype) for name, t in state_dict.items()}
+        self.st = sharding.Strategy(mesh, strategy)
+        self.tp = self.st.tp_size
+        if self.tp > 1:
+            self.specs = T.check_tp_layout(cfg, self.st, state_dict)
+        else:
+            self.specs = sharding.param_specs(self.st, state_dict)
+        self.devices = [torch.device(d) for d in mesh.devices.flat]
+        self.coords = sharding.positions(mesh)
+        self.shapes = {name: tuple(t.shape) for name, t in state_dict.items()}
+        self.keys: dict[str, list] = {}
+        self.shards: dict[str, list[torch.Tensor]] = {}
+        self.model_dim = {name: sharding.model_dim(self.st, spec) if self.tp > 1 else None
+                          for name, spec in self.specs.items()}
+        for name, t in state_dict.items():
+            slices = sharding.position_slices(mesh, self.specs[name], t.shape)
+            keys = list(dict.fromkeys(slices))
+            self.keys[name] = keys
+            self.shards[name] = [self._own(sharding.take(t, k), t.shape, self.devices[slices.index(k)], copy)
+                                 for k in keys]
+        self._models: dict = {}
+
+    @staticmethod
+    def _own(part: torch.Tensor, shape, device: torch.device, copy: bool) -> torch.Tensor:
+        """``part`` (a slice of a tensor of ``shape``) on ``device`` in memory
+        of its own: copied, unless ``copy`` is False and ``part`` is the
+        whole tensor, on ``device``."""
+        moved = part.to(device)
+        if moved is not part or (not copy and part.shape == shape):
+            return moved
+        return part.clone()
+
+    @property
+    def n_params(self) -> int:
+        """The model's parameter count (whole tensors, each counted once)."""
+        return sum(math.prod(shape) for shape in self.shapes.values())
+
+    # ------------------------------------------------------------------
+    def cut(self, name: str, full: torch.Tensor) -> list[torch.Tensor]:
+        """``full`` (a whole tensor of parameter ``name``'s shape) cut into
+        ``name``'s slices, each on its shard's device."""
+        return [sharding.take(full, k).to(t.device, copy=True) for k, t in zip(self.keys[name], self.shards[name])]
+
+    def unshard(self, values: dict[str, list[torch.Tensor]], device: str | torch.device = "cpu") -> dict:
+        """Whole tensors on ``device`` from one list of slices a parameter
+        (the shards, or moments laid out as them): copies, which training
+        does not change."""
+        per_position = [{} for _ in self.devices]
+        for name, slices in values.items():
+            moved = [t.detach().to(device, copy=True) for t in slices]
+            index = {k: i for i, k in enumerate(self.keys[name])}
+            sls = sharding.position_slices(self.mesh, self.specs[name], self.shapes[name])
+            for p, sl in enumerate(sls):
+                per_position[p][name] = moved[index[sl]]
+        return sharding.unshard_state_dict(self.st, per_position, self.specs)
+
+    def state_dict(self, device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
+        return self.unshard(self.shards, device)
+
+    def _region(self, name: str, m: int | None) -> tuple[tuple[int, int], ...]:
+        """What a replica computes with: the whole tensor, or model shard
+        ``m``'s slice along the model axis."""
+        region = [(0, n) for n in self.shapes[name]]
+        d = self.model_dim[name]
+        if m is not None and d is not None:
+            n = self.shapes[name][d] // self.tp
+            region[d] = (m * n, (m + 1) * n)
+        return tuple(region)
+
+    def _parts(self, name: str, m: int | None) -> tuple[list[int], int | None]:
+        """The slices inside ``_region(name, m)``, in order along the one
+        dimension that tells them apart (None when there is one slice)."""
+        region = self._region(name, m)
+        inside = [i for i, k in enumerate(self.keys[name])
+                  if all(a >= lo and b <= hi for (a, b), (lo, hi) in zip(k, region))]
+        if len(inside) == 1:
+            return inside, None
+        dims = [d for d in range(len(region)) if len({self.keys[name][i][d] for i in inside}) > 1]
+        if len(dims) != 1:
+            raise ValueError(f"{name}: slices {[self.keys[name][i] for i in inside]} differ in dims {dims}")
+        return sorted(inside, key=lambda i: self.keys[name][i][dims[0]]), dims[0]
+
+    def gather(self, name: str, m: int | None, device: torch.device) -> torch.Tensor:
+        """``_region(name, m)`` on ``device``, from its shards (an all-gather
+        over the data axes; the shard itself where it is the whole region
+        on that device)."""
+        idx, d = self._parts(name, m)
+        parts = [self.shards[name][i].to(device) for i in idx]
+        return parts[0] if d is None else torch.cat(parts, dim=d)
+
+    def accumulate(self, acc: dict, name: str, m: int | None, grad: torch.Tensor) -> None:
+        """Add the gradient of ``_region(name, m)`` to the gradients of the
+        shards it covers (``acc[name]``, one entry a slice, None until a
+        first term; fp32 from a second term on): the reduce-scatter over
+        the data axes, and under tp the sum over model shards of a tensor
+        they all hold."""
+        idx, d = self._parts(name, m)
+        sizes = [1] if d is None else [self.keys[name][i][d][1] - self.keys[name][i][d][0] for i in idx]
+        out = [acc[name][i] for i in idx]
+        devices = [self.shards[name][i].device for i in idx]
+        got = C.reduce_scatter([grad], d, sizes, devices, out=out)
+        for i, t in zip(idx, got):
+            acc[name][i] = t
+
+    # ------------------------------------------------------------------
+    def replicas(self, n_rows: int) -> list[tuple[tuple[int, int], list[int]]]:
+        """The batch's distinct row slices (``sharding.batch_specs``) in rank
+        order, each with the positions that compute it: its first
+        position, and under tp the positions of each model shard beside
+        it."""
+        spec = sharding.batch_specs(self.st, {"labels": np.zeros((n_rows, 1), np.int32)})["labels"]
+        rows = [sl[0] for sl in sharding.position_slices(self.mesh, spec, (n_rows, 1))]
+        out = []
+        for p, r in enumerate(rows):
+            if r in (x for x, _ in out):
+                continue
+            if self.tp > 1:
+                want = [dict(self.coords[p], **{MODEL_AXIS: m}) for m in range(self.tp)]
+                out.append((r, [self.coords.index(c) for c in want]))
+            else:
+                out.append((r, [p]))
+        return out
+
+    def model_for(self, cfg: ModelConfig, replica: int, positions: list[int]):
+        """The replica's model of ``cfg`` (the state's, or its MoE routing
+        share) with its gathered parameters as trainable leaves: an ``LM``,
+        or a ``ShardedLM`` under tp (built once, its parameters reassigned
+        each step), and the (model shard, name, parameter) of each leaf."""
+        devs = [self.devices[p] for p in positions]
+        key = (replica, cfg)
+        if self.tp > 1:
+            parts = [{name: self.gather(name, m, dev) for name in self.shapes} for m, dev in enumerate(devs)]
+            model = self._models.get(key)
+            if model is None:
+                model = self._models[key] = T.build_shards(cfg, devs, parts, trainable=True)
+            else:
+                for shard, part in zip(model.shards, parts):
+                    T.assign(shard, part, trainable=True)
+            leaves = [(m, name, shard.get_parameter(name)) for m, shard in enumerate(model.shards) for name in parts[m]]
+        else:
+            tensors = {name: self.gather(name, None, devs[0]) for name in self.shapes}
+            model = self._models.get(key)
+            if model is None:
+                model = self._models[key] = T.skeleton(cfg)
+            T.assign(model, tensors, trainable=True)
+            leaves = [(None, name, model.get_parameter(name)) for name in tensors]
+        return model, leaves
+
+    def release(self, cfg: ModelConfig, replica: int) -> None:
+        """Drop the replica's gathered copy (its parameters back on meta)."""
+        model = self._models[(replica, cfg)]
+        for shard in model.shards if self.tp > 1 else [model]:
+            T.assign(shard, {n: torch.empty(p.shape, device="meta") for n, p in shard.named_parameters()})
+
+
+def _global_count(labels: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The global batch's count of ``labels >= 0``: each replica's count,
+    summed in rank order on ``device`` (at least 1)."""
+    return C.reduce_scalars([(lab >= 0).sum() for lab in labels], "sum", device).clamp(min=1).float()
+
+
+def _rows(batch: dict, r: tuple[int, int], device: torch.device) -> dict:
+    """Rows [r[0], r[1]) of every batch leaf (numpy or tensors) on ``device``."""
+    return {k: torch.as_tensor(v)[r[0] : r[1]].to(device) for k, v in batch.items()}
+
+
+def _loss_and_grads(model_cfg: ModelConfig, state: MeshState, batch: dict, acc: dict) -> dict:
+    """One global batch on ``state``'s mesh: every replica's forward and
+    backward in turn, the gradients added into ``acc`` (fp32, one entry a
+    shard). Returns the step's loss, nll and lb_loss on the first
+    position's device."""
+    n_rows = len(batch["labels"])
+    reps = state.replicas(n_rows)
+    first = state.devices[reps[0][1][0]]
+    cfg = model_cfg
+    if cfg.moe_num_experts:
+        s = np.asarray(batch["labels"]).shape[1]
+        groups = moe.routing_groups(cfg, n_rows * s)
+        if groups % len(reps):
+            raise ValueError(
+                f"{cfg.name}: {groups} MoE routing group(s) of the global batch do not split over "
+                f"{len(reps)} data replicas, so a replica cannot route its share of them; "
+                f"{sharding.REFUSED['experts']}"
+            )
+        cfg = cfg.replace(moe_routing_groups=groups // len(reps))
+    parts = [_rows(batch, r, state.devices[ps[0]]) for r, ps in reps]
+    count = _global_count([p["labels"] for p in parts], first)
+    losses, nlls, lbs = [], [], []
+    for i, ((r, ps), part) in enumerate(zip(reps, parts)):
+        model, leaves = state.model_for(cfg, i, ps)
+        with record_function("train_forward"):
+            _, aux = T.forward_train(cfg, model, part, count=count.to(state.devices[ps[0]]))
+            loss = aux["nll"] + 0.01 * (aux["lb_loss"] / len(reps))
+        with record_function("train_backward"):
+            grads = torch.autograd.grad(loss, [p for _, _, p in leaves], allow_unused=True)
+        for (m, name, _), g in zip(leaves, grads):
+            if g is not None:
+                state.accumulate(acc, name, m, g)
+        losses.append(loss.detach())
+        nlls.append(aux["nll"].detach())
+        lbs.append(aux["lb_loss"].detach())
+        del model, leaves, grads
+        state.release(cfg, i)
+    return {"loss": C.reduce_scalars(losses, "sum", first), "nll": C.reduce_scalars(nlls, "sum", first),
+            "lb_loss": C.reduce_scalars(lbs, "sum", first) / len(reps)}
+
+
 def make_train_step(
     model_cfg: ModelConfig, opt_cfg: OptConfig, *, microbatches: int = 1
 ) -> Callable:
-    """``train_step(model, opt_state, batch) -> metrics``: one AdamW step
-    on ``model``'s parameters and ``opt_state``, in place. The metrics are
-    ``loss``, ``nll``, ``lb_loss``, ``grad_norm`` (device scalars) and
-    ``lr``. Every parameter gets a gradient: zeros where the loss does not
-    reach it.
+    """``train_step(state, opt_state, batch) -> metrics``: one AdamW step
+    on the shards of ``state`` (a ``MeshState``; one device is a (1, 1)
+    mesh) and on ``opt_state`` (``init_opt_state(opt_cfg, state.shards)``),
+    in place; ``batch`` is numpy or tensors, cut into each replica's rows
+    (module docstring). The metrics are ``loss``, ``nll``, ``lb_loss``,
+    ``grad_norm`` (device scalars) and ``lr``. Every parameter gets a
+    gradient: zeros where the loss does not reach it.
 
     ``microbatches = k > 1`` accumulates gradients over k sequential
     slices of the batch's rows, summed in fp32 and divided by k (so are
@@ -57,49 +315,47 @@ def make_train_step(
     ranges ``train_forward``, ``train_backward`` and ``optimizer``.
     """
 
-    def loss_and_grads(params, model, mb):
-        with record_function("train_forward"):
-            loss, aux = T.forward_train(model_cfg, model, mb)
-        with record_function("train_backward"):
-            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    def slices(batch):
+        k = microbatches
+        n = len(batch["labels"])
+        if n % k:
+            raise ValueError(f"a batch of {n} rows does not split into {k} microbatches")
+        rows = n // k
+        return [{key: a[i * rows : (i + 1) * rows] for key, a in batch.items()} for i in range(k)]
+
+    def train_step(state: MeshState, opt_state, batch):
+        acc = {name: [None] * len(keys) for name, keys in state.keys.items()}
+        msum = None
+        for mb in slices(batch):
+            m = _loss_and_grads(model_cfg, state, mb, acc)
+            msum = m if msum is None else {key: msum[key] + m[key] for key in m}
+        k = microbatches
         # a parameter the loss does not reach (the token table of a model
         # that reads embeddings through an untied head) gets zeros, as
         # under JAX's grad: AdamW still decays it and its moments
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params.values(), grads)]
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}, grads
-
-    def train_step(model, opt_state, batch):
-        params = dict(model.named_parameters())
-        if microbatches == 1:
-            metrics, g = loss_and_grads(params, model, batch)
-            grads = dict(zip(params, g))
-        else:
-            k = microbatches
-            n = len(batch["labels"])
-            if n % k:
-                raise ValueError(f"a batch of {n} rows does not split into {k} microbatches")
-            rows = n // k
-            gsum = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in params.items()}
-            msum = None
-            for i in range(k):
-                mb = {key: a[i * rows : (i + 1) * rows] for key, a in batch.items()}
-                m, g = loss_and_grads(params, model, mb)
-                for s, x in zip(gsum.values(), g):
-                    s += x.float()
-                msum = m if msum is None else {key: msum[key] + m[key] for key in m}
-            grads = {n: s / k for n, s in gsum.items()}
-            metrics = {key: v / k for key, v in msum.items()}
+        grads = {name: [torch.zeros(t.shape, dtype=torch.float32, device=t.device) if g is None
+                        else g / k if k > 1 else g for g, t in zip(acc[name], state.shards[name])]
+                 for name in acc}
+        metrics = {key: v / k for key, v in msum.items()}
         with record_function("optimizer"):
-            return {**metrics, **apply_updates(opt_cfg, params, grads, opt_state, model_cfg)}
+            return {**metrics, **apply_updates(opt_cfg, state.shards, grads, opt_state, model_cfg)}
 
     return train_step
 
 
 class Trainer:
-    """Trains ``model_cfg`` on ``data`` on one device (the card unless
-    ``device`` says otherwise): restores the newest checkpoint in
+    """Trains ``model_cfg`` on ``data``: restores the newest checkpoint in
     ``train_cfg.ckpt_dir``, or starts from ``params`` (a state dict, e.g.
-    ``bridge.params_from_jax``) when given, else from ``train_cfg.seed``."""
+    ``bridge.params_from_jax``) when given, else from ``train_cfg.seed``.
+
+    It trains on ``mesh`` (``launch.mesh.make_local_mesh``; its devices
+    name where the shards go, so ``device`` must then be None) as the JAX
+    ``Trainer`` does on that mesh under ``strategy`` ("fsdp", its default,
+    or "tp"). ``mesh=None`` is the (1, 1) mesh of ``device`` (the card
+    unless it says otherwise). ``model`` is the ``MeshState``, ``params``
+    its shards by name (a list a parameter), and the optimizer moments are
+    laid out as they are. A checkpoint holds the whole tensors, so it
+    resumes on one device or on any mesh."""
 
     def __init__(
         self,
@@ -109,39 +365,62 @@ class Trainer:
         train_cfg: TrainConfig = TrainConfig(),
         *,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
+        strategy: str = "fsdp",
         straggler_hook: Callable[[int, float, float], None] | None = None,
         params: dict[str, torch.Tensor] | None = None,
     ):
+        if mesh is None:
+            mesh = make_local_mesh(devices=[T.resolve_device(device)])
+        elif device is not None:
+            raise ValueError("a mesh Trainer takes its devices from the mesh; pass device=None")
+        if mesh.devices is None:
+            raise ValueError(f"mesh {mesh.shape} is a descriptor without devices")
         self.model_cfg, self.opt_cfg = model_cfg, opt_cfg
         self.data, self.cfg = data, train_cfg
-        self.device = T.resolve_device(device)
+        self.mesh = mesh
         self.step = 0
         self._preempted = False
         self._straggler_hook = straggler_hook
         self.straggler_events = 0
         self._ewma: float | None = None
-        self.model = T.init_model(model_cfg, seed=train_cfg.seed, device=self.device, params=params)
-        self.params = dict(self.model.named_parameters())
-        self.opt = init_opt_state(opt_cfg, self.params)
         self._step_fn = make_train_step(model_cfg, opt_cfg)
         last = ckpt_lib.latest_step(train_cfg.ckpt_dir)
+        tree = extra = None
         if last is not None:
-            tree, extra = ckpt_lib.restore(train_cfg.ckpt_dir, self.state())
-            with torch.no_grad():
-                for name, p in self.params.items():
-                    p.copy_(tree["params"][name])
-                for key, moments in self.opt.items():
-                    if key != "step":
-                        for name, t in moments.items():
-                            t.copy_(tree["opt"][key][name])
+            tree, extra = ckpt_lib.restore(train_cfg.ckpt_dir, self._template())
+            sd = tree["params"]
+        elif params is not None:
+            sd = params
+        else:
+            sd = T.init_model(model_cfg, seed=train_cfg.seed, device=mesh.devices.flat[0]).state_dict()
+        # the trainer's own weights (drawn or restored) are handed over;
+        # a caller's are copied
+        self.model = MeshState(model_cfg, mesh, strategy, sd, copy=sd is params)
+        del sd
+        self.params = self.model.shards
+        self.opt = init_opt_state(opt_cfg, self.params)
+        if tree is not None:
+            for key, moments in self.opt.items():
+                if key != "step":
+                    for name in moments:
+                        moments[name] = self.model.cut(name, tree["opt"][key][name])
             self.opt["step"] = tree["opt"]["step"]
             self.step = int(extra.get("step", last))
             print(f"[trainer] restored step {self.step} from {train_cfg.ckpt_dir}")
 
     # ------------------------------------------------------------------
+    def _template(self) -> dict:
+        """The checkpoint's shapes, from a model on the meta device."""
+        shapes = T.skeleton(self.model_cfg).state_dict()
+        keys = ("mu", "nu") + (("ef",) if self.opt_cfg.compress_grads else ())
+        return {"params": shapes, "opt": {"step": 0, **{k: shapes for k in keys}}}
+
     def state(self) -> dict:
-        """The checkpointed tree: {"params": ..., "opt": ...}."""
-        return {"params": self.params, "opt": self.opt}
+        """The checkpointed tree: {"params": ..., "opt": ...}, every tensor
+        whole, unsharded on the host."""
+        opt = {k: v if k == "step" else self.model.unshard(v) for k, v in self.opt.items()}
+        return {"params": self.model.state_dict(), "opt": opt}
 
     def _on_preempt(self, signum, frame):
         self._preempted = True
@@ -167,10 +446,7 @@ class Trainer:
                     print("[trainer] preemption signal: checkpoint + exit")
                     self.checkpoint()
                     break
-                batch = {
-                    k: torch.as_tensor(v, device=self.device)
-                    for k, v in self.data.batch(self.step).items()
-                }
+                batch = self.data.batch(self.step)
                 t0 = time.perf_counter()
                 metrics = self._step_fn(self.model, self.opt, batch)
                 metrics = {k: float(v) for k, v in metrics.items()}

@@ -2,11 +2,16 @@
 an optional error-feedback int8 gradient-compression hook.
 
 The port of the JAX package's ``training/optimizer.py``, as plain functions
-over dicts keyed by the model's parameter names. The state is
-``{"step": int, "mu": {...}, "nu": {...}}`` (+ ``"ef"`` with compressed
-gradients), the moments in fp32. Where the JAX package returns new trees,
-``apply_updates`` updates the parameters and the state in place, which
-saves a copy of every parameter and moment.
+over dicts keyed by the model's parameter names. A parameter is a list of
+its distinct shards (``training.loop.MeshState``; one on one device), and
+so are its gradient and moments. The state is ``{"step": int, "mu": {...},
+"nu": {...}}`` (+ ``"ef"`` with compressed gradients), the moments in
+fp32. Where the JAX package returns new trees, ``apply_updates`` updates
+the parameters and the state in place, which saves a copy of every
+parameter and moment. The global norm counts each element once (a shard
+replicated over a group of positions is one entry), an int8 scale is the
+max over every shard of its reference leaf, and AdamW updates each shard
+once, elementwise as the whole tensor.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
 
 __all__ = ["OptConfig", "lr_at", "init_opt_state", "apply_updates", "decays", "reference_leaf"]
 
@@ -50,9 +56,15 @@ def lr_at(cfg: OptConfig, step: int) -> float:
     return float(warm if step < cfg.warmup_steps else cfg.lr * cos)
 
 
-def init_opt_state(cfg: OptConfig, params: dict[str, torch.Tensor]) -> dict:
+def _zeros32(p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def init_opt_state(cfg: OptConfig, params: dict[str, list[torch.Tensor]]) -> dict:
+    """Zero fp32 moments shaped as ``params`` (a list of shards a name)."""
+
     def zeros32():
-        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
+        return {k: [_zeros32(t) for t in p] for k, p in params.items()}
 
     state = {"step": 0, "mu": zeros32(), "nu": zeros32()}
     if cfg.compress_grads:
@@ -92,34 +104,39 @@ def decays(name: str, p: torch.Tensor, model_cfg: ModelConfig) -> bool:
 
 
 def _compress_int8(
-    grads: dict[str, torch.Tensor],
-    residual: dict[str, torch.Tensor],
+    grads: dict[str, list[torch.Tensor]],
+    residual: dict[str, list[torch.Tensor]],
     model_cfg: ModelConfig,
-) -> dict[str, torch.Tensor]:
+) -> dict[str, list[torch.Tensor]]:
     """Symmetric int8 quantization with error feedback, one scale per leaf
     of the reference's tree (``reference_leaf``: the same parameter of every
-    layer shares one scale, as the reference quantizes its stacked leaf).
-    Returns the dequantized fp32 gradients and updates ``residual`` in
-    place."""
+    layer shares one scale, as the reference quantizes its stacked leaf),
+    the max over every shard of the leaf. Returns the dequantized fp32
+    gradients and updates ``residual`` in place."""
     leaves: dict[str, list[str]] = {}
     for k in grads:
         leaves.setdefault(reference_leaf(k, model_cfg), []).append(k)
     out = {}
     for names in leaves.values():
-        gf = {k: grads[k].float() + residual[k] for k in names}
-        scale = torch.stack([g.abs().max() for g in gf.values()]).max() / 127.0
+        gf = {k: [g.float() + r for g, r in zip(grads[k], residual[k])] for k in names}
+        maxes = [g.abs().max() for k in names for g in gf[k]]
+        scale = C.reduce_scalars(maxes, "max", maxes[0].device) / 127.0
         scale = torch.where(scale == 0, torch.ones_like(scale), scale)
-        for k, g in gf.items():
-            out[k] = torch.clamp(torch.round(g / scale), -127, 127) * scale
-            residual[k].copy_(g - out[k])
+        for k in names:
+            out[k] = []
+            for g, r in zip(gf[k], residual[k]):
+                s = scale.to(g.device)
+                q = torch.clamp(torch.round(g / s), -127, 127) * s
+                r.copy_(g - q)
+                out[k].append(q)
     return out
 
 
 @torch.no_grad()
 def apply_updates(
     cfg: OptConfig,
-    params: dict[str, torch.Tensor],
-    grads: dict[str, torch.Tensor],
+    params: dict[str, list[torch.Tensor]],
+    grads: dict[str, list[torch.Tensor]],
     state: dict,
     model_cfg: ModelConfig,
 ) -> dict:
@@ -127,25 +144,27 @@ def apply_updates(
     is clipped to a global norm, the moments and the update are fp32, and
     each parameter is cast back to its dtype. ``model_cfg`` keys weight
     decay and the int8 scales by the reference's leaves
-    (``reference_leaf``).
+    (``reference_leaf``). A value of ``params``, ``grads`` and the moments
+    is the list of one parameter's distinct shards (module docstring).
     Returns {"grad_norm" (a device scalar), "lr"}."""
     if cfg.compress_grads:
         grads = _compress_int8(grads, state["ef"], model_cfg)
-    gnorm = torch.sqrt(torch.stack([g.float().square().sum() for g in grads.values()]).sum())
+    sq = [g.float().square().sum() for k in params for g in grads[k]]
+    gnorm = torch.sqrt(C.reduce_scalars(sq, "sum", sq[0].device))
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     s32 = torch.tensor(float(step), dtype=torch.float32)
     b1c = float(1 - torch.tensor(cfg.b1, dtype=torch.float32) ** s32)
     b2c = float(1 - torch.tensor(cfg.b2, dtype=torch.float32) ** s32)
-    for k, p in params.items():
-        g = grads[k].float() * scale
-        mu, nu = state["mu"][k], state["nu"][k]
-        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
-        p32 = p.float()
-        wd = cfg.weight_decay if decays(k, p, model_cfg) else 0.0
-        p.copy_(p32 - lr * (delta + wd * p32))
+    for k, shards in params.items():
+        for p, g, mu, nu in zip(shards, grads[k], state["mu"][k], state["nu"][k]):
+            g = g.float() * scale.to(g.device)
+            mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+            delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
+            p32 = p.float()
+            wd = cfg.weight_decay if decays(k, p, model_cfg) else 0.0
+            p.copy_(p32 - lr * (delta + wd * p32))
     state["step"] = step
     return {"grad_norm": gnorm, "lr": lr}

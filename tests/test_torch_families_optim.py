@@ -89,21 +89,21 @@ def test_optimizer_step_matches_reference(arch, compress):
     jstate = jopt.init_opt_state(jo, params)
     new_params, new_state, jm = jax.jit(lambda p, g, s: jopt.apply_updates(jo, p, g, s))(params, jg, jstate)
 
-    tparams = dict(model.named_parameters())
+    tparams = {n: [p.detach()] for n, p in model.named_parameters()}
     grads = params_from_jax(jax.tree.map(np.asarray, jg), cfg, "cpu")
     state = init_opt_state(opt, tparams)
-    m = apply_updates(opt, tparams, grads, state, cfg)
+    m = apply_updates(opt, tparams, {n: [g] for n, g in grads.items()}, state, cfg)
     _close(np.float32(float(m["grad_norm"])), jm["grad_norm"], 1e-5)
     want_p = params_from_jax(jax.tree.map(np.asarray, new_params), cfg, "cpu")
     want_s = opt_state_from_jax(jax.tree.map(np.asarray, new_state), cfg, "cpu")
     assert state["step"] == want_s["step"] == 1
-    for name, p in tparams.items():
+    for name, (p,) in tparams.items():
         _close(p, want_p[name], 1e-6)
         for key in ("mu", "nu"):
             w = want_s[key][name]
-            np.testing.assert_allclose(state[key][name].numpy(), w.numpy(), rtol=1e-5,
+            np.testing.assert_allclose(state[key][name][0].numpy(), w.numpy(), rtol=1e-5,
                                        atol=1e-6 * float(w.abs().max()) + 1e-12, err_msg=f"{key} {name}")
         if compress:
             atol = 1e-6 * float(grads[name].abs().max())
-            np.testing.assert_allclose(state["ef"][name].numpy(), want_s["ef"][name].numpy(), rtol=0,
+            np.testing.assert_allclose(state["ef"][name][0].numpy(), want_s["ef"][name].numpy(), rtol=0,
                                        atol=atol, err_msg=f"ef {name}")

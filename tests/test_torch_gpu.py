@@ -767,9 +767,10 @@ def test_train_step_on_card_equals_cpu(cuda, arch):
     exceeds 1e-5 in magnitude and within 2 * lr elsewhere. The vlm and
     audio backbones train on ``EmbedsWrapper`` batches, the token table
     with a zero gradient."""
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import transformer as T
     from repro_torch.training.data import EmbedsWrapper, SyntheticLM
-    from repro_torch.training.loop import make_train_step
+    from repro_torch.training.loop import MeshState, make_train_step
     from repro_torch.training.optimizer import OptConfig, init_opt_state
 
     cfg = registry.get_smoke(arch, sparse=True)
@@ -781,13 +782,14 @@ def test_train_step_on_card_equals_cpu(cuda, arch):
     out = {}
     for dev in ("cpu", cuda):
         model = T.init_model(cfg, seed=0, device=dev)
-        params = dict(model.named_parameters())
         if dev == "cpu":
+            params = dict(model.named_parameters())
             loss, _ = T.forward_train(cfg, model, batch)
             g = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
             grads = {n: torch.zeros_like(p) if x is None else x for (n, p), x in zip(params.items(), g)}
-        m = make_train_step(cfg, opt)(model, init_opt_state(opt, params), batch)
-        out[str(dev)] = (m, {n: p.detach().cpu() for n, p in params.items()})
+        ms = MeshState(cfg, make_local_mesh(devices=[dev]), "fsdp", model.state_dict())
+        m = make_train_step(cfg, opt)(ms, init_opt_state(opt, ms.shards), batch)
+        out[str(dev)] = (m, ms.state_dict())
     (mc, pc), (mg, pg) = out["cpu"], out[str(cuda)]
     for key in ("loss", "grad_norm"):
         assert abs(float(mg[key]) - float(mc[key])) <= 1e-4 * abs(float(mc[key]))
@@ -832,13 +834,13 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     a = trainer()
     a.run(2)
     a.checkpoint()
-    snap = {n: p.detach().clone() for n, p in a.params.items()}
-    mu = {n: t.clone() for n, t in a.opt["mu"].items()}
+    snap = a.state()
     loss3 = a.run(1)[0]["loss"]
     b = trainer()
     assert b.step == 2 and b.opt["step"] == 2
-    for n, p in b.params.items():
-        assert torch.equal(p, snap[n]) and torch.equal(b.opt["mu"][n], mu[n]), n
+    got = b.state()
+    for n, p in got["params"].items():
+        assert torch.equal(p, snap["params"][n]) and torch.equal(got["opt"]["mu"][n], snap["opt"]["mu"][n]), n
     assert b.run(1)[0]["loss"] == loss3
 
 

@@ -174,7 +174,7 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(ValueError, match="item 18"):
         tp_engine(registry.get_smoke("mamba2-130m", sparse=True), 2)
     # positions off the model axis: serving does not shard by data
-    with pytest.raises(ValueError, match="item 15"):
+    with pytest.raises(ValueError, match="item 20"):
         Engine(cfg, engine_cfg=ecfg, mesh=make_local_mesh(model=2, devices=["cpu"] * 4))
     eng = tp_engine(cfg, 2)
     with pytest.raises(ValueError, match="item 14"):

@@ -61,9 +61,10 @@ def test_checkpoint_resume_exact(tmp_path):
     assert t2.step == 4
     resumed = t2.run(2)
     assert [h["loss"] for h in cont] == [h["loss"] for h in resumed]
-    for name, p in t1.params.items():
-        assert torch.equal(p, t2.params[name]), name
-        assert torch.equal(t1.opt["mu"][name], t2.opt["mu"][name]), name
+    a, b = t1.state(), t2.state()
+    for name, p in a["params"].items():
+        assert torch.equal(p, b["params"][name]), name
+        assert torch.equal(a["opt"]["mu"][name], b["opt"]["mu"][name]), name
     assert t1.opt["step"] == t2.opt["step"] == 6
 
 

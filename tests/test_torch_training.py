@@ -28,7 +28,8 @@ from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.training import data
-from repro_torch.training.loop import make_train_step
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.training.loop import MeshState, make_train_step
 from repro_torch.training.optimizer import OptConfig, init_opt_state, lr_at, reference_leaf
 
 
@@ -202,6 +203,19 @@ def _int8_boundaries(jgrads, cfg):
     return out
 
 
+def _one_device(cfg, model):
+    """A (1, 1) ``MeshState`` on the CPU holding copies of ``model``'s
+    weights: what ``make_train_step`` steps."""
+    return MeshState(cfg, make_local_mesh(devices=["cpu"]), "fsdp", model.state_dict())
+
+
+def _unsharded(ms, opt_state):
+    """An ``LM`` on the mesh state's whole parameters, and its optimizer
+    state unsharded, as ``_check_step`` reads them."""
+    model = T.init_model(ms.cfg, device="cpu", params=ms.state_dict())
+    return model, {k: v if k == "step" else ms.unshard(v) for k, v in opt_state.items()}
+
+
 def _check_step(cfg, opt, lr, jgrads, jstate, jm, model, state, m, *, flips=None):
     """loss, grad_norm and lr within 1e-5; mu within 1e-7 + 1e-4 relative,
     nu within 1e-9 + 1e-4 relative, ef (a residual gf - deq) within 1e-7 +
@@ -257,8 +271,10 @@ def test_train_step_matches_jax(case):
     jstate = {"params": params, "opt": jopt.init_opt_state(jopt.OptConfig(**opt.__dict__), params)}
     jstep = jax.jit(jloop.make_train_step(jcfg, jopt.OptConfig(**opt.__dict__), microbatches=k))
     jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))
-    state = init_opt_state(opt, dict(model.named_parameters()))
-    m = make_train_step(cfg, opt, microbatches=k)(model, state, batch)
+    ms = _one_device(cfg, model)
+    state = init_opt_state(opt, ms.shards)
+    m = make_train_step(cfg, opt, microbatches=k)(ms, state, batch)
+    model, state = _unsharded(ms, state)
     flips = _int8_boundaries(jgrads, cfg) if opt.compress_grads else None
     _check_step(cfg, opt, opt.lr, jgrads, jstate, jm, model, state, m, flips=flips)
 
@@ -277,11 +293,12 @@ def test_microbatches_must_divide_the_batch():
         jloop.make_train_step(jcfg, jopt.OptConfig(**opt.__dict__), microbatches=2)(
             jstate, jax.tree.map(jnp.asarray, batch))
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    state = init_opt_state(opt, dict(model.named_parameters()))
+    ms = _one_device(cfg, model)
+    state = init_opt_state(opt, ms.shards)
     with pytest.raises(ValueError, match="5 rows"):
-        make_train_step(cfg, opt, microbatches=2)(model, state, batch)
+        make_train_step(cfg, opt, microbatches=2)(ms, state, batch)
     assert state["step"] == 0
-    for n, p in model.named_parameters():
+    for n, p in ms.state_dict().items():
         assert torch.equal(p, before[n])
 
 
@@ -297,12 +314,15 @@ def test_resumed_step_matches_jax():
     jstate, _ = jstep(jstate, jax.tree.map(jnp.asarray, _batch(cfg, step=0)))
     tree = jax.tree.map(np.asarray, jstate)
     model = T.init_model(cfg, device="cpu", params=params_from_jax(tree["params"], cfg, "cpu"))
-    state = opt_state_from_jax(tree["opt"], cfg, "cpu")
-    assert state["step"] == 1
+    whole = opt_state_from_jax(tree["opt"], cfg, "cpu")
+    assert whole["step"] == 1
+    ms = _one_device(cfg, model)
+    state = {k: v if k == "step" else {n: ms.cut(n, t) for n, t in v.items()} for k, v in whole.items()}
     batch = _batch(cfg, step=1)
     jgrads = _jax_grads(jcfg, cfg, jstate["params"], batch)
     jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))
-    m = make_train_step(cfg, opt)(model, state, batch)
+    m = make_train_step(cfg, opt)(ms, state, batch)
+    model, state = _unsharded(ms, state)
     _check_step(cfg, opt, float(jm["lr"]), jgrads, jstate, jm, model, state, m)
 
 

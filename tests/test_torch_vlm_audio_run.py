@@ -32,7 +32,7 @@ from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.training import data
 from repro_torch.training.loop import make_train_step
 from repro_torch.training.optimizer import OptConfig, init_opt_state
-from test_torch_training import _check_step
+from test_torch_training import _check_step, _one_device, _unsharded
 from test_torch_vlm_audio import ARCHS, _embeds_batch, _jax_params, _np, _one_torch_thread, _pair  # noqa: F401
 
 
@@ -73,8 +73,10 @@ def test_train_step_matches_jax(arch):
     jstate = {"params": params, "opt": jopt.init_opt_state(jopt.OptConfig(**opt.__dict__), params)}
     jstate, jm = jax.jit(jloop.make_train_step(jcfg, jopt.OptConfig(**opt.__dict__)))(jstate, jb)
     tok0 = model.embed.tok.detach().clone()
-    state = init_opt_state(opt, dict(model.named_parameters()))
-    m = make_train_step(cfg, opt)(model, state, batch)
+    ms = _one_device(cfg, model)
+    state = init_opt_state(opt, ms.shards)
+    m = make_train_step(cfg, opt)(ms, state, batch)
+    model, state = _unsharded(ms, state)
     _check_step(cfg, opt, opt.lr, grads, jstate, jm, model, state, m)
     want = np.asarray(jstate["params"]["embed"]["tok"])
     np.testing.assert_allclose(_np(model.embed.tok), want, rtol=0, atol=1e-7)
