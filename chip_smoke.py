@@ -214,7 +214,28 @@ Phases; any failure raises and the script exits non-zero:
    Hk = 8, B = 2, each against its plain version and timed as in phase 3.
    The kernels' counts are set to 0 after each run's warm-up step and read
    after its last.
-16. The kernels line (with each kernel's launches in phases 5 to 15, a
+16. The dry-run over the production meshes and the sharded contiguous
+   prefill and decode. (a) ``launch.dryrun.run_cell`` on the meta 16 x 16
+   mesh (host only, in a helper process started with the script, so its
+   host seconds overlap phases 3-15) for full-width qwen3-1.7b ``train_4k``, ``prefill_32k``
+   and ``decode_32k`` and musicgen-large ``train_4k``, each ``ok``, and a
+   refused cell that must name its ROADMAP item: per-device bytes,
+   argument bytes, the three roofline terms, the bottleneck and the useful
+   ratio (counts at the data-sheet peaks, not times). (b) Full-width sparse
+   qwen3-1.7b on the (1, 1) mesh, B = 4, S = 2048, one step: its meta count
+   and ``roofline.count`` of the same step on the card give equal FLOPs
+   and bytes, and the meta prediction (argument + temp bytes) is within
+   ``DRYRUN_MEM_TOL`` of ``torch.cuda.max_memory_allocated()`` over the
+   step. (c) ``Engine.roofline()`` of phase 14a's engines (built again on
+   one state dict, run before (b)): the tp 2 record available, collective
+   bytes above 0, FLOPs per device beside tp 1's. (d) Smoke
+   (fp32) and full-width (bf16) qwen3-1.7b through ``transformer.prefill``
+   and 8 ``decode_step`` calls on a ``MeshState`` at tp (1, 2) and fsdp
+   (2, 1) against (1, 1): logits within ``TP_LOGIT_TOL`` (bf16) or
+   ``SHARDED_FP32_TOL``, greedy tokens equal, and a planted "cols" shard
+   fault at tp (1, 2) reading above the tolerance. The kernels' counts
+   are set to 0 before (b) to (d) and read after: all three launch.
+17. The kernels line (with each kernel's launches in phases 5 to 16, a
    row for the b = 32 tensor-core path at ViT-B/16's shapes and one for
    attention at head dim 80), the script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -3171,10 +3192,10 @@ def planted_train_fault(kind):
     if kind == "replicated grad":
         name, orig = "accumulate", loop.MeshState.accumulate
 
-        def faulty(self, acc, param, m, grad):
+        def faulty(self, acc, param, m, grad, *rest):
             if m and self.model_dim[param] is None:
                 return None
-            return orig(self, acc, param, m, grad)
+            return orig(self, acc, param, m, grad, *rest)
 
         owner = loop.MeshState
     elif kind == "global count":
@@ -3411,6 +3432,241 @@ def mesh_kernels(timer, full, seed):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 16: the dry-run, and sharded contiguous prefill and decode
+# ----------------------------------------------------------------------
+
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"), ("qwen3-1.7b", "decode_32k"),
+                ("musicgen-large", "train_4k"))
+DRYRUN_REFUSED = ("deepseek-moe-16b", "train_4k", "item 17")
+DRYRUN_MEM_TOL = 0.10  # |predicted / max_memory_allocated - 1|
+SHARDED_MESHES = (("fsdp", (1, 1)), ("tp", (1, 2)), ("fsdp", (2, 1)))
+SHARDED_FP32_TOL = 1e-4
+
+
+def dryrun_rows():
+    """(a) The dry-run's rows of ``DRYRUN_CELLS`` on the meta 16 x 16 mesh
+    (counted on the host; nothing runs on the card), and the refusal of
+    ``DRYRUN_REFUSED``. Run in a helper process from the script's start
+    (``main``), beside the card's phases."""
+    from repro_torch.launch import dryrun as D
+
+    rows = {}
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = D.run_cell(arch, shape, verbose=False)
+        r["wall_s"] = time.perf_counter() - t0
+        rows[f"{arch} {shape}"] = r
+    arch, shape, _ = DRYRUN_REFUSED
+    try:
+        D.run_cell(arch, shape, verbose=False)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    return {"rows": rows, "refused": {"arch": arch, "shape": shape, "error": refusal}}
+
+
+def check_dryrun_rows(out, smi):
+    """(a)'s checks: every row ``ok`` with finite terms, and the refused cell
+    naming its item."""
+    for key, r in out["rows"].items():
+        if not r["ok"] or not all(math.isfinite(r[k]) for k in ("compute_s", "memory_s", "collective_s")):
+            raise AssertionError(f"16a: {key}: {r}")
+        log(f"[16a] {key} on 16x16 ({r['strategy']}; counts, not times): bytes/device "
+            f"{r['bytes_per_device'] / 1e9:.3f} GB temp + {r['argument_bytes_per_device'] / 1e9:.3f} GB arguments; "
+            f"compute {r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, collective "
+            f"{r['collective_s'] * 1e3:.3f} ms -> {r['bottleneck']}; useful {r['useful_flops_ratio']:.4f}; "
+            f"{r['wall_s']:.1f} s on the host")
+    ref = out["refused"]
+    if ref["error"] is None or DRYRUN_REFUSED[2] not in ref["error"]:
+        raise AssertionError(f"16a: {ref['arch']} {ref['shape']} was not refused naming {DRYRUN_REFUSED[2]}: {ref}")
+    log(f"[16a] {ref['arch']} {ref['shape']} refused: {ref['error']}")
+    out["card"] = smi
+    return out
+
+
+def start_dryrun_rows():
+    """(a) in a helper process (spawned: it never touches the card), started
+    at the top of ``main`` so its host seconds overlap the card's phases.
+    Returns (executor, future); phase 16 reads the future and shuts the
+    executor down."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(dryrun_rows)
+
+
+def dryrun_on_card(full, seed, smi):
+    """(b) One full-width training step on the (1, 1) mesh, B = 4, S =
+    2048, built by ``launch.dryrun.build_cell``: counted on the meta device
+    and counted as it runs on the card (``roofline.counting``), FLOPs and
+    bytes equal; and the meta prediction of its memory, argument + temp
+    bytes, against ``max_memory_allocated`` after ``reset_peak_memory_stats``
+    with only the step's state alive."""
+    from repro_torch.analysis import roofline as R
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import Mesh, make_local_mesh
+    from repro_torch.models import transformer as T
+
+    shape = ShapeSpec("train_2k", 2048, 4, "train")
+    t0 = time.perf_counter()
+    meta = D.count_cell(full, shape, Mesh(("data", "model"), (1, 1), ["meta"]), strategy="fsdp", microbatches=1)
+    meta_s = time.perf_counter() - t0
+    gc_collect()
+    sd = T.init_model(full, seed=seed, device="cuda").state_dict()
+    cell = D.build_cell(full, shape, make_local_mesh(1, 1, ["cuda"]), strategy="fsdp", params=sd, microbatches=1)
+    del sd
+    gc_collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with R.counting() as tally:
+        cell.run()
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    card = tally.cost()
+    predicted = meta["argument_bytes"] + meta["temp_bytes"]
+    row = {"meta_flops": meta["cost"].flops, "card_flops": card.flops, "meta_bytes": meta["cost"].bytes_accessed,
+           "card_bytes": card.bytes_accessed, "argument_bytes": meta["argument_bytes"],
+           "temp_bytes": meta["temp_bytes"], "card_temp_bytes": tally.peak_bytes, "resident_bytes": resident,
+           "predicted_bytes": predicted, "max_memory_allocated": peak, "ratio": predicted / peak,
+           "meta_s": meta_s, "card_count_s": card_s, "card": smi}
+    del cell
+    gc_collect()
+    log(f"[16b] full-width qwen3-1.7b train step (1, 1), B=4 S=2048 ({smi}): FLOPs meta {row['meta_flops']:.6e} "
+        f"card {row['card_flops']:.6e}; bytes meta {row['meta_bytes']:.6e} card {row['card_bytes']:.6e}; memory "
+        f"predicted {predicted / 1e9:.3f} GB (arguments {row['argument_bytes'] / 1e9:.3f} + temp "
+        f"{row['temp_bytes'] / 1e9:.3f}; the card's count of temp {row['card_temp_bytes'] / 1e9:.3f}) vs "
+        f"max_memory_allocated {peak / 1e9:.3f} GB (resident before the step {resident / 1e9:.3f}): ratio "
+        f"{row['ratio']:.4f} (tol {DRYRUN_MEM_TOL}); meta count {meta_s:.1f} s, card count {card_s:.1f} s")
+    if (row["meta_flops"], row["meta_bytes"]) != (row["card_flops"], row["card_bytes"]):
+        raise AssertionError(f"16b: the meta count differs from the card's: {row}")
+    if abs(row["ratio"] - 1) > DRYRUN_MEM_TOL:
+        raise AssertionError(f"16b: predicted memory {predicted} vs max_memory_allocated {peak}")
+    return row
+
+
+def gc_collect():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharded_contiguous(cfg, sd, seed, smi, tol, tag):
+    """(d) ``transformer.prefill`` of 4 prompts of 512 tokens (max_len
+    1024) then 8 greedy ``decode_step`` calls on a ``MeshState`` of each
+    of ``SHARDED_MESHES`` (every position the card) against (1, 1): the
+    prefill and every decode step's logits within ``tol``, the greedy
+    tokens equal; then a planted "cols" shard fault at tp (1, 2)
+    (``planted_fault`` on the replica's ``ShardedLM``), which must read
+    above ``tol``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.training.loop import MeshState
+
+    rng = np.random.default_rng(seed + 16)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 512)), dtype=torch.int32, device="cuda")
+
+    def run(state):
+        lp, caches = T.prefill(cfg, state, {"tokens": toks}, max_len=1024)
+        logits, greedy, nxt = [lp.float()], [], lp.argmax(-1)
+        for i in range(8):
+            greedy.append(nxt.tolist())
+            ld, _ = T.decode_step(cfg, state, caches, nxt, 512 + i)
+            logits.append(ld.float())
+            nxt = ld.argmax(-1)
+        return logits, greedy
+
+    rows, ref = {}, None
+    for strategy, shape in SHARDED_MESHES:
+        n = shape[0] * shape[1]
+        state = MeshState(cfg, make_local_mesh(*shape, ["cuda"] * n), strategy, sd, copy=n > 1)
+        t0 = time.perf_counter()
+        logits, greedy = run(state)
+        torch.cuda.synchronize()
+        row = {"wall_s": time.perf_counter() - t0}
+        if not all(torch.isfinite(x).all() and x.shape == (4, cfg.padded_vocab) for x in logits):
+            raise AssertionError(f"{tag}: {strategy} {shape}: logits not finite or of the wrong shape")
+        if ref is None:
+            ref = (logits, greedy)
+        row["max_abs_err"] = max((a - b).abs().max().item() for a, b in zip(logits, ref[0]))
+        row["greedy_equal"] = greedy == ref[1]
+        if strategy == "tp":
+            with planted_fault(state._models[(0, cfg)], "cols"):
+                bad, _ = run(state)
+            row["planted_cols_fault"] = max((a - b).abs().max().item() for a, b in zip(bad, ref[0]))
+        rows[f"{strategy} {shape}"] = row
+        log(f"[{tag}] {cfg.name} {cfg.dtype} {strategy} {shape} ({smi}): prefill + 8 decode steps logits vs (1, 1) "
+            f"{row['max_abs_err']:.4g} (tol {tol}), greedy equal {row['greedy_equal']}"
+            + (f", planted cols fault {row['planted_cols_fault']:.4g}" if "planted_cols_fault" in row else "")
+            + f"; {row['wall_s']:.2f} s")
+        if row["max_abs_err"] > tol or not row["greedy_equal"]:
+            raise AssertionError(f"{tag}: {strategy} {shape} differs from (1, 1): {row}")
+        if "planted_cols_fault" in row and row["planted_cols_fault"] <= tol:
+            raise AssertionError(f"{tag}: a planted cols fault reads {row['planted_cols_fault']}, within {tol}")
+        del state
+    return rows
+
+
+def engine_rooflines(full, seed, smi):
+    """(c) ``Engine.roofline()`` of phase 14a's engines (``EngineConfig(
+    max_slots=8, max_len=2048)``, tp 1 and tp 2 on one state dict): the tp 2
+    record must be available, with collective bytes above 0."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    sd = T.init_model(full, seed=seed, device="cuda").state_dict()
+    recs = {}
+    for tp in (1, 2):
+        eng = Engine(full, engine_cfg=EngineConfig(max_slots=8, max_len=2048), params=sd, mesh=make_tp_mesh(tp))
+        recs[tp] = eng.roofline()
+        del eng
+    del sd
+    gc_collect()
+    one, two = recs[1], recs[2]
+    log(f"[16c] Engine.roofline() ({smi}; counts): tp 1 {one['flops']:.6e} FLOPs, {one['bytes_accessed']:.6e} bytes; "
+        f"tp 2 a device {two['flops']:.6e} FLOPs, {two['bytes_accessed']:.6e} bytes, collective "
+        f"{two['collective_bytes']:.6e} bytes ({two['collective_s'] * 1e3:.4f} ms at one NVLink), bound "
+        f"{two['bottleneck']}")
+    if not (two["available"] and two["collective_bytes"] > 0):
+        raise AssertionError(f"16c: the tp 2 engine's roofline: {two}")
+    return {"tp1": one, "tp2": two, "card": smi}
+
+
+def dryrun_phase(full, seed, smi, kernels, rows=None):
+    """Phase 16: (a) (``rows``: the helper process's future, else run here),
+    then (c), (b) and (d) on the card with the kernels' counts set to 0
+    just before and read just after."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    out = {"dryrun": check_dryrun_rows(dryrun_rows() if rows is None else rows.result(timeout=600), smi)}
+    log(f"[16a] rows ready after {time.perf_counter() - t0:.1f} s more in phase 16")
+    for k in kernels.values():
+        k.launches = 0
+    out["engine_roofline"] = engine_rooflines(full, seed, smi)
+    out["card_count"] = dryrun_on_card(full, seed, smi)
+    smoke = registry.get_smoke("qwen3-1.7b", sparse=True)
+    out["sharded_smoke"] = sharded_contiguous(
+        smoke, T.init_model(smoke, seed=seed, device="cuda").state_dict(), seed, smi, SHARDED_FP32_TOL, "16d")
+    sd = T.init_model(full, seed=seed, device="cuda").state_dict()
+    out["sharded_full"] = sharded_contiguous(full, sd, seed, smi, TP_LOGIT_TOL, "16d")
+    del sd
+    gc_collect()
+    out["launches"] = {name: k.launches for name, k in kernels.items()}
+    for name, n in out["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"16: kernel {name} was never launched in phase 16")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3425,6 +3681,7 @@ def main(argv=None) -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}", file=sys.stderr)
         return 2
+    dry_pool, dry_rows = start_dryrun_rows()  # phase 16a, on the host beside the card's phases
 
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
@@ -3755,7 +4012,17 @@ def main(argv=None) -> int:
     report["mesh_training"] = mesh_train
     log(f"[15] phase 15 took {mesh_train['wall_s']:.1f} s")
 
-    # ---- 16. report ------------------------------------------------
+    # ---- 16. the dry-run, sharded contiguous prefill and decode -----
+    t16 = time.perf_counter()
+    try:
+        dry = dryrun_phase(full, args.seed, smi, kernels, dry_rows)
+    finally:
+        dry_pool.shutdown(cancel_futures=True)
+    dry["wall_s"] = time.perf_counter() - t16
+    report["dryrun"] = dry
+    log(f"[16] phase 16 took {dry['wall_s']:.1f} s")
+
+    # ---- 17. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -3852,6 +4119,7 @@ def main(argv=None) -> int:
                                  + tp["router"]["launches"][k["name"]] + tp["bench"]["launches"][k["name"]])
         if k["name"] != "paged_decode_attention":  # training on a mesh runs the other two
             k["launches_phase15"] = mesh_train["training"]["launches"][k["name"]]
+        k["launches_phase16"] = dry["launches"][k["name"]]
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -3861,7 +4129,7 @@ def main(argv=None) -> int:
                              f"SDPA's {paged_main['library_ms']:.4f} ms on the same inputs")
     report["wall_s"] = time.perf_counter() - T_START
     out.write_text(json.dumps(report, indent=1))
-    log(f"[16] chip_smoke.py took {report['wall_s']:.1f} s")
+    log(f"[17] chip_smoke.py took {report['wall_s']:.1f} s")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

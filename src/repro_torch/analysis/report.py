@@ -1,10 +1,12 @@
 """Render the dry-run / roofline markdown table from the sweep JSON, a
 copy of the JAX package's ``analysis/report.py``.
 
-  PYTHONPATH=src python -m repro_torch.analysis.report [dryrun_baseline.json]
+  PYTHONPATH=src python -m repro_torch.analysis.report [dryrun_baseline_torch.json]
 
-The sweep JSON is what the dry-run writes (ROADMAP Queue 1 item 14); the
-rows carry the JAX package's keys.
+The sweep JSON is what the port's dry-run writes (``launch.dryrun --json
+dryrun_baseline_torch.json``): the JAX package's keys, on a file of its
+own so the two packages' rows never mix. Its numbers are counts on the
+meta mesh at the H100's data-sheet peaks, not measured times.
 """
 
 from __future__ import annotations
@@ -49,4 +51,4 @@ def render(path: str) -> str:
 
 
 if __name__ == "__main__":
-    print(render(sys.argv[1] if len(sys.argv) > 1 else "dryrun_baseline.json"))
+    print(render(sys.argv[1] if len(sys.argv) > 1 else "dryrun_baseline_torch.json"))

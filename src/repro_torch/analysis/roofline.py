@@ -18,7 +18,25 @@ in the port has HLO, so the port counts one run of the step instead:
     reports, the ops inside it (its plain version on the CPU) are not
     counted, so the CPU and the card read the same count.
 
-Everything is per device: one card, so collective bytes are 0.
+  - the collectives of ``distributed.collectives`` and the mesh trainer's
+    gathers and reduce-scatters (``training.loop.MeshState``) report
+    themselves (``collective``): while one runs, the ops inside it (the
+    one controller's copies, concatenations and sums) are not counted, and
+    the collective adds its bytes to its class by the JAX walker's rule,
+    the operand bytes of each position taking part, the result bytes for
+    an all-gather. A copy that stays on one position is not a collective:
+    the class and bytes are the caller's, who knows the positions, so a
+    meta, a CPU and a card mesh count the same.
+  - the memory the run creates: every storage an op (or a kernel entry
+    point, or a collective, taken whole) creates is live from then until
+    its last tensor dies (``weakref.finalize``); ``Tally.peak_bytes`` is
+    the most that was live at once. While a step is counted, a collective
+    gives each position its own result (``counting``), as a mesh of
+    distinct devices holds it, so the count does not depend on how many
+    devices the positions stand on.
+
+The counts are per device. On one card collective bytes are 0; the
+dry-run (``launch.dryrun``) counts the program of one position of a mesh.
 
 Hardware constants: H100 SXM data sheet, 989 TFLOP/s bf16 dense on the
 tensor cores, 67 TFLOP/s fp32 without them, 3.35 TB/s of HBM3, 450 GB/s
@@ -27,19 +45,25 @@ of NVLink a direction. ``HW.for_dtype`` picks the FLOP peak by dtype.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from typing import Any, Callable
+import weakref
+from typing import Any, Callable, Iterator
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
 __all__ = [
     "HW",
     "Cost",
+    "Tally",
     "count",
+    "counting",
+    "tally",
     "metered",
+    "collective",
+    "uncounted",
     "roofline_terms",
     "active_params",
     "model_flops",
@@ -73,6 +97,13 @@ class Cost:
     @property
     def total_collective_bytes(self) -> float:
         return sum(self.collective_bytes.values())
+
+    def divided(self, n: int) -> "Cost":
+        """The count of one of ``n`` symmetric positions that this count
+        covers together (a tensor-parallel replica's shards)."""
+        return Cost(flops=self.flops / n, bytes_accessed=self.bytes_accessed / n,
+                    collective_bytes={k: v / n for k, v in self.collective_bytes.items()},
+                    n_collectives=self.n_collectives)
 
     def to_dict(self) -> dict:
         return {
@@ -116,8 +147,29 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _collect(x: Any, out: list) -> None:
+    if isinstance(x, torch.Tensor):
+        out.append(x)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            _collect(v, out)
+    elif isinstance(x, dict):
+        for v in x.values():
+            _collect(v, out)
+
+
 def _tensors(x: Any) -> list[torch.Tensor]:
-    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+    """The tensors in ``x`` (nested tuples, lists and dicts), in order."""
+    out: list = []
+    _collect(x, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _fresh(func) -> bool:
+    """Whether every result of the aten op ``func`` is a new tensor (no
+    result aliases an input: not a view, an in-place or an out= op)."""
+    return not func.is_view and all(r.alias_info is None for r in func._schema.returns)
 
 
 def _numel(shape) -> int:
@@ -148,26 +200,74 @@ def _matmul_flops(packet, args, out) -> float:
     return 0.0
 
 
-class _Counter(TorchDispatchMode):
+def _storages(tensors) -> list:
+    return [t.untyped_storage() for t in tensors]
+
+
+class Tally(TorchDispatchMode):
+    """The count of one run (``counting``): FLOPs, bytes, collective bytes
+    by class, and the memory the run created (``live_bytes`` now,
+    ``peak_bytes`` at most)."""
+
     def __init__(self):
         super().__init__()
         self.flops = 0.0
         self.bytes = 0.0
-        self.quiet = 0  # > 0 while a metered entry point reports itself
+        self.collective_bytes: dict[str, float] = {}
+        self.n_collectives = 0
+        self.quiet = 0  # > 0 while a metered entry point or a collective runs
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._created: dict[int, int] = {}  # live storages this run created
+
+    def cost(self) -> Cost:
+        return Cost(flops=self.flops, bytes_accessed=self.bytes,
+                    collective_bytes=dict(self.collective_bytes), n_collectives=self.n_collectives)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not self.quiet:
-            self._add(func, args, kwargs, out)
+            outs = _tensors(out)
+            self._add(func, args, kwargs, outs)
+            if outs and _fresh(func):
+                self._track(outs, ())
         return out
 
-    def _add(self, func, args, kwargs, out) -> None:
+    def note(self, inputs, outputs) -> None:
+        """Track the storages of ``outputs`` that are not ``inputs``' and
+        not yet tracked: created by the call that took ``inputs``."""
+        outs = _tensors(outputs)
+        if outs:
+            self._track(outs, {st._cdata for st in _storages(_tensors(inputs))})
+
+    def _track(self, outs: list, seen) -> None:
+        for st in _storages(outs):
+            key = st._cdata
+            if key in seen or key in self._created:
+                continue
+            n = st.nbytes()
+            self._created[key] = n
+            self.live_bytes += n
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            weakref.finalize(st, self._free, key, n)
+
+    def created_bytes(self, outputs) -> int:
+        """Bytes of the distinct live storages of ``outputs`` that this run
+        created."""
+        keys = {st._cdata for st in _storages(_tensors(outputs))}
+        return sum(self._created.get(k, 0) for k in keys)
+
+    def _free(self, key: int, n: int) -> None:
+        if self._created.pop(key, None) is not None:
+            self.live_bytes -= n
+
+    def _add(self, func, args, kwargs, outs: list) -> None:
         packet = func.overloadpacket
-        self.flops += _matmul_flops(packet, args, out)
+        if outs:
+            self.flops += _matmul_flops(packet, args, outs[0])
         if packet in _FREE or func.is_view:
             return
-        outs = _tensors(out)
         if packet in _GATHERS:
             idx = _tensors(args[1:]) + _tensors(kwargs)
             self.bytes += 2 * sum(map(_nbytes, outs)) + sum(map(_nbytes, idx))
@@ -181,49 +281,111 @@ class _Counter(TorchDispatchMode):
             self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
 
 
-# the counter of the run being counted, if any
-_active: _Counter | None = None
+# the tally of the run being counted, if any
+_active: Tally | None = None
+
+
+def tally() -> Tally | None:
+    """The tally of the run being counted (None outside ``counting``)."""
+    return _active
+
+
+def _reporting(fn: Callable, args, kwargs, report: Callable[[Tally, Any], None]):
+    """``fn(*args, **kwargs)`` with its ops hidden from the active tally,
+    then ``report(tally, result)`` and its new storages tracked."""
+    c = _active
+    if c is None or c.quiet:
+        return fn(*args, **kwargs)
+    c.quiet += 1
+    try:
+        out = fn(*args, **kwargs)
+        report(c, out)
+    finally:
+        c.quiet -= 1
+    c.note((args, kwargs), out)
+    return out
 
 
 def metered(cost_fn: Callable[..., tuple[float, float]]) -> Callable:
     """Decorator for a kernel entry point: while ``count`` runs, the call
     adds ``cost_fn(*args, **kwargs)`` = (FLOPs, bytes) and nothing of the
-    ops inside it. Outside ``count`` it costs one global read."""
+    ops inside it; its result's memory is tracked. Outside ``count`` it
+    costs one global read."""
 
     def wrap(fn: Callable) -> Callable:
         @functools.wraps(fn)
         def inner(*args, **kwargs):
-            c = _active
-            if c is None or c.quiet:
+            if _active is None:
                 return fn(*args, **kwargs)
-            c.quiet += 1
-            try:
-                out = fn(*args, **kwargs)
+
+            def rep(c, out):
                 flops, nbytes = cost_fn(*args, **kwargs)
-            finally:
-                c.quiet -= 1
-            c.flops += flops
-            c.bytes += nbytes
-            return out
+                c.flops += flops
+                c.bytes += nbytes
+
+            return _reporting(fn, args, kwargs, rep)
 
         return inner
 
     return wrap
 
 
-def count(fn: Callable[[], Any]) -> tuple[Any, Cost]:
-    """Run ``fn()`` once and return (its result, its Cost)."""
+def uncounted(fn: Callable) -> Callable:
+    """Decorator for a cached upload of a static table (a BSR pattern's
+    tables, an attention schedule): while a step is counted its ops and
+    its memory do not count, so a count does not depend on whether an
+    earlier run in the process filled the cache."""
+
+    @functools.wraps(fn)
+    def inner(*args, **kwargs):
+        c = _active
+        if c is None:
+            return fn(*args, **kwargs)
+        c.quiet += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            c.quiet -= 1
+
+    return inner
+
+
+def collective(kind: str | None, nbytes: float, fn: Callable, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)``, the port's form of one collective, as
+    the walker counts one: while ``count`` runs, its ops add no FLOPs or
+    bytes, and ``nbytes`` (the operand bytes of every position taking
+    part, the result bytes for an all-gather) go to class ``kind``
+    ("all-gather", "all-reduce", "reduce-scatter"). ``kind=None`` moves
+    nothing between positions (its ops are hidden all the same)."""
+
+    def rep(c: Tally, out) -> None:
+        if kind is not None and nbytes:
+            c.collective_bytes[kind] = c.collective_bytes.get(kind, 0.0) + float(nbytes)
+            c.n_collectives += 1
+
+    return _reporting(fn, args, kwargs, rep)
+
+
+@contextlib.contextmanager
+def counting() -> Iterator[Tally]:
+    """Count everything run inside the block into the yielded ``Tally``."""
     global _active
     if _active is not None:
         raise RuntimeError("roofline.count is not reentrant")
-    counter = _Counter()
-    _active = counter
+    t = Tally()
+    _active = t
     try:
-        with counter:
-            out = fn()
+        with t:
+            yield t
     finally:
         _active = None
-    return out, Cost(flops=counter.flops, bytes_accessed=counter.bytes, collective_bytes={}, n_collectives=0)
+
+
+def count(fn: Callable[[], Any]) -> tuple[Any, Cost]:
+    """Run ``fn()`` once and return (its result, its Cost)."""
+    with counting() as t:
+        out = fn()
+    return out, t.cost()
 
 
 # ----------------------------------------------------------------------

@@ -2,9 +2,12 @@
 shape x mesh): the roofline terms, the bottleneck and the useful-FLOPs
 ratio; the twin of ``benchmarks/roofline_report.py``.
 
-It reads ``dryrun_baseline.json`` at the root of the checkout, which the
-dry-run writes (ROADMAP Queue 1 item 14). Until then it emits the one
-``roofline/missing`` row, as the JAX script does without the file.
+It reads ``dryrun_baseline_torch.json`` at the root of the checkout,
+which the port's dry-run writes (``python -m repro_torch.launch.dryrun
+--all --both-meshes --json dryrun_baseline_torch.json``; the JAX package's
+``dryrun_baseline.json`` is its own, so ``benchmarks/roofline_report.py``
+never reads the port's rows). Without the file it emits the one
+``roofline/missing`` row, as the JAX script does.
 
   PYTHONPATH=src python -m repro_torch.bench.roofline_report
 """
@@ -16,7 +19,7 @@ from pathlib import Path
 
 __all__ = ["DEFAULT", "rows", "run"]
 
-DEFAULT = Path(__file__).resolve().parents[3] / "dryrun_baseline.json"
+DEFAULT = Path(__file__).resolve().parents[3] / "dryrun_baseline_torch.json"
 
 
 def rows(path: str | Path = DEFAULT) -> list[tuple[str, float, str]]:

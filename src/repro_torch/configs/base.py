@@ -1,7 +1,8 @@
 """Model configuration: the architecture's published numbers plus the
 pixelfly knobs, as frozen dataclasses.
 
-A copy of ``ModelConfig``/``GroupSpec`` from the JAX package with a
+A copy of ``ModelConfig``/``GroupSpec`` (and of the dry-run's
+``ShapeSpec``/``SHAPES`` cells) from the JAX package with a
 ``torch_dtype`` property in place of ``jdtype``; field names and defaults
 are unchanged, so a config built here describes exactly the model the
 JAX package builds from the same fields.
@@ -14,7 +15,7 @@ import math
 
 import torch
 
-__all__ = ["ModelConfig", "GroupSpec"]
+__all__ = ["ModelConfig", "GroupSpec", "ShapeSpec", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,3 +155,22 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One dry-run cell's workload: the step kind, its global batch and its
+    sequence length (for decode, the cache length)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}

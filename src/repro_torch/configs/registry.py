@@ -10,8 +10,8 @@ whose modality frontends are stubs that feed embeddings, the MoE family
 (``mamba2-130m``) and the hybrid (``zamba2-2.7b``: Mamba2 layers and one
 shared attention block). ``sparse=True`` leaves attention dense for the
 SSM family, which has none. The JAX registry's mesh tables
-(``DEFAULT_STRATEGY``, ``LONG_CONTEXT_*``, ``shapes_for``) wait for the
-dry-run (ROADMAP Queue 1 item 14), which lowers every cell over them.
+(``DEFAULT_STRATEGY``, ``LONG_CONTEXT_*``, ``shapes_for``) are copied as
+they are: the dry-run (``launch.dryrun``) counts every cell over them.
 ``deepseek-67b`` (134 GB of bf16 weights) and ``kimi-k2-1t-a32b`` (344 GB
 even when sparse) do not fit one 80 GB card: the port runs them at smoke
 width, and at full width only builds them on the meta device. Tensor
@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
 
 _MODULES = {
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
@@ -41,6 +41,28 @@ _MODULES = {
 }
 
 ARCH_NAMES = list(_MODULES)
+
+# Mesh-usage strategy per arch (``distributed.sharding.Strategy``): tensor
+# parallelism with FSDP for the big models, pure FSDP for the small ones,
+# where tp 16 would be dominated by each layer's activation collectives.
+DEFAULT_STRATEGY = {
+    "deepseek-67b": "tp",
+    "qwen3-1.7b": "fsdp",
+    "qwen2-1.5b": "fsdp",
+    "smollm-360m": "fsdp",
+    "qwen2-vl-7b": "tp",
+    "deepseek-moe-16b": "tp",  # expert parallelism needs the model axis
+    "kimi-k2-1t-a32b": "tp",
+    "musicgen-large": "tp",
+    "zamba2-2.7b": "tp",
+    "mamba2-130m": "fsdp",
+}
+
+# Archs whose long_500k cell runs (sub-quadratic sequence mixing).
+LONG_CONTEXT_ARCHS = {"mamba2-130m", "zamba2-2.7b"}
+# pixelfly-sparse attention makes decode sub-quadratic, so this
+# full-attention arch also runs long_500k when sparse
+LONG_CONTEXT_SPARSE_ARCHS = {"smollm-360m"}
 
 
 def _module(name: str):
@@ -82,3 +104,12 @@ def get_smoke(name: str, *, sparse: bool = False, **overrides) -> ModelConfig:
     if overrides:
         cfg = cfg.replace(**overrides)
     return cfg
+
+
+def shapes_for(name: str, *, sparse: bool = False) -> list[ShapeSpec]:
+    """The dry-run's shape cells of an arch: train, prefill and decode, and
+    long_500k where its sequence mixing is sub-quadratic."""
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if name in LONG_CONTEXT_ARCHS or (sparse and name in LONG_CONTEXT_SPARSE_ARCHS):
+        out.append(SHAPES["long_500k"])
+    return out

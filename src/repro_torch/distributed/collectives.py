@@ -12,6 +12,22 @@ the JAX package's engine drives one GSPMD program over its mesh. Every
 join is differentiable (one process holds the whole autograd graph):
 ``all_gather``'s backward sums each shard's slice of the gradient, and
 ``reduce_scatter`` is what the mesh trainer's gradients go through.
+
+While a step is counted (``analysis.roofline``), each join is one
+collective of the JAX walker's class: ``all_gather`` and ``gather`` add
+their result's bytes for each position that receives it, ``all_reduce``
+each position's operand bytes, and the ops inside are not counted (a
+collective's bytes are not HBM bytes to the walker). The caller of
+``reduce_scatter`` reports it (``training.loop.MeshState.accumulate``:
+only it knows how many positions add into a slice). ``broadcast`` stands
+for an input every device holds under JAX's input sharding and
+``reduce_scalars`` for a psum of a few scalars: neither adds bytes. The
+backward of a join is a collective too (JAX's transpose of an all-gather
+is a reduce-scatter, of an all-reduce an all-reduce): a hook on each
+result adds its gradient's bytes when the gradient arrives. While
+counting, every position gets a result of its own, as on a mesh of
+distinct devices, so the counted memory does not depend on how many
+devices the positions stand on.
 """
 
 from __future__ import annotations
@@ -20,39 +36,65 @@ from typing import Callable, Sequence, TypeVar
 
 import torch
 
+from repro_torch.analysis import roofline as R
+
 __all__ = ["per_device", "broadcast", "gather", "all_gather", "all_reduce", "reduce_scatter", "reduce_scalars"]
 
 T = TypeVar("T")
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def per_device(fn: Callable[[torch.device], T], devices: Sequence[torch.device]) -> list[T]:
     """``fn(device)`` for each entry of ``devices``, called once for each
-    distinct device."""
-    done: dict[str, T] = {}
+    distinct device (for each entry while a step is counted)."""
+    done: dict = {}
+    each = R.tally() is not None
     out = []
-    for d in devices:
-        key = str(d)
+    for i, d in enumerate(devices):
+        key = i if each else str(d)
         if key not in done:
             done[key] = fn(torch.device(d))
         out.append(done[key])
     return out
 
 
+def _backward(kind: str, outs: list) -> list:
+    """While counting, report ``kind`` with each result's gradient bytes as
+    the gradient arrives (the backward's collective)."""
+    t = R.tally()
+    if t is not None and not t.quiet:  # not a join inside another
+        for o in {id(o): o for o in outs}.values():
+            if o.requires_grad:
+                o.register_hook(lambda g: R.collective(kind, _nbytes(g), lambda: None))
+    return outs
+
+
 def broadcast(t: torch.Tensor | None, devices: Sequence[torch.device]) -> list:
     """``t`` on every shard's device (None stays None)."""
     if t is None:
         return [None] * len(devices)
-    return per_device(lambda d: t.to(d, non_blocking=True), devices)
+    if R.tally() is None:
+        return per_device(lambda d: t.to(d, non_blocking=True), devices)
+    return R.collective(None, 0, lambda: [t.to(d, non_blocking=True, copy=i > 0) for i, d in enumerate(devices)])
 
 
 def gather(shards: Sequence[torch.Tensor], dim: int, device: torch.device) -> torch.Tensor:
     """The shards concatenated along ``dim`` in rank order, on ``device``."""
-    return torch.cat([s.to(device, non_blocking=True) for s in shards], dim=dim)
+    nbytes = sum(map(_nbytes, shards))
+    out = R.collective("all-gather", nbytes, lambda: torch.cat([s.to(device, non_blocking=True) for s in shards],
+                                                                dim=dim))
+    return _backward("reduce-scatter", [out])[0]
 
 
 def all_gather(shards: Sequence[torch.Tensor], dim: int) -> list[torch.Tensor]:
     """``gather`` onto every shard's device."""
-    return per_device(lambda d: gather(shards, dim, d), [s.device for s in shards])
+    nbytes = len(shards) * sum(map(_nbytes, shards))
+    out = R.collective("all-gather", nbytes, per_device, lambda d: gather(shards, dim, d),
+                       [s.device for s in shards])
+    return _backward("reduce-scatter", out)
 
 
 def all_reduce(shards: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -65,7 +107,9 @@ def all_reduce(shards: Sequence[torch.Tensor]) -> list[torch.Tensor]:
             acc = acc + s.to(d, torch.float32)
         return acc.to(shards[0].dtype)
 
-    return per_device(total, [s.device for s in shards])
+    nbytes = sum(map(_nbytes, shards))
+    out = R.collective("all-reduce", nbytes, per_device, total, [s.device for s in shards])
+    return _backward("all-reduce", out)
 
 
 def reduce_scatter(
@@ -85,7 +129,8 @@ def reduce_scatter(
     are added to it, so a caller that computes the positions' tensors in
     turn holds one at a time; the sum is the same, term by term in rank
     order. A sum of two or more terms is fp32; a slice with one term is
-    that term, in its own dtype (exact, and no copy)."""
+    that term, in its own dtype (exact, and no copy). The caller reports
+    it as a collective (module docstring)."""
     if devices is None:
         devices = [f.device for f in fulls]
     if out is None:
@@ -104,9 +149,11 @@ def reduce_scalars(values: Sequence[torch.Tensor], op: str, device: torch.device
     """The sum or max (``op``) of 0-d tensors, in the order given, on
     ``device``: one stack and one reduction, so the same values in the
     same order give the same bits on one device."""
-    stacked = torch.stack([v.to(device) for v in values])
-    if op == "sum":
-        return stacked.sum()
-    if op == "max":
-        return stacked.max()
-    raise ValueError(f"unknown op {op!r}")
+    if op not in ("sum", "max"):
+        raise ValueError(f"unknown op {op!r}")
+
+    def run():
+        stacked = torch.stack([v.to(device) for v in values])
+        return stacked.sum() if op == "sum" else stacked.max()
+
+    return R.collective(None, 0, run)

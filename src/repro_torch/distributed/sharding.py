@@ -59,6 +59,7 @@ __all__ = [
     "shard_state_dict",
     "unshard_state_dict",
     "check_tp",
+    "axes_size",
     "REFUSED",
 ]
 
@@ -70,7 +71,6 @@ REFUSED = {
     "ssm": "ROADMAP Queue 1 item 18 (the SSM Server at tp > 1)",
     "engine_fsdp": "ROADMAP Queue 1 item 20 (an Engine holding FSDP-sharded weights on a (data, model) mesh, "
                    "the JAX Engine's strategy=\"fsdp\" on such a mesh)",
-    "roofline": "ROADMAP Queue 1 item 14 (the dry-run, which counts the collectives)",
 }
 
 
@@ -120,7 +120,8 @@ class Strategy:
         return self.mesh.shape[self.model_axis] if self.model_axis else 1
 
 
-def _axsize(mesh: Mesh, axes) -> int:
+def axes_size(mesh: Mesh, axes) -> int:
+    """How many slices a spec entry cuts a dimension into (1 for None)."""
     if not axes:
         return 1
     if isinstance(axes, str):
@@ -129,7 +130,7 @@ def _axsize(mesh: Mesh, axes) -> int:
 
 
 def _fits(mesh: Mesh, dim: int, axes) -> bool:
-    return axes is not None and dim % _axsize(mesh, axes) == 0
+    return axes is not None and dim % axes_size(mesh, axes) == 0
 
 
 def _maybe(st: Strategy, dim: int, axes):
@@ -142,9 +143,9 @@ def _batch_axes_for(st: Strategy, dim: int):
     """Largest suffix of the batch axes that divides ``dim`` (None if only
     a trivial size-1 sharding remains)."""
     axes = st.batch
-    while axes and dim % _axsize(st.mesh, axes) != 0:
+    while axes and dim % axes_size(st.mesh, axes) != 0:
         axes = axes[1:]
-    if not axes or _axsize(st.mesh, axes) == 1:
+    if not axes or axes_size(st.mesh, axes) == 1:
         return None
     return axes
 
@@ -158,7 +159,7 @@ def _greedy(st: Strategy, dims: tuple[int, ...]) -> list:
             continue
         cands = [
             d for d in range(len(dims))
-            if d not in used and _fits(st.mesh, dims[d], axes) and dims[d] >= _axsize(st.mesh, axes)
+            if d not in used and _fits(st.mesh, dims[d], axes) and dims[d] >= axes_size(st.mesh, axes)
         ]
         if cands:
             d = max(cands, key=lambda i: dims[i])
@@ -262,7 +263,7 @@ def _paged_pool_spec(st: Strategy, shape: tuple[int, ...]) -> PartitionSpec:
     ma = st.model_axis
     if ma and len(shape) >= 2:
         for d in (len(shape) - 2, len(shape) - 1):
-            if _fits(st.mesh, shape[d], ma) and shape[d] >= _axsize(st.mesh, ma):
+            if _fits(st.mesh, shape[d], ma) and shape[d] >= axes_size(st.mesh, ma):
                 ent[d] = ma
                 break
     return P(*ent)
@@ -285,13 +286,13 @@ def cache_specs(st: Strategy, caches, *, layout: str = "decode") -> Any:
             return P(*([None] * len(shape)))
         ent: list[Any] = [None] * len(shape)
         baxes = _batch_axes_for(st, shape[1])
-        batch_sharded = bool(baxes) and shape[1] >= _axsize(mesh, baxes)
+        batch_sharded = bool(baxes) and shape[1] >= axes_size(mesh, baxes)
         if batch_sharded:
             ent[1] = baxes
         if st.model_axis:
             cands = [
                 d for d in range(2, len(shape))
-                if _fits(mesh, shape[d], st.model_axis) and shape[d] >= _axsize(mesh, st.model_axis)
+                if _fits(mesh, shape[d], st.model_axis) and shape[d] >= axes_size(mesh, st.model_axis)
             ]
             if cands:
                 ent[cands[-1]] = st.model_axis
@@ -300,7 +301,7 @@ def cache_specs(st: Strategy, caches, *, layout: str = "decode") -> Any:
             # over the data axes instead of replicating the cache
             cands = [
                 d for d in range(2, len(shape))
-                if ent[d] is None and _fits(mesh, shape[d], st.batch) and shape[d] >= _axsize(mesh, st.batch)
+                if ent[d] is None and _fits(mesh, shape[d], st.batch) and shape[d] >= axes_size(mesh, st.batch)
             ]
             if cands:
                 d = max(cands, key=lambda i: shape[i])

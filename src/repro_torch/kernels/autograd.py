@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.analysis.roofline import uncounted
 from repro_torch.core.butterfly import transpose_tables
 from repro_torch.kernels import ops, ref
 
@@ -73,6 +74,7 @@ def bsr_tables(cols: np.ndarray, nb_in: int, device: str | torch.device) -> BsrT
 
 
 @functools.lru_cache(maxsize=512)
+@uncounted
 def _tables(cols_bytes: bytes, shape: tuple[int, int], nb_in: int, device: str) -> BsrTables:
     cols = np.frombuffer(cols_bytes, np.int32).reshape(shape)
     src_i, src_t, valid = transpose_tables(cols, nb_in)

@@ -24,6 +24,7 @@ from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.analysis.roofline import uncounted
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attn_pattern as ap
 from repro_torch.core.butterfly import next_pow2
@@ -255,14 +256,14 @@ def prefill_schedule(
 
 
 @functools.lru_cache(maxsize=64)
+@uncounted
 def _schedule_tensors(
     seq: int, block: int, local: int, stride: int, glob: int, device: str
 ) -> tuple[torch.Tensor, torch.Tensor]:
     sched = prefill_schedule(seq, block, local, stride, glob)
-    return (
-        torch.as_tensor(sched.kv_index, device=device),
-        torch.as_tensor(sched.valid, device=device),
-    )
+    kv_index = torch.as_tensor(sched.kv_index, device=device)
+    ops.register_schedule(kv_index, sched.kv_index, sched.valid)
+    return kv_index, torch.as_tensor(sched.valid, device=device)
 
 
 def sparse_prefill_attention(

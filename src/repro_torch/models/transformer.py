@@ -19,9 +19,13 @@ Entry points:
   init_model(cfg, seed=, device=, params=)         -> LM
   init_cache(cfg, batch, max_len, device=)         -> per group {"k", "v"}
                                                       or {"conv", "state"}
-  prefill(cfg, model, batch, max_len=)
+  prefill(cfg, model, batch, max_len=, replica=)
                                   -> ((B, V) last-token logits, caches)
-  decode_step(cfg, model, caches, tokens, pos)     -> ((B, V) logits, caches)
+  decode_step(cfg, model, caches, tokens, pos, replica=)
+                                                   -> ((B, V) logits, caches)
+                                     (model an LM, a ShardedLM or a MeshState)
+  init_mesh_cache(cfg, state, batch, max_len, replica=)
+                                                   -> caches a replica
   shard_model(cfg, mesh, state_dict)               -> ShardedLM (tp shards)
   build_shards(cfg, devices, parts, trainable=)    -> ShardedLM of given slices
   init_paged_cache(cfg, n_pages, page, device=)    -> [{"k", "v"}] per group
@@ -61,7 +65,12 @@ residual stream and the norms are replicated. The logits are gathered
 onto the first shard's device, where the fused sampler runs once.
 ``forward_train`` takes a ``ShardedLM`` too (``build_shards(...,
 trainable=True)``, the mesh trainer's, ``training.loop``): the same layers
-in training mode, and a vocab-sharded cross-entropy.
+in training mode, and a vocab-sharded cross-entropy. So do the
+contiguous ``prefill`` and ``decode_step`` (one contiguous cache a shard,
+with its kv heads), and both take a ``training.loop.MeshState`` too: the
+JAX ``prefill``/``decode_step`` on a mesh under fsdp or tp, each data
+replica gathering its parameters and running its rows (the dry-run's
+prefill and decode cells, ``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -73,6 +82,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.analysis.guards import hot_path
+from repro_torch.analysis.roofline import uncounted
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pixelfly import Linear
 from repro_torch.distributed import collectives as C
@@ -95,6 +105,7 @@ __all__ = [
     "skeleton",
     "assign",
     "init_cache",
+    "init_mesh_cache",
     "prefill",
     "decode_step",
     "init_paged_cache",
@@ -260,9 +271,11 @@ def check_tp_layout(cfg: ModelConfig, st: sharding.Strategy, shapes: dict) -> di
     return specs
 
 
+@uncounted
 def skeleton(cfg: ModelConfig) -> LM:
     """An ``LM`` on the meta device (no random draw), to take tensors by
-    ``assign``."""
+    ``assign``. Its placeholders hold no memory, so a counted step does
+    not count them (``analysis.roofline.uncounted``)."""
     meta = torch.device("meta")
     with meta:
         return LM(cfg, gen=torch.Generator(), device=meta)
@@ -429,9 +442,89 @@ def _stack_groups(cfg: ModelConfig, per_layer: list[dict[str, torch.Tensor]]) ->
     return caches
 
 
+def init_mesh_cache(cfg: ModelConfig, state, batch: int, max_len: int, *, replica: int | None = None) -> list:
+    """Zero contiguous caches for ``decode_step`` on ``state`` (a
+    ``training.loop.MeshState``): one entry a data replica (every replica,
+    or replica ``replica`` alone), ``init_cache`` of its rows on its first
+    position's device; under tp one cache a model shard, each with its kv
+    heads (the heads mode). The JAX decode layout
+    (``sharding.cache_specs(layout="decode")``) puts the model axis on
+    ``head_dim`` where the port cuts the kv heads: a position holds the
+    same bytes. A layout that cuts the sequence (a batch of one row on a
+    mesh with data axes) needs sequence-parallel attention and is refused
+    (ROADMAP Queue 1 item 16); so is anything ``sharding.check_tp``
+    refuses, by the ``MeshState``. An SSM group's state stays whole in each
+    replica where the JAX layout cuts its longest dimension over the data
+    axes (ROADMAP Queue 3)."""
+    whole = init_cache(cfg, batch, max_len, device="meta")
+    for g, group, spec in zip(cfg.layer_groups(), whole, sharding.cache_specs(state.st, whole)):
+        if g.kind != "ssm" and sharding.axes_size(state.mesh, spec["k"][2]) > 1:
+            raise ValueError(
+                f"{cfg.name}: a decode cache of {batch} row(s) x {max_len} on mesh {state.mesh.shape} is cut along "
+                f"the sequence ({spec['k']}), which needs sequence-parallel attention; {sharding.REFUSED['attention']}"
+            )
+    reps = state.replicas(batch)
+    out = []
+    for r, ps in reps if replica is None else [reps[replica]]:
+        rows = r[1] - r[0]
+        if state.tp == 1:
+            out.append(init_cache(cfg, rows, max_len, device=state.devices[ps[0]]))
+            continue
+        shape = (rows, max_len, cfg.num_kv_heads // state.tp, cfg.head_dim)
+        out.append([[{name: torch.zeros((g.count, *shape), dtype=cfg.torch_dtype, device=state.devices[p])
+                      for name in ("k", "v")} for g in cfg.layer_groups()] for p in ps])
+    return out
+
+
+def _mesh_runs(cfg: ModelConfig, state, n_rows: int, replica: int | None, run) -> list:
+    """``run(j, model, rows, device)`` for each data replica of ``state``
+    (or replica ``replica`` alone, j = 0): its gathered model (an ``LM``, a
+    ``ShardedLM`` under tp), its (first, end) rows and its first
+    position's device; the gathered copy is released after each."""
+    reps = state.replicas(n_rows)
+    out = []
+    for j, i in enumerate(range(len(reps)) if replica is None else [replica]):
+        r, ps = reps[i]
+        model, _ = state.model_for(cfg, i, ps, trainable=False)
+        out.append(run(j, model, r, state.devices[ps[0]]))
+        del model
+        state.release(cfg, i)
+    return out
+
+
+def _join_rows(logits: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    return logits[0] if len(logits) == 1 else C.gather(logits, 0, device)
+
+
+def _prefill_tp(cfg: ModelConfig, model: ShardedLM, batch: dict, max_len: int | None) -> tuple[torch.Tensor, list]:
+    """``prefill`` on a ``ShardedLM``: each shard's heads and caches."""
+    dev = model.devices[0]
+    tokens = embeds = None
+    if "embeds" in batch:
+        embeds = torch.as_tensor(batch["embeds"], device=dev).to(cfg.torch_dtype)
+        b, s = embeds.shape[:2]
+    else:
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        b, s = tokens.shape
+    cos, sin = _angles(cfg, _positions(cfg, batch, b, s, dev))
+    fresh: list = []
+    last = _layers_tp(cfg, model, tokens, None, cos, sin, {"mode": "prefill"}, embeds=embeds, fresh=fresh)
+    logits = C.gather([L.lm_logits(cfg, sh.head, sh.embed, h[:, -1]) for sh, h in zip(model.shards, last)], -1, dev)
+    caches = []
+    for r in range(len(model.shards)):
+        per_layer = []
+        for layer in fresh:
+            k, v = layer[r]
+            if max_len is not None:
+                k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, max_len - s)) for t in (k, v))
+            per_layer.append({"k": k, "v": v})
+        caches.append(_stack_groups(cfg, per_layer))
+    return logits, caches
+
+
 @torch.no_grad()
 def prefill(
-    cfg: ModelConfig, model: LM, batch: dict, *, max_len: int | None = None
+    cfg: ModelConfig, model, batch: dict, *, max_len: int | None = None, replica: int | None = None
 ) -> tuple[torch.Tensor, list]:
     """Full-sequence inference pass, the JAX package's ``prefill``: batch
     {"tokens": (B, S)} or {"embeds", "positions"} (tensors or numpy, moved
@@ -440,7 +533,28 @@ def prefill(
     groups' {"conv", "state"} (the state after the last token)). With
     ``max_len`` the K/V caches are ``init_cache``'s (count, B, max_len,
     Hk, D), the prompt's K/V in the first S rows and zeros after, so
-    ``decode_step`` continues from position S."""
+    ``decode_step`` continues from position S.
+
+    ``model`` may also be a ``ShardedLM`` (the heads mode: each shard's
+    heads and SwiGLU slice, joined as in ``prefill_paged``; the caches one
+    list a shard, each with its kv heads) or a ``training.loop.MeshState``
+    (the JAX ``prefill`` on a mesh under fsdp or tp): each data replica
+    (``sharding.batch_specs``'s distinct rows) gathers its parameters
+    (``MeshState.model_for``) and runs its rows; the caches are one entry a
+    replica and the logits are gathered onto the first position's device.
+    ``replica=i`` runs replica i alone (the dry-run's count of one
+    position, ``launch.dryrun``)."""
+    if isinstance(model, ShardedLM):
+        return _prefill_tp(cfg, model, batch, max_len)
+    if not isinstance(model, LM):
+        n = len(next(iter(batch.values())))
+
+        def run(j, m, r, dev):
+            return prefill(cfg, m, {k: torch.as_tensor(v)[r[0]:r[1]].to(dev) for k, v in batch.items()},
+                           max_len=max_len)
+
+        out = _mesh_runs(cfg, model, n, replica, run)
+        return _join_rows([lg for lg, _ in out], model.devices[0]), [c for _, c in out]
     x = _inputs_to_x(cfg, model, batch)
     b, s, _ = x.shape
     cos, sin = _angles(cfg, _positions(cfg, batch, b, s, x.device))
@@ -461,13 +575,29 @@ def prefill(
 
 @torch.no_grad()
 def decode_step(
-    cfg: ModelConfig, model: LM, caches: list, tokens: torch.Tensor, pos: int
+    cfg: ModelConfig, model, caches: list, tokens: torch.Tensor, pos: int, *, replica: int | None = None
 ) -> tuple[torch.Tensor, list]:
     """One decode step over contiguous caches, the JAX package's
     ``decode_step``: tokens (B,), every row at position ``pos`` (an int).
     Each attention layer writes its K/V at ``pos`` in place, each SSM
     layer its new conv window and state (the JAX package returns new
-    caches). Returns (logits (B, V), caches)."""
+    caches). Returns (logits (B, V), caches).
+
+    As ``prefill``, ``model`` may be a ``ShardedLM`` (``caches`` one list a
+    shard) or a ``training.loop.MeshState`` (``caches`` one entry a data
+    replica run, as ``prefill`` or ``init_mesh_cache`` give them;
+    ``replica=i`` runs replica i alone, with its caches)."""
+    if isinstance(model, ShardedLM):
+        dev = model.devices[0]
+        positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.long, device=dev)
+        cos, sin = _angles(cfg, _streams(cfg, positions))
+        last = _layers_tp(cfg, model, tokens[:, None], caches, cos, sin, {"mode": "decode", "pos": pos})
+        logits = C.gather([L.lm_logits(cfg, sh.head, sh.embed, h[:, 0]) for sh, h in zip(model.shards, last)], -1, dev)
+        return logits, caches
+    if not isinstance(model, LM):
+        out = _mesh_runs(cfg, model, len(tokens), replica,
+                         lambda j, m, r, dev: decode_step(cfg, m, caches[j], tokens[r[0]:r[1]].to(dev), pos)[0])
+        return _join_rows(out, model.devices[0]), caches
     x = L.embed_tokens(model.embed, tokens.long()[:, None])
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.long, device=x.device)
     cos, sin = _angles(cfg, _streams(cfg, positions))
@@ -516,22 +646,34 @@ def _layers_tp(
     *,
     rows: torch.Tensor | None = None,
     plens: torch.Tensor | None = None,
+    embeds: torch.Tensor | None = None,
+    fresh: list | None = None,
 ) -> list[torch.Tensor]:
-    """The paged entry points' layers on a ``ShardedLM``: the vocab-sharded
-    embedding, then for each layer every shard's heads (``attention_heads``
-    on its pools, its fresh K/V scattered into them when ``rows`` is
-    given), ``tp_project`` of ``o``, every shard's SwiGLU slice,
+    """The layers of the inference entry points on a ``ShardedLM``: the
+    vocab-sharded embedding of ``tokens`` (or ``embeds`` on every shard),
+    then for each layer every shard's heads (``attention_heads``, on its
+    pools or contiguous caches when ``caches`` is given, its fresh K/V
+    scattered into the pools when ``rows`` is given and appended to
+    ``fresh``, one list of the shards' (k, v) a layer, when that is a
+    list), ``tp_project`` of ``o``, every shard's SwiGLU slice,
     ``tp_project`` of ``down``; then the final norm. Returns each shard's
     (N, S, d) rows at ``plens - 1`` (the whole rows when ``plens`` is
     None), on its device."""
     devs = model.devices
-    x = L.embed_tokens_tp([sh.embed for sh in model.shards], C.broadcast(tokens.long(), devs), model.vocab_first)
+    if embeds is not None:
+        x = C.broadcast(embeds, devs)
+    else:
+        x = L.embed_tokens_tp([sh.embed for sh in model.shards], C.broadcast(tokens.long(), devs), model.vocab_first)
     cos, sin, rows = C.broadcast(cos, devs), C.broadcast(sin, devs), _to_shards(rows, devs)
     kws = [dict(zip(attn_kw, vals)) for vals in zip(*(_to_shards(v, devs) for v in attn_kw.values()))]
     layers = [[blk for _, blk in sh.blocks()] for sh in model.shards]
-    pools = [_layer_pools(cfg, c) for c in caches]
+    pools = None if caches is None else [_layer_pools(cfg, c) for c in caches]
     for i in range(len(layers[0])):
-        x = _tp_block(cfg, [ls[i] for ls in layers], x, cos, sin, kws, [p[i] for p in pools], rows)
+        per_layer = [] if fresh is not None else None
+        x = _tp_block(cfg, [ls[i] for ls in layers], x, cos, sin, kws,
+                      None if pools is None else [p[i] for p in pools], rows, per_layer)
+        if fresh is not None:
+            fresh.append(per_layer)
     out = [L.rmsnorm(sh.final_norm.scale, a, cfg.norm_eps) for sh, a in zip(model.shards, x)]
     if plens is None:
         return out
@@ -540,19 +682,22 @@ def _layers_tp(
 
 def _tp_block(
     cfg: ModelConfig, blks: list[Block], x: list, cos: list, sin: list, kws: list,
-    pools: list | None = None, rows: list | None = None,
+    pools: list | None = None, rows: list | None = None, fresh: list | None = None,
 ) -> list[torch.Tensor]:
     """One dense block on every shard: its heads (``attention_heads`` with
     its ``kws``, on its ``pools`` with the fresh K/V scattered into them at
-    ``rows`` when given), ``tp_project`` of ``o``, its SwiGLU slice,
-    ``tp_project`` of ``down``. Returns each shard's residual stream."""
+    ``rows`` when given, and appended to ``fresh`` when it is a list),
+    ``tp_project`` of ``o``, its SwiGLU slice, ``tp_project`` of ``down``.
+    Returns each shard's residual stream."""
     heads = []
     for r, blk in enumerate(blks):
         h = L.rmsnorm(blk.attn_norm.scale, x[r], cfg.norm_eps)
-        o, fresh = L.attention_heads(cfg, blk.attn, h, cos[r], sin[r],
-                                     cache=None if pools is None else pools[r], **kws[r])
+        o, kv = L.attention_heads(cfg, blk.attn, h, cos[r], sin[r],
+                                  cache=None if pools is None else pools[r], **kws[r])
         if rows is not None and rows[r] is not None:
-            _scatter_pages(pools[r], fresh, rows[r])
+            _scatter_pages(pools[r], kv, rows[r])
+        if fresh is not None:
+            fresh.append(kv)
         heads.append(o)
     y = L.tp_project([blk.attn.wo for blk in blks], heads)
     x = [a + b for a, b in zip(x, y)]

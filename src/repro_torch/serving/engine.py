@@ -1205,13 +1205,10 @@ class Engine:
         the step whatever the positions. The one run costs a decode step
         and one host read a paged-attention call (the keys it sees).
 
-        A tensor-parallel engine raises: its roofline must count the
-        collectives, which the dry-run will (ROADMAP Queue 1 item 14)."""
-        if self.tp > 1:
-            raise ValueError(
-                f"roofline of a tp={self.tp} engine: the count has no collective term yet; "
-                f"{sharding.REFUSED['roofline']}"
-            )
+        On a tensor-parallel engine the record is one device's, as the JAX
+        record of its per-device program is: the count of the whole step
+        (every shard's heads and slices, and the joins' collectives, by the
+        walker's rule) divided by ``tp``, the shards being symmetric."""
         if self._roofline is not None:
             return self._roofline
         from repro_torch.analysis.roofline import HW, count, roofline_terms
@@ -1225,6 +1222,7 @@ class Engine:
             _, cost = count(lambda: T.decode_step_paged(
                 self.cfg, self.model, self.kv.buffers, tokens, positions, trash_table
             ))
+        cost = cost.divided(self.tp)
         terms = roofline_terms(cost, HW().for_dtype(self.cfg.dtype))
         self._roofline = {
             "available": True,
@@ -1351,14 +1349,7 @@ class Engine:
             out["prefix_cache"]["cached_pages"] = self.kv.cached_pages
             # keep the prom gauge in step with the pool
             self._prefix.stats.set_cached_pages(self.kv.cached_pages)
-        if self.tp > 1:  # the JAX record of an unavailable count
-            out["roofline"] = {
-                "available": False, "flops": 0.0, "bytes_accessed": 0.0, "collective_bytes": 0.0,
-                "arithmetic_intensity": 0.0, "bottleneck": "unknown", "compute_s": 0.0,
-                "memory_s": 0.0, "collective_s": 0.0, "waits": sharding.REFUSED["roofline"],
-            }
-        else:
-            out["roofline"] = self.roofline()
+        out["roofline"] = self.roofline()
         if self.mesh is not None:  # the JAX schema plus the mesh's size
             out["tp"] = self.tp
             out["distinct_devices"] = self.distinct_devices

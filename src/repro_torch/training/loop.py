@@ -32,6 +32,7 @@ neither does the mesh here, up to the order of fp32 sums.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import signal
 import time
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.analysis import roofline as R
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding
@@ -99,15 +101,20 @@ class MeshState:
         self.coords = sharding.positions(mesh)
         self.shapes = {name: tuple(t.shape) for name, t in state_dict.items()}
         self.keys: dict[str, list] = {}
+        self._slots: dict[str, list[int]] = {}
         self.shards: dict[str, list[torch.Tensor]] = {}
         self.model_dim = {name: sharding.model_dim(self.st, spec) if self.tp > 1 else None
                           for name, spec in self.specs.items()}
         for name, t in state_dict.items():
             slices = sharding.position_slices(mesh, self.specs[name], t.shape)
-            keys = list(dict.fromkeys(slices))
+            first = {}
+            for p, sl in enumerate(slices):
+                first.setdefault(sl, p)
+            keys = list(first)
+            index = {k: i for i, k in enumerate(keys)}
             self.keys[name] = keys
-            self.shards[name] = [self._own(sharding.take(t, k), t.shape, self.devices[slices.index(k)], copy)
-                                 for k in keys]
+            self._slots[name] = [index[sl] for sl in slices]
+            self.shards[name] = [self._own(sharding.take(t, k), t.shape, self.devices[first[k]], copy) for k in keys]
         self._models: dict = {}
 
     @staticmethod
@@ -172,25 +179,46 @@ class MeshState:
 
     def gather(self, name: str, m: int | None, device: torch.device) -> torch.Tensor:
         """``_region(name, m)`` on ``device``, from its shards (an all-gather
-        over the data axes; the shard itself where it is the whole region
-        on that device)."""
+        over the data axes, counted as one with the region's bytes; the
+        shard itself where it is the whole region on that device)."""
         idx, d = self._parts(name, m)
-        parts = [self.shards[name][i].to(device) for i in idx]
-        return parts[0] if d is None else torch.cat(parts, dim=d)
 
-    def accumulate(self, acc: dict, name: str, m: int | None, grad: torch.Tensor) -> None:
+        def run():
+            parts = [self.shards[name][i].to(device) for i in idx]
+            return parts[0] if d is None else torch.cat(parts, dim=d)
+
+        nbytes = math.prod(b - a for a, b in self._region(name, m)) * self.shards[name][0].element_size()
+        return R.collective("all-gather" if d is not None else None, nbytes, run)
+
+    def accumulate(self, acc: dict, name: str, m: int | None, grad: torch.Tensor, replicas: int = 1,
+                   keep: set[int] | None = None) -> None:
         """Add the gradient of ``_region(name, m)`` to the gradients of the
         shards it covers (``acc[name]``, one entry a slice, None until a
         first term; fp32 from a second term on): the reduce-scatter over
         the data axes, and under tp the sum over model shards of a tensor
-        they all hold."""
+        they all hold. ``replicas``: how many data replicas add into the
+        slices; where more than one position does, this position's part
+        is counted as a collective of the gradient's bytes (an all-reduce
+        where the region is one slice). ``keep``: the slices to add into
+        (the others are other positions' part of the reduce-scatter; all
+        by default)."""
         idx, d = self._parts(name, m)
         sizes = [1] if d is None else [self.keys[name][i][d][1] - self.keys[name][i][d][0] for i in idx]
-        out = [acc[name][i] for i in idx]
-        devices = [self.shards[name][i].device for i in idx]
-        got = C.reduce_scatter([grad], d, sizes, devices, out=out)
-        for i, t in zip(idx, got):
-            acc[name][i] = t
+        adders = replicas * (self.tp if m is not None and self.model_dim[name] is None else 1)
+        kind = None if adders == 1 else "reduce-scatter" if d is not None else "all-reduce"
+        nbytes = math.prod(b - a for a, b in self._region(name, m)) * grad.element_size()
+        starts = list(itertools.accumulate([0] + sizes[:-1]))
+        sel = [j for j, i in enumerate(idx) if keep is None or i in keep]
+
+        def run():
+            if keep is None:
+                return C.reduce_scatter([grad], d, sizes, [self.shards[name][i].device for i in idx],
+                                        out=[acc[name][i] for i in idx])
+            return [C.reduce_scatter([grad if d is None else grad.narrow(d, starts[j], sizes[j])], None, [1],
+                                     [self.shards[name][idx[j]].device], out=[acc[name][idx[j]]])[0] for j in sel]
+
+        for j, t in zip(sel, R.collective(kind, nbytes, run)):
+            acc[name][idx[j]] = t
 
     # ------------------------------------------------------------------
     def replicas(self, n_rows: int) -> list[tuple[tuple[int, int], list[int]]]:
@@ -211,33 +239,49 @@ class MeshState:
                 out.append((r, [p]))
         return out
 
-    def model_for(self, cfg: ModelConfig, replica: int, positions: list[int]):
+    def model_for(self, cfg: ModelConfig, replica: int, positions: list[int], *, trainable: bool = True):
         """The replica's model of ``cfg`` (the state's, or its MoE routing
-        share) with its gathered parameters as trainable leaves: an ``LM``,
-        or a ``ShardedLM`` under tp (built once, its parameters reassigned
-        each step), and the (model shard, name, parameter) of each leaf."""
+        share) with its gathered parameters as leaves (trainable unless
+        ``trainable=False``, the sharded inference entry points'): an
+        ``LM``, or a ``ShardedLM`` under tp (built once, its parameters
+        reassigned each step), and the (model shard, name, parameter) of
+        each leaf."""
         devs = [self.devices[p] for p in positions]
         key = (replica, cfg)
         if self.tp > 1:
             parts = [{name: self.gather(name, m, dev) for name in self.shapes} for m, dev in enumerate(devs)]
             model = self._models.get(key)
             if model is None:
-                model = self._models[key] = T.build_shards(cfg, devs, parts, trainable=True)
+                model = self._models[key] = T.build_shards(cfg, devs, parts, trainable=trainable)
             else:
                 for shard, part in zip(model.shards, parts):
-                    T.assign(shard, part, trainable=True)
+                    T.assign(shard, part, trainable=trainable)
             leaves = [(m, name, shard.get_parameter(name)) for m, shard in enumerate(model.shards) for name in parts[m]]
         else:
             tensors = {name: self.gather(name, None, devs[0]) for name in self.shapes}
             model = self._models.get(key)
             if model is None:
                 model = self._models[key] = T.skeleton(cfg)
-            T.assign(model, tensors, trainable=True)
+            T.assign(model, tensors, trainable=trainable)
             leaves = [(None, name, model.get_parameter(name)) for name in tensors]
         return model, leaves
 
+    def slots(self, position: int) -> dict[str, int]:
+        """Which of each parameter's slices mesh position ``position``
+        holds (an index into ``keys[name]`` and ``shards[name]``)."""
+        return {name: self._slots[name][position] for name in self.keys}
+
+    def replica_of(self, position: int, n_rows: int) -> int:
+        """The index (in ``replicas(n_rows)``) of the replica that mesh
+        position ``position`` computes."""
+        spec = sharding.batch_specs(self.st, {"labels": np.zeros((n_rows, 1), np.int32)})["labels"]
+        rows = sharding.position_slices(self.mesh, spec, (n_rows, 1))[position][0]
+        return [r for r, _ in self.replicas(n_rows)].index(rows)
+
+    @R.uncounted
     def release(self, cfg: ModelConfig, replica: int) -> None:
-        """Drop the replica's gathered copy (its parameters back on meta)."""
+        """Drop the replica's gathered copy (its parameters back on meta,
+        placeholders a counted step does not count)."""
         model = self._models[(replica, cfg)]
         for shard in model.shards if self.tp > 1 else [model]:
             T.assign(shard, {n: torch.empty(p.shape, device="meta") for n, p in shard.named_parameters()})
@@ -254,45 +298,54 @@ def _rows(batch: dict, r: tuple[int, int], device: torch.device) -> dict:
     return {k: torch.as_tensor(v)[r[0] : r[1]].to(device) for k, v in batch.items()}
 
 
-def _loss_and_grads(model_cfg: ModelConfig, state: MeshState, batch: dict, acc: dict) -> dict:
+def _loss_and_grads(model_cfg: ModelConfig, state: MeshState, batch: dict, acc: dict,
+                    only: int | None = None) -> dict:
     """One global batch on ``state``'s mesh: every replica's forward and
     backward in turn, the gradients added into ``acc`` (fp32, one entry a
     shard). Returns the step's loss, nll and lb_loss on the first
-    position's device."""
+    position's device. ``only=i`` runs replica i alone, the program of its
+    positions that the dry-run counts (``launch.dryrun``): its gradients'
+    reduce-scatters are still counted as the whole mesh's, and the loss is
+    its rows' share."""
     n_rows = len(batch["labels"])
     reps = state.replicas(n_rows)
+    n_reps = len(reps)
+    if only is not None:
+        reps = [reps[only]]
     first = state.devices[reps[0][1][0]]
     cfg = model_cfg
     if cfg.moe_num_experts:
-        s = np.asarray(batch["labels"]).shape[1]
+        s = batch["labels"].shape[1]
         groups = moe.routing_groups(cfg, n_rows * s)
-        if groups % len(reps):
+        if groups % n_reps:
             raise ValueError(
                 f"{cfg.name}: {groups} MoE routing group(s) of the global batch do not split over "
-                f"{len(reps)} data replicas, so a replica cannot route its share of them; "
+                f"{n_reps} data replicas, so a replica cannot route its share of them; "
                 f"{sharding.REFUSED['experts']}"
             )
-        cfg = cfg.replace(moe_routing_groups=groups // len(reps))
+        cfg = cfg.replace(moe_routing_groups=groups // n_reps)
     parts = [_rows(batch, r, state.devices[ps[0]]) for r, ps in reps]
+    if only is not None:  # the slices the replica's positions hold: their part of each reduce-scatter
+        keep = {name: {state.slots(p)[name] for p in reps[0][1]} for name in state.keys}
     count = _global_count([p["labels"] for p in parts], first)
     losses, nlls, lbs = [], [], []
     for i, ((r, ps), part) in enumerate(zip(reps, parts)):
         model, leaves = state.model_for(cfg, i, ps)
         with record_function("train_forward"):
             _, aux = T.forward_train(cfg, model, part, count=count.to(state.devices[ps[0]]))
-            loss = aux["nll"] + 0.01 * (aux["lb_loss"] / len(reps))
+            loss = aux["nll"] + 0.01 * (aux["lb_loss"] / n_reps)
         with record_function("train_backward"):
             grads = torch.autograd.grad(loss, [p for _, _, p in leaves], allow_unused=True)
         for (m, name, _), g in zip(leaves, grads):
             if g is not None:
-                state.accumulate(acc, name, m, g)
+                state.accumulate(acc, name, m, g, n_reps, None if only is None else keep[name])
         losses.append(loss.detach())
         nlls.append(aux["nll"].detach())
         lbs.append(aux["lb_loss"].detach())
         del model, leaves, grads
         state.release(cfg, i)
     return {"loss": C.reduce_scalars(losses, "sum", first), "nll": C.reduce_scalars(nlls, "sum", first),
-            "lb_loss": C.reduce_scalars(lbs, "sum", first) / len(reps)}
+            "lb_loss": C.reduce_scalars(lbs, "sum", first) / n_reps}
 
 
 def make_train_step(
@@ -305,6 +358,13 @@ def make_train_step(
     (module docstring). The metrics are ``loss``, ``nll``, ``lb_loss``,
     ``grad_norm`` (device scalars) and ``lr``. Every parameter gets a
     gradient: zeros where the loss does not reach it.
+
+    ``train_step(..., replica=i)`` runs the program of replica i's
+    positions alone, which the dry-run counts (``launch.dryrun``): its
+    forward and backward, and one ``apply_updates`` over the slices each
+    of its positions holds, a replicated slice once a position as on a
+    mesh of devices. It is a count, not a step: the state after it is not
+    a training step's.
 
     ``microbatches = k > 1`` accumulates gradients over k sequential
     slices of the batch's rows, summed in fp32 and divided by k (so are
@@ -323,22 +383,32 @@ def make_train_step(
         rows = n // k
         return [{key: a[i * rows : (i + 1) * rows] for key, a in batch.items()} for i in range(k)]
 
-    def train_step(state: MeshState, opt_state, batch):
+    def train_step(state: MeshState, opt_state, batch, replica: int | None = None):
         acc = {name: [None] * len(keys) for name, keys in state.keys.items()}
         msum = None
-        for mb in slices(batch):
-            m = _loss_and_grads(model_cfg, state, mb, acc)
+        mbs = slices(batch)
+        for mb in mbs:
+            m = _loss_and_grads(model_cfg, state, mb, acc, only=replica)
             msum = m if msum is None else {key: msum[key] + m[key] for key in m}
         k = microbatches
+        metrics = {key: v / k for key, v in msum.items()}
+        params, opt = state.shards, opt_state
+        if replica is not None:  # the slices of each of the replica's positions
+            slots = [state.slots(p) for p in state.replicas(len(mbs[0]["labels"]))[replica][1]]
+
+            def held(tree):
+                return {name: [tree[name][slot[name]] for slot in slots] for name in tree}
+
+            params, acc = held(params), held(acc)
+            opt = {key: v if key == "step" else held(v) for key, v in opt_state.items()}
         # a parameter the loss does not reach (the token table of a model
         # that reads embeddings through an untied head) gets zeros, as
         # under JAX's grad: AdamW still decays it and its moments
         grads = {name: [torch.zeros(t.shape, dtype=torch.float32, device=t.device) if g is None
-                        else g / k if k > 1 else g for g, t in zip(acc[name], state.shards[name])]
+                        else g / k if k > 1 else g for g, t in zip(acc[name], params[name])]
                  for name in acc}
-        metrics = {key: v / k for key, v in msum.items()}
         with record_function("optimizer"):
-            return {**metrics, **apply_updates(opt_cfg, state.shards, grads, opt_state, model_cfg)}
+            return {**metrics, **apply_updates(opt_cfg, params, grads, opt, model_cfg)}
 
     return train_step
 

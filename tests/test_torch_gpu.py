@@ -1169,3 +1169,56 @@ def test_tp2_engine_streams_on_card_equal_tp1(cuda, sampled):
         k.launches = 0
     assert serve_all(eng) == want
     assert all(k.launches > 0 for k in kernels)
+
+
+@pytest.mark.parametrize("strategy", ["fsdp", "tp"])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dryrun_count_on_card_equals_meta(cuda, strategy, kind):
+    """A smoke cell of ``launch.dryrun`` on a (2, 2) mesh of the card counts
+    what its meta count counts: FLOPs, bytes, collectives and memory (the
+    kernels report their own cost, meta runs none of them)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import Mesh, make_local_mesh
+    from repro_torch.models import transformer as T
+
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    shape = ShapeSpec("x", 256, 4, kind)
+    meta = D.count_cell(cfg, shape, Mesh(("data", "model"), (2, 2), ["meta"] * 4), strategy=strategy)
+    sd = T.init_model(cfg, seed=0, device=cuda).state_dict()
+    card = D.count_cell(cfg, shape, make_local_mesh(2, 2, [cuda] * 4), strategy=strategy, params=sd)
+    a, b = meta["cost"], card["cost"]
+    assert (a.flops, a.bytes_accessed, a.collective_bytes) == (b.flops, b.bytes_accessed, b.collective_bytes)
+    for key in ("argument_bytes", "temp_bytes", "output_bytes"):
+        assert meta[key] == card[key], key
+
+
+def test_sharded_prefill_decode_tp2_on_card_equals_cpu(cuda):
+    """``transformer.prefill`` and 6 greedy ``decode_step`` calls on a tp
+    (1, 2) ``MeshState`` of the card (smoke, fp32) give the CPU's tokens,
+    and the block-sparse attention and BSR kernels launch."""
+    from repro_torch.kernels import bsr_attention, bsr_matmul
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.training.loop import MeshState
+
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    sd = T.init_model(cfg, seed=0, device="cpu").state_dict()
+    toks = np.random.default_rng(3).integers(1, 250, size=(4, 128)).astype(np.int64)
+
+    def greedy(dev):
+        state = MeshState(cfg, make_local_mesh(1, 2, [dev, dev]), "tp", sd)
+        lp, caches = T.prefill(cfg, state, {"tokens": torch.as_tensor(toks, device=dev)}, max_len=256)
+        out, nxt = [], lp.argmax(-1)
+        for i in range(6):
+            out.append(nxt.tolist())
+            ld, _ = T.decode_step(cfg, state, caches, nxt, 128 + i)
+            nxt = ld.argmax(-1)
+        return out
+
+    want = greedy(torch.device("cpu"))
+    kernels = (bsr_matmul.KERNEL, bsr_attention.KERNEL)
+    for k in kernels:
+        k.launches = 0
+    assert greedy(cuda) == want
+    assert all(k.launches > 0 for k in kernels)

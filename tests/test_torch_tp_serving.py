@@ -85,7 +85,8 @@ def test_tp2_engine_streams_equal_jax_engine(sampled):
     assert got == want
     s = eng.stats_summary()
     assert s["tp"] == 2 and s["distinct_devices"] == 1 and s["requests_finished"] == 4
-    assert s["roofline"]["available"] is False and "item 14" in s["roofline"]["waits"]
+    # one device's count of the tp 2 decode step, its joins' collectives included
+    assert s["roofline"]["available"] is True and s["roofline"]["collective_bytes"] > 0
 
 
 def test_tp2_prefix_cache_hit():
@@ -177,8 +178,8 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(ValueError, match="item 20"):
         Engine(cfg, engine_cfg=ecfg, mesh=make_local_mesh(model=2, devices=["cpu"] * 4))
     eng = tp_engine(cfg, 2)
-    with pytest.raises(ValueError, match="item 14"):
-        eng.roofline()
+    rec = eng.roofline()  # counted per device, with the collectives (no longer refused)
+    assert rec["available"] and rec["collective_bytes"] > 0
     # a (1, 1) mesh is the single-device engine
     one = Engine(cfg, engine_cfg=ecfg, mesh=make_tp_mesh(1, ["cpu"]))
     assert one.tp == 1 and one.roofline()["available"]
