@@ -130,7 +130,8 @@ Phases; any failure raises and the script exits non-zero:
    Trainer on ``EmbedsWrapper`` batches (B = 4; B = 2 only if B = 4 runs
    out of memory or peaks above 72 GB), and one more step traced on the
    device (busy share). (e) ``repro_torch.bench.serve_engine`` at full
-   width, three repeats. (f) ``repro_torch.examples.serve_lm`` on the card.
+   width, two repeats (three until phase 17 joined; the bench lists the cut
+   under ``config.reduced``). (f) ``repro_torch.examples.serve_lm`` on the card.
    The kernels' counts are set to 0 just before each of (c)-(f) and read
    just after.
 12. The MoE, SSM and hybrid families. (a) The three kernels at the new
@@ -177,10 +178,12 @@ Phases; any failure raises and the script exits non-zero:
 14. Tensor-parallel serving of full-width sparse qwen3-1.7b (bf16,
    random weights from --seed) on (1, tp) meshes of the card (every shard
    on the one card: this measures what sharding costs, not a speedup).
-   (a) Engines at tp 1, 2 and 4 (``max_slots=8, max_len=2048``, one state
-   dict shared): the first prefill's and the first decode step's logits of
-   4 fixed prompts held against tp 1's (``TP_LOGIT_TOL``), then 12
-   requests of 257-512 prompt tokens, 16 new each, greedy and then
+   (a) Engines at tp 1, 2 and 4 (``TP_DEGREES``; ``max_slots=8,
+   max_len=2048``, one state dict shared): the first prefill's and the
+   first decode step's logits of 4 fixed prompts held against tp 1's
+   (``TP_LOGIT_TOL``), their launches at tp 4; then at tp 1 and 2
+   (``TP_SERVED``; tp 4's requests cut for the time budget) 12 requests of
+   257-512 prompt tokens, 16 new each, greedy and then
    seeded-sampled; each stream must equal tp 1's token for token (a
    divergence is printed with the top-2 gap of tp 1's decision at its
    step, then fails). At tp 2 the same logits under two planted shard
@@ -218,10 +221,14 @@ Phases; any failure raises and the script exits non-zero:
    prefill and decode. (a) ``launch.dryrun.run_cell`` on the meta 16 x 16
    mesh (host only, in a helper process started with the script, so its
    host seconds overlap phases 3-15) for full-width qwen3-1.7b ``train_4k``, ``prefill_32k``
-   and ``decode_32k`` and musicgen-large ``train_4k``, each ``ok``, and a
-   refused cell that must name its ROADMAP item: per-device bytes,
-   argument bytes, the three roofline terms, the bottleneck and the useful
-   ratio (counts at the data-sheet peaks, not times). (b) Full-width sparse
+   and ``decode_32k``, musicgen-large ``train_4k`` and deepseek-moe-16b
+   ``prefill_32k`` and ``decode_32k`` (expert parallel at tp 16), each
+   ``ok``, a refused cell that must name its ROADMAP item (kimi-k2 at tp
+   16, item 16), and the whole sweep's split into cells that count and
+   cells refused (``DRYRUN_SPLIT``, from each cell's refusal checks):
+   per-device bytes, argument bytes, the three roofline terms, the
+   collective bytes by class, the bottleneck and the useful ratio (counts
+   at the data-sheet peaks, not times). (b) Full-width sparse
    qwen3-1.7b on the (1, 1) mesh, B = 4, S = 2048, one step: its meta count
    and ``roofline.count`` of the same step on the card give equal FLOPs
    and bytes, and the meta prediction (argument + temp bytes) is within
@@ -235,9 +242,28 @@ Phases; any failure raises and the script exits non-zero:
    ``SHARDED_FP32_TOL``, greedy tokens equal, and a planted "cols" shard
    fault at tp (1, 2) reading above the tolerance. The kernels' counts
    are set to 0 before (b) to (d) and read after: all three launch.
-17. The kernels line (with each kernel's launches in phases 5 to 16, a
-   row for the b = 32 tensor-core path at ViT-B/16's shapes and one for
-   attention at head dim 80), the script's wall time, then the last line
+17. Expert parallelism for the MoE family: deepseek-moe-16b sparse at
+   published widths, ``DEPTH_CUTS`` depth (its dense layer 0, whose 171
+   block rows of gate and up no tp > 1 divides, so they are sliced on the
+   blocks' output columns, and 3 MoE layers: experts and router on the
+   model axis). (d) first: ``bsr_matmul`` on the column-sliced views
+   (b / tp square blocks) against their plain versions, timed as in phase
+   3. (a) Engines at tp 1, 2 and 4 (one state dict): the first logits
+   within ``TP_LOGIT_TOL`` of tp 1's, two planted faults (``EP_FAULTS``:
+   two shards' experts swapped, a wrong column slice) above it, 12 greedy
+   requests held to tp 1's streams (a divergence only at a tp 1 top-2 gap
+   under ``EP_GAP_TOL``), then in fp32 on the same weights
+   (``EP_EXACT_DTYPE``) equal to tp 1's token for token; every kernel
+   launching and the column views among the bsr_matmul launches (counted
+   by block where the kernel launches, ``launches_by``). (b) ``Trainer``
+   steps on (1, 1), tp (1, 2) and tp (2, 2) in fp32 on those weights
+   within ``MESH_TOL`` of (1, 1). (c) smoke kimi-k2 at
+   tp 2: streams equal to tp 1's. The kernels' counts are set to 0 just
+   before each run and read just after.
+18. The kernels line (with each kernel's launches in phases 5 to 17, a
+   row for the b = 32 tensor-core path at ViT-B/16's shapes, one for
+   attention at head dim 80 and one for the column-sliced views), the
+   script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -308,6 +334,14 @@ class Timer:
             pairs.append((a, b))
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+
+
+def zero_launches(kernels):
+    """Set every kernel's launch counts to 0: its total and its counts by
+    key (``bsr_matmul``'s by block)."""
+    for k in kernels.values():
+        k.launches = 0
+        k.launches_by.clear()
 
 
 def host_us(fn, n=200) -> float:
@@ -747,8 +781,7 @@ def full_width_features(full, state_dict, kernels, rng, seed, smi, timer):
     unrelated = [rng.integers(0, v, int(n)).astype(np.int32) for n in rng.integers(200, 1001, 8)]
     vips = [rng.integers(0, v, int(n)).astype(np.int32) for n in rng.integers(200, 1001, 2)]
     prompts = shared + unrelated
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     uids = {eng.submit(prompts[0], gen, sampling=sp(0)): 0}
     fins = eng.step()  # the system prompt is prefilled and indexed
@@ -1148,8 +1181,7 @@ def full_width_training(full, seed, smi, kernels):
     log(f"[7c] full-width trainer: {n_params / 1e6:.1f} M parameters, weights and AdamW state in "
         f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     warm = trainer.run(1)
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     hist = trainer.run(3)
     launches = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1172,8 +1204,7 @@ def full_width_training(full, seed, smi, kernels):
         marks.append({n: k.launches for n, k in kernels.items()})
         return out
 
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     T.forward_train = marked_forward
     try:
         prof = profiled("one full-width training step (B=4, S=2048)", lambda: trainer.run(1))
@@ -1479,8 +1510,7 @@ def engine_serving(full, seed, smi, kernels, tag):
     eng.drain(max_steps=50)
     eng.reset_stats()
     plens = rng.integers(200, 1001, 8)
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     for n in plens:
         eng.submit(rng.integers(0, full.vocab_size, int(n)).astype(np.int32), 32)
@@ -1552,8 +1582,7 @@ def trainer_steps(full, seed, smi, kernels, tag, traced=False, must_launch=("bsr
                           device="cuda")
         try:
             warm = trainer.run(1)
-            for k in kernels.values():
-                k.launches = 0
+            zero_launches(kernels)
             hist = trainer.run(2)
         except torch.cuda.OutOfMemoryError as e:
             if b == 2:
@@ -1700,8 +1729,7 @@ def serve_cli_full_width(full, kernels, smi):
         threads.append(t)
         return srv
 
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     serve._maybe_listen = listen_and_scrape
     try:
         t0 = time.perf_counter()
@@ -1804,8 +1832,7 @@ def legacy_server(kernels, smi):
     if not np.array_equal(eng_grid, legacy_grid):
         raise AssertionError(f"smoke legacy grid differs from the engine's:\n{legacy_grid}\n{eng_grid}")
     full = CLI_FULL + ["--batch", "8", "--prompt-len", "128", "--gen", "16"]
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     legacy = serve.main(full + ["--legacy-server"])
     launches = {name: k.launches for name, k in kernels.items()}
     if launches["bsr_matmul"] <= 0:
@@ -2068,8 +2095,7 @@ def vision_b16(seed, smi, kernels):
     (the forward and the dX of every one)."""
     from repro_torch.bench import vision_speedup as VS
 
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     out = {kind: VS.compare(kind, width="b16", batch=VS.BATCH["b16"], steps=3, warmup=2, seed=seed, device="cuda")
            for kind in ("vit", "mixer")}
     out["launches"] = {name: k.launches for name, k in kernels.items()}
@@ -2155,8 +2181,7 @@ def ablation_smoke(kernels):
     block_sparse_attention must launch and the loss be finite."""
     from repro_torch.examples import sparsity_ablation
 
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     rows = sparsity_ablation.main(["--smoke", "--device", "cuda"])
     launches = {name: k.launches for name, k in kernels.items()}
     if not (launches["bsr_matmul"] > 0 and launches["block_sparse_attention"] > 0):
@@ -2241,17 +2266,17 @@ def vlm_audio_smoke(seed):
 
 def serve_bench_full_width(kernels, smi):
     """(e) ``repro_torch.bench.serve_engine`` at full width on the card,
-    three repeats (its own cuts are listed under ``config.reduced``): the
-    overhead floors take the median of three paired ratios; its stream
+    two repeats (its own cuts are listed under ``config.reduced``; a third
+    is cut for the script's time budget): the overhead floors take the
+    upper of two paired ratios; its stream
     assertions must pass. The kernels'
     counts are set to 0 just before and read just after: all three must
     launch."""
     from repro_torch.bench import serve_engine
 
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
-    res = serve_engine.run(device="cuda", out=str(ROOT / "build" / "bench_serve_torch.json"))
+    res = serve_engine.run(device="cuda", repeats=2, out=str(ROOT / "build" / "bench_serve_torch.json"))
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     for name, n in launches.items():
@@ -2278,8 +2303,7 @@ def serve_example(kernels):
     kernels launch (counts set to 0 just before)."""
     from repro_torch.examples import serve_lm
 
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     fins = serve_lm.main([])
     launches = {name: k.launches for name, k in kernels.items()}
     if [len(f.tokens) for f in fins] != [12, 6, 10, 8, 5, 9]:
@@ -2496,8 +2520,7 @@ def server_serving(full, seed, smi, kernels, tag, must_launch):
     init_s = time.perf_counter() - t0
     srv.generate(rng.integers(0, full.vocab_size, (8, 128)).astype(np.int32), 2)  # warm-up, not counted
     prompts = rng.integers(0, full.vocab_size, (8, 1024)).astype(np.int32)
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = srv.generate(prompts, 32)
@@ -2585,8 +2608,7 @@ def guarded_decode(full, seed, smi, kernels):
     init_s = time.perf_counter() - t0
     eng.submit(rng.integers(0, full.vocab_size, 300).astype(np.int32), 4)  # warm-up, not counted
     eng.drain(max_steps=50)
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     for n in rng.integers(200, 1001, 8):
         eng.submit(rng.integers(0, full.vocab_size, int(n)).astype(np.int32), 40)
     eng.step()  # admission and the first decode step
@@ -2676,8 +2698,7 @@ def router_streams(full, eng, seed, smi, kernels):
     router.drain(max_steps=50)
     init_s = time.perf_counter() - t0
     router.reset_stats()
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     ruids = {router.submit(p, 16): i for i, p in enumerate(work)}
     fins = router.drain(max_steps=400)
@@ -2731,8 +2752,7 @@ def guarded_training_step(full, seed, smi, kernels):
                       TrainConfig(ckpt_dir=str(ckpt), ckpt_every=10 ** 9, log_every=10 ** 9, seed=seed),
                       device="cuda")
     warm = trainer.run(1)
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     with DispatchGuard(raise_on_sync=False, max_compiles=None) as g:
         hist = trainer.run(1)
     launches = {name: k.launches for name, k in kernels.items()}
@@ -2770,8 +2790,7 @@ def tools_on_card(kernels):
 
     ckpt = ROOT / "build" / "chip_smoke_example_lm"
     shutil.rmtree(ckpt, ignore_errors=True)
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     hist = train_lm.main(["--steps", "4", "--ckpt-dir", str(ckpt)])
     launches = {name: k.launches for name, k in kernels.items()}
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -2797,10 +2816,13 @@ def tools_on_card(kernels):
 # phase 14: tensor-parallel serving of the dense family
 # ----------------------------------------------------------------------
 
-# the tensor-parallel degrees of 14a, and of 14d's bench: its tp 1 oracle
-# and tp 2 (its tp 8 row is cut for the script's time budget since phase
-# 15 joined it; 14a runs tp 2 and 4)
+# the tensor-parallel degrees of 14a, those of them whose engines serve
+# its requests (tp 4's is held on its first logits and their launches
+# alone, for the script's time budget since phase 17 joined), and 14d's
+# bench: its tp 1 oracle and tp 2 (its tp 8 row is cut for the time
+# budget since phase 15 joined it)
 TP_DEGREES = (1, 2, 4)
+TP_SERVED = (1, 2)
 TP_BENCH = (1, 2)
 # bf16 logits of a tp engine against tp 1's, absolute, for logits whose
 # largest magnitude is ~4.4 here: a column-parallel shard computes its
@@ -2888,13 +2910,18 @@ def planted_fault(model, kind):
 def first_logits(full, eng, fixed, fixed_lens):
     """The logits of one prefill call of ``fixed`` (4 prompts) and of the
     decode step after it on ``eng``'s model and pools (the first pages,
-    which its requests overwrite before reading), as fp32."""
+    which its requests overwrite before reading), as fp32. Each prompt has
+    one page more than its prefill fills, so a prompt of whole pages
+    writes its decode token's K/V to a page of its own: on the trash page
+    it would collide with the idle slots' writes, and which write lands
+    there is not fixed from one run to the next."""
     from repro_torch.models import transformer as T
 
     npp = fixed.shape[1] // full.attn_block
-    rows = torch.arange(1, 4 * npp + 1, dtype=torch.int32, device="cuda").reshape(4, npp)
+    pages = torch.arange(1, 4 * (npp + 1) + 1, dtype=torch.int32, device="cuda").reshape(4, npp + 1)
+    rows = pages[:, :npp].contiguous()
     table = torch.zeros((8, eng.kv.pages_per_seq), dtype=torch.int32, device="cuda")
-    table[:4, :npp] = rows
+    table[:4, : npp + 1] = pages
     with torch.no_grad():
         lp, _ = T.prefill_paged(full, eng.model, fixed, fixed_lens, eng.kv.buffers, rows)
         nxt = torch.zeros(8, dtype=torch.int32, device="cuda")
@@ -2906,14 +2933,15 @@ def first_logits(full, eng, fixed, fixed_lens):
 
 
 def tp_serving(full, seed, smi, kernels):
-    """(a) Engines at tp 1, 2 and 4 on one state dict: first the logits of
+    """(a) Engines at ``TP_DEGREES`` on one state dict: first the logits of
     one prefill call (4 prompts of 512, 400, 300, 257 tokens) and of the
     decode step after it against tp 1's within ``TP_LOGIT_TOL``, and at
     tp 2 the same logits under each planted shard fault
     (``planted_fault``), which must read above it; then 12 requests of
     257-512 prompt tokens, 16 new each, greedy and then sampled
-    (``TP_SAMPLING``, seed 100 + i), each stream equal to tp 1's token for
-    token. A divergence is printed with tp 1's top-2 gap at its step
+    (``TP_SAMPLING``, seed 100 + i), at ``TP_SERVED``, each stream equal
+    to tp 1's token for token (the other tps' kernels' counts are set to
+    0 before their first logits and read after). A divergence is printed with tp 1's top-2 gap at its step
     (``decision_gap``), then fails the phase. The kernels' counts are set
     to 0 before each tp's requests and read after: all three must launch.
     Returns the report, the state dict and the engines."""
@@ -2936,6 +2964,7 @@ def tp_serving(full, seed, smi, kernels):
                      mesh=make_tp_mesh(tp))
         engines[tp] = eng
         build_s = time.perf_counter() - t0
+        zero_launches(kernels)
         lp, ld = first_logits(full, eng, fixed, fixed_lens)
         if lp.shape != (4, full.padded_vocab) or not (torch.isfinite(lp).all() and torch.isfinite(ld).all()):
             raise AssertionError(f"14a: tp {tp} logits not finite or of the wrong shape")
@@ -2953,11 +2982,20 @@ def tp_serving(full, seed, smi, kernels):
                 f"decode {faults[kind]['decode']:.4g} (tol {TP_LOGIT_TOL})")
             if max(faults[kind].values()) <= TP_LOGIT_TOL:
                 raise AssertionError(f"14a: a planted {kind} fault reads {faults[kind]}, within {TP_LOGIT_TOL}")
+        if tp not in TP_SERVED:
+            launches = {name: k.launches for name, k in kernels.items()}
+            if min(launches.values()) <= 0:
+                raise AssertionError(f"14a: tp {tp}'s first logits left a kernel unlaunched: {launches}")
+            out[tp] = {"tp": tp, "mesh_positions": eng.mesh.size, "distinct_devices": eng.distinct_devices,
+                       "build_s": build_s, "logit_max_abs_err": err, "launches": launches, "served": False}
+            log(f"[14a] tp {tp} ({eng.mesh.size} shard(s) on {eng.distinct_devices} device(s); {smi}): logits vs tp 1 "
+                f"prefill {err['prefill']:.4g} decode {err['decode']:.4g} (tol {TP_LOGIT_TOL}); no requests "
+                f"(TP_SERVED); launches {launches}")
+            continue
         eng.submit(rng.integers(0, full.vocab_size, 300).astype(np.int32), 4)  # warm-up
         eng.drain(max_steps=50)
         eng.reset_stats()
-        for k in kernels.values():
-            k.launches = 0
+        zero_launches(kernels)
         row = {"tp": tp, "mesh_positions": eng.mesh.size, "distinct_devices": eng.distinct_devices,
                "paged_impl": eng.paged_impl, "build_s": build_s, "logit_max_abs_err": err,
                "kv_pool_gb": eng.kv.memory_bytes() / 1e9, "planted_faults": faults}
@@ -3078,8 +3116,7 @@ def tp_router(full, sd, eng, seed, smi, kernels):
         router.submit(rng.integers(0, full.vocab_size, 300).astype(np.int32), 4)
     router.drain(max_steps=50)
     router.reset_stats()
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     ruids = {router.submit(p, 16): i for i, p in enumerate(work)}
     fins = router.drain(max_steps=400)
@@ -3124,8 +3161,7 @@ def tp_bench(sd, smi, kernels):
     from repro_torch.bench import serve_mesh
     from repro_torch.launch import serve
 
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):  # its payload line is not this script's
         res = serve_mesh.run(device="cuda", params=sd, tps=TP_BENCH)
@@ -3142,8 +3178,7 @@ def tp_bench(sd, smi, kernels):
             f"p95 token {row['p95_token_latency_ms']} ms, paged {row['paged_impl']}")
     log(f"[14d] serve_mesh router replicas=2: {res['router']['wall_tok_s']:.2f} tok/s, streams equal "
         f"{res['router']['streams_equal']}; {wall:.1f} s in all; launches {launches}")
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         served = serve.main(["--arch", "qwen3-1.7b", "--sparse", "--batch", "8", "--prompt-len", "512",
@@ -3248,8 +3283,7 @@ def mesh_run(full, sd, data, opt, strategy, shape, device, kernels, *, ref=None,
     with planted_train_fault(fault) if fault else contextlib.nullcontext():
         for i in range(steps):
             if i == 1:
-                for k in kernels.values():
-                    k.launches = 0
+                zero_launches(kernels)
             hist += tr.run(1)
             if i == 0:
                 # the first step's gradient by kind: its first moment
@@ -3281,6 +3315,7 @@ def mesh_run(full, sd, data, opt, strategy, shape, device, kernels, *, ref=None,
         torch.cuda.synchronize()
         out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["launches"] = {name: k.launches for name, k in kernels.items()}
+    out["bsr_launches_by_block"] = dict(sorted(kernels["bsr_matmul"].launches_by.items()))
     out["loss"] = [h["loss"] for h in hist]
     out["grad_norm"] = [h["grad_norm"] for h in hist]
     out["step_ms"] = [1e3 * h["step_time_s"] for h in hist[1:]]
@@ -3437,8 +3472,11 @@ def mesh_kernels(timer, full, seed):
 # ----------------------------------------------------------------------
 
 DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"), ("qwen3-1.7b", "decode_32k"),
-                ("musicgen-large", "train_4k"))
-DRYRUN_REFUSED = ("deepseek-moe-16b", "train_4k", "item 17")
+                ("musicgen-large", "train_4k"), ("deepseek-moe-16b", "prefill_32k"),
+                ("deepseek-moe-16b", "decode_32k"))
+DRYRUN_REFUSED = ("kimi-k2-1t-a32b", "train_4k", "item 16")
+# the sweep's cells (``--all --both-meshes``): those that count, those refused
+DRYRUN_SPLIT = (38, 28)
 DRYRUN_MEM_TOL = 0.10  # |predicted / max_memory_allocated - 1|
 SHARDED_MESHES = (("fsdp", (1, 1)), ("tp", (1, 2)), ("fsdp", (2, 1)))
 SHARDED_FP32_TOL = 1e-4
@@ -3446,9 +3484,11 @@ SHARDED_FP32_TOL = 1e-4
 
 def dryrun_rows():
     """(a) The dry-run's rows of ``DRYRUN_CELLS`` on the meta 16 x 16 mesh
-    (counted on the host; nothing runs on the card), and the refusal of
-    ``DRYRUN_REFUSED``. Run in a helper process from the script's start
-    (``main``), beside the card's phases."""
+    (counted on the host; nothing runs on the card), the refusal of
+    ``DRYRUN_REFUSED``, and the split of the whole sweep's 66 cells into
+    those that count and those refused (``launch.dryrun.sweep_split``: the
+    refusal checks of every cell, none counted). Run in a helper process
+    from the script's start (``main``), beside the card's phases."""
     from repro_torch.launch import dryrun as D
 
     rows = {}
@@ -3463,24 +3503,34 @@ def dryrun_rows():
         refusal = None
     except ValueError as e:
         refusal = str(e)
-    return {"rows": rows, "refused": {"arch": arch, "shape": shape, "error": refusal}}
+    t0 = time.perf_counter()
+    sweep = D.sweep_split()
+    return {"rows": rows, "refused": {"arch": arch, "shape": shape, "error": refusal}, "sweep": sweep,
+            "sweep_s": time.perf_counter() - t0}
 
 
 def check_dryrun_rows(out, smi):
-    """(a)'s checks: every row ``ok`` with finite terms, and the refused cell
-    naming its item."""
+    """(a)'s checks: every row ``ok`` with finite terms, the refused cell
+    naming its item, and the sweep's split ``DRYRUN_SPLIT``."""
     for key, r in out["rows"].items():
         if not r["ok"] or not all(math.isfinite(r[k]) for k in ("compute_s", "memory_s", "collective_s")):
             raise AssertionError(f"16a: {key}: {r}")
         log(f"[16a] {key} on 16x16 ({r['strategy']}; counts, not times): bytes/device "
             f"{r['bytes_per_device'] / 1e9:.3f} GB temp + {r['argument_bytes_per_device'] / 1e9:.3f} GB arguments; "
             f"compute {r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, collective "
-            f"{r['collective_s'] * 1e3:.3f} ms -> {r['bottleneck']}; useful {r['useful_flops_ratio']:.4f}; "
-            f"{r['wall_s']:.1f} s on the host")
+            f"{r['collective_s'] * 1e3:.3f} ms -> {r['bottleneck']}; collective bytes by class "
+            f"{r['collective_breakdown']}; useful {r['useful_flops_ratio']:.4f}; {r['wall_s']:.1f} s on the host")
     ref = out["refused"]
     if ref["error"] is None or DRYRUN_REFUSED[2] not in ref["error"]:
         raise AssertionError(f"16a: {ref['arch']} {ref['shape']} was not refused naming {DRYRUN_REFUSED[2]}: {ref}")
     log(f"[16a] {ref['arch']} {ref['shape']} refused: {ref['error']}")
+    sweep = out["sweep"]
+    split = (sum(v is None for v in sweep.values()), sum(v is not None for v in sweep.values()))
+    items = collections.Counter(f"{k.split()[0]} {v.split('; ')[-1].split(' (')[0]}" for k, v in sweep.items() if v)
+    log(f"[16a] the sweep's {len(sweep)} cells: {split[0]} count, {split[1]} refused ({dict(items)}); "
+        f"checked in {out['sweep_s']:.1f} s")
+    if split != DRYRUN_SPLIT:
+        raise AssertionError(f"16a: the sweep splits {split}, not {DRYRUN_SPLIT}: {sweep}")
     out["card"] = smi
     return out
 
@@ -3649,8 +3699,7 @@ def dryrun_phase(full, seed, smi, kernels, rows=None):
     t0 = time.perf_counter()
     out = {"dryrun": check_dryrun_rows(dryrun_rows() if rows is None else rows.result(timeout=600), smi)}
     log(f"[16a] rows ready after {time.perf_counter() - t0:.1f} s more in phase 16")
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     out["engine_roofline"] = engine_rooflines(full, seed, smi)
     out["card_count"] = dryrun_on_card(full, seed, smi)
     smoke = registry.get_smoke("qwen3-1.7b", sparse=True)
@@ -3664,6 +3713,378 @@ def dryrun_phase(full, seed, smi, kernels, rows=None):
     for name, n in out["launches"].items():
         if n <= 0:
             raise AssertionError(f"16: kernel {name} was never launched in phase 16")
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 17: expert parallelism for the MoE family
+# ----------------------------------------------------------------------
+
+# the tensor-parallel degrees of 17a's engines (tp 1 the oracle) and the
+# meshes of 17b's trainer ((1, 1) the reference): two routing groups, so
+# the (2, 2) mesh's two data replicas route one each, on every mesh alike
+EP_DEGREES = (1, 2, 4)
+EP_MESH_TRAIN = (("fsdp", (1, 1)), ("tp", (1, 2)), ("tp", (2, 2)))
+EP_ROUTING_GROUPS = 2
+# the shard faults 17a plants at tp 2; each must read above TP_LOGIT_TOL
+EP_FAULTS = ("experts swapped", "column slice")
+# a bf16 greedy stream of a tp engine may leave tp 1's only at a near tie:
+# where tp 1's top-2 gap at that step (``decision_gap``) is under this
+# bound, in logits (each tp's logits may sit TP_LOGIT_TOL off, so the top
+# two may move apart by twice it). The same engines in EP_EXACT_DTYPE, on
+# the same weights, must serve tp 1's streams token for token: the
+# witness that a bf16 divergence is rounding, not the mesh. Either
+# failing fails the phase.
+EP_GAP_TOL = 2 * TP_LOGIT_TOL
+# 17a's witness dtype and 17b's: in fp32 MESH_TOL (set on the dense family
+# in bf16) holds what the mesh computes; 17b's bf16 runs read the router's
+# first-step direction at 4.03e-3 at (2, 2), above MESH_TOL's, and are
+# not run
+EP_EXACT_DTYPE = "float32"
+
+
+@contextlib.contextmanager
+def planted_ep_fault(model, kind):
+    """A shard fault in a tp 2 MoE ``model`` for the length of the block.
+    "experts swapped": the two shards' routed experts (``moe.wg/wu/wd``)
+    swapped in every MoE layer, so a token routed to expert e runs expert e
+    +- E/2. "column slice": shard 1's column-sliced pixelfly linears read
+    their ``V`` rows and place their features as shard 0's columns."""
+    s0, s1 = model.shards[0], model.shards[1]
+    undo = []
+    if kind == "experts swapped":
+        for b0, b1 in zip(s0.layers, s1.layers):
+            if not hasattr(b0, "moe"):
+                continue
+            for name in ("wg", "wu", "wd"):
+                a0, a1 = getattr(b0.moe, name), getattr(b1.moe, name)
+                undo += [(b0.moe, name, a0), (b1.moe, name, a1)]
+                setattr(b0.moe, name, a1)
+                setattr(b1.moe, name, a0)
+    elif kind == "column slice":
+        from repro_torch.models import layers as L
+
+        for mod in s1.modules():
+            if isinstance(mod, L.Linear) and mod.cols is not None:
+                undo.append((mod, "cols", mod.cols))
+                mod.cols = (0, mod.cols[1] - mod.cols[0])
+        if not undo:
+            raise AssertionError("17a: no column-sliced linear to plant the fault in")
+    else:
+        raise ValueError(kind)
+    try:
+        yield
+    finally:
+        for obj, name, val in undo:
+            setattr(obj, name, val)
+
+
+def pattern_blocks(cfg) -> set[int]:
+    """The blocks of ``cfg``'s pixelfly patterns (each linear's own, after
+    ``LinearSpec.pixelfly``'s halving): a ``bsr_matmul`` launch at any other
+    block is a column-sliced shard's view."""
+    from repro_torch.core.pixelfly import Linear
+    from repro_torch.models import transformer as T
+
+    return {m.spec.block for m in T.skeleton(cfg).modules() if isinstance(m, Linear) and m.spec.sparse}
+
+
+def view_launches(by_block: dict, native: set[int]) -> int:
+    """The launches of ``bsr_matmul``'s counts by block (``launches_by``)
+    at a block that is not one of ``native`` (``pattern_blocks``): a
+    column-sliced shard's view launches at b / tp (``pixelfly.
+    apply_linear``), a block below every pattern's own."""
+    return sum(n for b, n in by_block.items() if b not in native)
+
+
+def ep_config():
+    """deepseek-moe-16b sparse at published widths, ``DEPTH_CUTS`` depth
+    (its dense layer 0 and 3 MoE layers), ``EP_ROUTING_GROUPS`` routing
+    groups."""
+    from repro_torch.configs import registry
+
+    full = registry.get("deepseek-moe-16b", sparse=True)
+    return full.replace(num_layers=DEPTH_CUTS["deepseek-moe-16b"], moe_routing_groups=EP_ROUTING_GROUPS)
+
+
+def ep_requests(eng, work, kernels, native, tag):
+    """``eng`` (warmed up first) serves the greedy ``work``, 16 new tokens
+    each, the kernels' counts set to 0 just before and read just after:
+    all three must launch, and at tp > 1 the column-sliced views (a block
+    not in ``native``, ``view_launches``) among ``bsr_matmul``'s."""
+    tp = eng.mesh.size if eng.mesh else 1
+    eng.submit(np.arange(1, 301, dtype=np.int32), 4)  # warm-up
+    eng.drain(max_steps=50)
+    eng.reset_stats()
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    for p in work:
+        eng.submit(p, 16)
+    fins = eng.drain(max_steps=400)
+    torch.cuda.synchronize()
+    row = {"tp": tp, "wall_s": time.perf_counter() - t0}
+    if len(fins) != len(work) or any(f.finish_reason != "length" or len(f.tokens) != 16 for f in fins):
+        raise AssertionError(f"{tag}: tp {tp}: {[(f.finish_reason, len(f.tokens)) for f in fins]}")
+    row["greedy"] = [f.tokens.tolist() for f in sorted(fins, key=lambda f: f.uid)]
+    row["launches"] = {name: k.launches for name, k in kernels.items()}
+    row["bsr_launches_by_block"] = by_block = dict(sorted(kernels["bsr_matmul"].launches_by.items()))
+    row["column_view_launches"] = view_launches(by_block, native)
+    for name, n in row["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"{tag}: kernel {name} was never launched at tp {tp}")
+    if (tp > 1) != (row["column_view_launches"] > 0):
+        raise AssertionError(f"{tag}: column-sliced bsr_matmul views at tp {tp}: {by_block} (pattern blocks {native})")
+    return row
+
+
+def ep_serving(full, seed, smi, kernels):
+    """(a) Engines at tp 1, 2 and 4 on one state dict (``max_slots=8,
+    max_len=2048``): the first prefill's and decode step's logits of 4
+    fixed prompts against tp 1's within ``TP_LOGIT_TOL``, and at tp 2
+    under each of ``EP_FAULTS``, which must read above it; then 12 greedy
+    requests of 257-512 prompt tokens, 16 new each, each stream held to
+    tp 1's (``EP_GAP_TOL``); then the same requests on engines of every tp
+    in ``EP_EXACT_DTYPE`` on the same weights, each stream equal to tp
+    1's; returns the report and those weights. The kernels' counts
+    are set to 0 before each engine's requests and read after
+    (``ep_requests``): all three must launch, and at tp > 1 the
+    column-sliced views of the dense layer's gate and up (171 block rows,
+    which no tp > 1 divides) must launch at b / tp."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    t0 = time.perf_counter()
+    sd = T.init_model(full, seed=seed, device="cuda").state_dict()
+    log(f"[17a] deepseek-moe-16b sparse, published widths, {full.num_layers} layers: weights in "
+        f"{time.perf_counter() - t0:.1f} s (shared by every tp)")
+    rng = np.random.default_rng(seed + 17)
+    work = [rng.integers(0, full.vocab_size, int(n)).astype(np.int32) for n in rng.integers(257, 513, 12)]
+    fixed = torch.as_tensor(rng.integers(0, full.vocab_size, (4, 512)), dtype=torch.int32, device="cuda")
+    fixed_lens = torch.tensor([512, 400, 300, 257], dtype=torch.int32, device="cuda")
+    out, engines, ref = {}, {}, None
+    native = pattern_blocks(full)
+    for tp in EP_DEGREES:
+        t0 = time.perf_counter()
+        eng = Engine(full, engine_cfg=EngineConfig(max_slots=8, max_len=2048), params=sd, mesh=make_tp_mesh(tp))
+        engines[tp] = eng
+        build_s = time.perf_counter() - t0
+        lp, ld = first_logits(full, eng, fixed, fixed_lens)
+        if lp.shape != (4, full.padded_vocab) or not (torch.isfinite(lp).all() and torch.isfinite(ld).all()):
+            raise AssertionError(f"17a: tp {tp} logits not finite or of the wrong shape")
+        if ref is None:
+            ref = (lp, ld)
+        err = {"prefill": (lp - ref[0]).abs().max().item(), "decode": (ld - ref[1]).abs().max().item()}
+        if max(err.values()) > TP_LOGIT_TOL:
+            raise AssertionError(f"17a: tp {tp} logits off tp 1's by {err} (tol {TP_LOGIT_TOL})")
+        log(f"[17a] tp {tp}: first prefill and decode logits vs tp 1 {err} (tol {TP_LOGIT_TOL})")
+        faults = {}
+        for kind in EP_FAULTS if tp == 2 else ():
+            with planted_ep_fault(eng.model, kind):
+                fp, fd = first_logits(full, eng, fixed, fixed_lens)
+            faults[kind] = {"prefill": (fp - ref[0]).abs().max().item(), "decode": (fd - ref[1]).abs().max().item()}
+            log(f"[17a] tp 2 with a planted {kind} fault: logits vs tp 1 prefill {faults[kind]['prefill']:.4g} "
+                f"decode {faults[kind]['decode']:.4g} (tol {TP_LOGIT_TOL})")
+            if max(faults[kind].values()) <= TP_LOGIT_TOL:
+                raise AssertionError(f"17a: a planted {kind} fault reads {faults[kind]}, within {TP_LOGIT_TOL}")
+        row = ep_requests(eng, work, kernels, native, "17a")
+        row.update(mesh_positions=eng.mesh.size if eng.mesh else 1, distinct_devices=eng.distinct_devices,
+                   build_s=build_s, logit_max_abs_err=err, planted_faults=faults)
+        st = engine_stats(eng)
+        steps = sorted(st["decode_step_s"])
+        row.update(decode_steps=st["decode_steps"], decode_tok_s=st["decode_tokens"] / sum(steps),
+                   decode_step_ms_p50=1e3 * steps[len(steps) // 2], card=smi)
+        row["divergences"] = []
+        for i in range(len(work)) if tp != 1 else ():
+            a, b = out[1]["greedy"][i], row["greedy"][i]
+            if a == b:
+                continue
+            j = next(j for j in range(len(a)) if a[j] != b[j])
+            gap = decision_gap(full, engines[1].model, work[i], a[:j], None, j)
+            row["divergences"].append({"request": i, "step": j, "tp1": a[j], "tp": b[j], "top2_gap": gap})
+            log(f"[17a] tp {tp} request {i} diverges from tp 1 at token {j} ({a[j]} vs {b[j]}): tp 1's top-2 "
+                f"gap there {gap:.4f} (accepted under {EP_GAP_TOL})")
+        wide = [d for d in row["divergences"] if d["top2_gap"] >= EP_GAP_TOL]
+        if wide:
+            raise AssertionError(f"17a: tp {tp} streams leave tp 1's at a top-2 gap of {EP_GAP_TOL} or more: {wide}")
+        out[tp] = row
+        log(f"[17a] tp {tp} ({row['mesh_positions']} shard(s) on {eng.distinct_devices} device(s); {smi}): logits vs "
+            f"tp 1 prefill {err['prefill']:.4g} decode {err['decode']:.4g} (tol {TP_LOGIT_TOL}); 12 greedy requests "
+            f"in {row['wall_s']:.2f} s, decode {row['decode_tok_s']:.1f} tok/s, step p50 "
+            f"{row['decode_step_ms_p50']:.2f} ms; {len(row['divergences'])} divergence(s) from tp 1; launches "
+            f"{row['launches']}, bsr_matmul by block {row['bsr_launches_by_block']}")
+    exact = {k: v.to(getattr(torch, EP_EXACT_DTYPE)) if v.is_floating_point() else v for k, v in sd.items()}
+    del engines, sd
+    gc_collect()
+    report = {str(tp): {k: v for k, v in r.items() if k != "greedy"} for tp, r in out.items()}
+    report.update(ep_exact_streams(full, exact, work, smi, kernels, native))
+    return report, exact
+
+
+def ep_exact_streams(full, sd, work, smi, kernels, native):
+    """(a) in ``EP_EXACT_DTYPE`` (``sd``): engines at every tp of
+    ``EP_DEGREES``, one at a time, serve ``work`` (``ep_requests``); each
+    stream must equal tp 1's token for token."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = full.replace(dtype=EP_EXACT_DTYPE)
+    out, ref = {}, None
+    for tp in EP_DEGREES:
+        eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=8, max_len=2048), params=sd, mesh=make_tp_mesh(tp))
+        row = ep_requests(eng, work, kernels, native, f"17a {EP_EXACT_DTYPE}")
+        del eng
+        ref = row["greedy"] if ref is None else ref
+        diff = [(i, next(j for j in range(16) if a[j] != b[j])) for i, (a, b) in enumerate(zip(ref, row["greedy"]))
+                if a != b]
+        log(f"[17a] {EP_EXACT_DTYPE} tp {tp} ({smi}): {len(work)} greedy requests in {row['wall_s']:.2f} s, "
+            f"streams equal to tp 1's: {not diff}; launches {row['launches']}, bsr_matmul by block "
+            f"{row['bsr_launches_by_block']}")
+        if diff:
+            raise AssertionError(f"17a: {EP_EXACT_DTYPE} tp {tp} streams leave tp 1's at (request, token) {diff}")
+        out[f"{EP_EXACT_DTYPE} {tp}"] = {k: v for k, v in row.items() if k != "greedy"} | {"streams_equal": True}
+    gc_collect()
+    return out
+
+
+def ep_training(full, sd, seed, smi, kernels):
+    """(b) ``Trainer`` on the meshes of ``EP_MESH_TRAIN``, every position the
+    card, at B = 4, S = 1024 in ``EP_EXACT_DTYPE`` from the state dict
+    ``sd`` (17a's weights): 1 warm-up and 1 timed step each (``mesh_run``), each mesh's losses, grad
+    norms and first-step gradient by parameter kind within ``MESH_TOL`` of
+    (1, 1)'s. The kernels' counts are set to 0 after each warm-up step and
+    read after the timed one: both training kernels must launch, the
+    column-sliced view at tp > 1 among them."""
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import OptConfig
+
+    data = SyntheticLM(full.vocab_size, 1024, 4, seed=seed)
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    runs = {}
+    native = pattern_blocks(full)
+    cfg = full.replace(dtype=EP_EXACT_DTYPE)
+    ref = None
+    for strategy, shape in EP_MESH_TRAIN:
+        row = mesh_run(cfg, sd, data, opt, strategy, shape, "cuda", kernels, ref=ref, steps=2)
+        key = f"{strategy} {tuple(shape)}"
+        if ref is None:
+            ref = row
+        for name in ("bsr_matmul", "block_sparse_attention"):
+            if row["launches"][name] <= 0:
+                raise AssertionError(f"17b: kernel {name} was never launched at {key}")
+        by_block = row["bsr_launches_by_block"]
+        row["column_view_launches"] = view_launches(by_block, native)
+        if shape[1] > 1 and row["column_view_launches"] <= 0:
+            raise AssertionError(f"17b: no column-sliced bsr_matmul view launched at {key}: {by_block}")
+        log(f"[17b] {EP_EXACT_DTYPE} {key} ({row['positions']} position(s) on {row['distinct_devices']} device(s); "
+            f"{smi}): step {row['step_ms_median']:.1f} ms ({row['train_tok_s']:.0f} train tokens/s), peak memory "
+            f"{row.get('max_memory_allocated_gb', 0):.2f} GB; losses {', '.join(f'{x:.6f}' for x in row['loss'])}, "
+            f"grad norms {', '.join(f'{x:.6f}' for x in row['grad_norm'])}; launches {row['launches']}, "
+            f"bsr_matmul by block {by_block}")
+        read = row.get("read")
+        if read:
+            log(f"[17b] {key} vs (1, 1): loss {read['loss']:.3e} (tol {MESH_TOL['loss']:g}), grad norm "
+                f"{read['grad_norm']:.3e} (tol {MESH_TOL['grad_norm']:g}), first-step gradient direction "
+                f"{read['grad_direction']:.3e} (tol {MESH_TOL['grad_direction']:g}; by kind "
+                + ", ".join(f"{k} {v:.2e}" for k, v in row["grad_direction"].items()) + ")")
+            bad = {k: v for k, v in read.items() if v > MESH_TOL[k]}
+            if bad:
+                raise AssertionError(f"17b: {key} off (1, 1) by {bad} (tol {MESH_TOL})")
+        runs[key] = {k: v for k, v in row.items() if k not in ("snaps", "mu")}
+    del ref
+    gc_collect()
+    return {"dtype": EP_EXACT_DTYPE, "runs": runs, "tol": MESH_TOL, "card": smi}
+
+
+def ep_kimi_smoke(seed, kernels):
+    """(c) kimi-k2-1t-a32b at smoke width (fp32; 8 experts, 2 kv heads) on
+    the card: an engine at tp 2 serves the greedy streams of tp 1's, the
+    three kernels launching (counts set to 0 just before)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = registry.get_smoke("kimi-k2-1t-a32b", sparse=True)
+    sd = T.init_model(cfg, seed=seed, device="cuda").state_dict()
+    rng = np.random.default_rng(seed + 18)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32) for n in (9, 70, 130, 17)]
+    streams = {}
+    for tp in (1, 2):
+        eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=4, max_len=256), params=sd, mesh=make_tp_mesh(tp))
+        zero_launches(kernels)
+        for p in prompts:
+            eng.submit(p, 12)
+        streams[tp] = [f.tokens.tolist() for f in sorted(eng.drain(max_steps=200), key=lambda f: f.uid)]
+        launches = {name: k.launches for name, k in kernels.items()}
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"17c: kernel {name} was never launched by smoke kimi-k2 at tp {tp}")
+    if streams[2] != streams[1]:
+        raise AssertionError(f"17c: smoke kimi-k2 streams at tp 2 differ from tp 1's: {streams}")
+    log(f"[17c] smoke kimi-k2-1t-a32b (fp32) at tp 2 on the card: 4 greedy streams equal to tp 1's; "
+        f"launches {launches}")
+    return {"streams_equal": True, "launches": launches}
+
+
+def ep_kernels(timer, full, seed):
+    """(d) ``bsr_matmul`` on the column-sliced views 17a and 17b launch,
+    against their plain versions and timed as phase 3 times them (rank 0
+    timed, the others checked), at M = 8 and 8192: the dense layer's gate
+    and up at tp 2 and 4, the shared experts' gate and up at tp 4. A
+    shard's (nb_out, r, b, b/tp) blocks run as (nb_out, r·tp, b/tp,
+    b/tp) over consecutive input sub-blocks (``pixelfly.linear_tables``);
+    its plain version and ``x @ bsr_to_dense`` take the same view."""
+    from repro_torch.core.pixelfly import linear_tables
+    from repro_torch.models import layers as L
+
+    f = full.moe_num_shared * full.moe_d_ff
+    cases = (("dense gate/up", L.linear_spec(full, full.d_model, full.moe_dense_ff, False), 2),
+             ("dense gate/up", L.linear_spec(full, full.d_model, full.moe_dense_ff, False), 4),
+             ("shared gate/up", L.linear_spec(full, full.d_model, f, False), 4))
+    out = []
+    for label, spec, tp in cases:
+        pat = spec.pattern()
+        if pat.nb_out % tp == 0:
+            raise AssertionError(f"17d: {label} ({pat.nb_out} block rows) is row-sliced at tp {tp}")
+        bc = pat.block // tp
+        cols = linear_tables(spec, torch.device("cuda"), None, (0, bc)).cols
+        g = torch.Generator(device="cuda").manual_seed(seed + 170 + tp)
+        for m in (8, 8192):
+            x = torch.randn((m, spec.in_features), generator=g, device="cuda").to(torch.bfloat16)
+            for r in range(tp):
+                blocks = (torch.randn((pat.nb_out, pat.r, pat.block, bc), generator=g, device="cuda")
+                          / math.sqrt(pat.r * pat.block)).to(torch.bfloat16)
+                view = blocks.reshape(pat.nb_out, pat.r * tp, bc, bc)
+                row = bsr_row(timer, x, view, cols, spec.in_features, pat.nb_out * pat.r * tp, 2e-2,
+                              f"tp{tp} {label} columns rank {r}", timed=r == 0)
+                if r:
+                    continue
+                row.update(tp=tp, linear=label, shard_blocks=[pat.nb_out, pat.r, pat.block, bc])
+                out.append(row)
+                log(f"[17d] bsr_matmul column view tp {tp} {label:14s} {row['shape']} (shard blocks "
+                    f"{tuple(row['shard_blocks'])}; every rank checked): err {row['max_abs_err']:.2e} kernel "
+                    f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms x@dense {row['library_ms']:.4f} ms bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return out
+
+
+def expert_parallel_phase(timer, seed, smi, kernels):
+    """Phase 17: (d) first (a new kernel view's first calls are short
+    ones), then (a), (b), (c)."""
+    full = ep_config()
+    out = {"kernels": ep_kernels(timer, full, seed)}
+    out["serving"], exact = ep_serving(full, seed, smi, kernels)
+    out["training"] = ep_training(full, exact, seed, smi, kernels)
+    del exact
+    out["kimi_smoke"] = ep_kimi_smoke(seed, kernels)
+    launches = {name: 0 for name in kernels}
+    for part in list(out["serving"].values()) + list(out["training"]["runs"].values()) + [out["kimi_smoke"]]:
+        for name in kernels:
+            launches[name] += part["launches"][name]
+    out["launches"] = launches
+    out["column_view_launches"] = sum(r["column_view_launches"] for part in ("serving", "training")
+                                      for r in (out[part]["runs"] if part == "training" else out[part]).values())
     return out
 
 
@@ -3813,8 +4234,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     plens = rng.integers(200, 1001, 12)
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     for n in plens:
         eng.submit(rng.integers(0, full.vocab_size, int(n)).astype(np.int32), 32)
@@ -4022,7 +4442,14 @@ def main(argv=None) -> int:
     report["dryrun"] = dry
     log(f"[16] phase 16 took {dry['wall_s']:.1f} s")
 
-    # ---- 17. report ------------------------------------------------
+    # ---- 17. expert parallelism for the MoE family ------------------
+    t17 = time.perf_counter()
+    ep = expert_parallel_phase(timer, args.seed, smi, kernels)
+    ep["wall_s"] = time.perf_counter() - t17
+    report["expert_parallel"] = ep
+    log(f"[17] phase 17 took {ep['wall_s']:.1f} s")
+
+    # ---- 18. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -4120,6 +4547,23 @@ def main(argv=None) -> int:
         if k["name"] != "paged_decode_attention":  # training on a mesh runs the other two
             k["launches_phase15"] = mesh_train["training"]["launches"][k["name"]]
         k["launches_phase16"] = dry["launches"][k["name"]]
+        k["launches_phase17"] = ep["launches"][k["name"]]
+    views = [r for r in ep["kernels"] if r["shape"].startswith("M=8 ")]
+    line["kernels"].append({
+        "name": "bsr_matmul_column_view",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/bsr_matmul.cu",
+        "replaces": "src/repro/kernels/bsr_matmul.py:59",
+        "shape": "deepseek-moe-16b's column-sliced shards at M=8, bf16, summed: " + "; ".join(
+            f"{r['linear']} tp {r['tp']} blocks {tuple(r['shard_blocks'])} as {r['shape']}" for r in views),
+        "launches": ep["column_view_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in ep["kernels"]),
+        "ms": summed(views, "ms"),
+        "plain_ms": summed(views, "plain_ms"),
+        "bound_ms": summed(views, "bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in views) else "operations",
+        "library_ms": summed(views, "library_ms"),
+    })
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -4129,7 +4573,7 @@ def main(argv=None) -> int:
                              f"SDPA's {paged_main['library_ms']:.4f} ms on the same inputs")
     report["wall_s"] = time.perf_counter() - T_START
     out.write_text(json.dumps(report, indent=1))
-    log(f"[17] chip_smoke.py took {report['wall_s']:.1f} s")
+    log(f"[18] chip_smoke.py took {report['wall_s']:.1f} s")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -2,15 +2,16 @@
 ``benchmarks/serve_mesh.py``: tensor-parallel decode throughput per tp,
 and data-parallel replica routing.
 
-For each tp in {1, 2, 4, 8} that divides the model's kv heads, one engine
+For each tp in {1, 2, 4, 8} that ``sharding.check_tp`` takes, one engine
 on a ``(1, tp)`` mesh (``launch.mesh.make_tp_mesh``: the weights and the
 paged KV pools in ``tp`` shards) serves the same uniform trace, greedy and
 seeded-sampled; both streams must equal the tp = 1 engine's
 (``streams_equal``), and the best of the greedy repeats (by decode tok/s)
 gives ``decode_tok_s``, ``wall_tok_s``, ``wall_s`` and
 ``p95_token_latency_ms``. The other tp values are listed under
-``refused`` with the ROADMAP item that would shard them (the JAX rules
-shard their attention by sequence). A 2-replica ``ReplicaRouter`` run
+``refused`` with ``check_tp``'s words, which name the ROADMAP item that
+would shard them (for qwen3-1.7b: kv heads tp does not divide, whose
+attention the JAX rules shard by sequence). A 2-replica ``ReplicaRouter`` run
 rides along, its streams held to the same oracle.
 
 By default the mesh is the card ``tp`` times: all shards share one H100's
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.distributed.sharding import REFUSED
+from repro_torch.distributed.sharding import check_tp
 from repro_torch.launch.mesh import make_tp_mesh
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Engine, EngineConfig
@@ -141,16 +142,21 @@ def run(
 ) -> dict:
     """The payload (also printed as the last line of stdout). ``params``:
     the model's state dict (random from seed 0 when None); ``tps``: the tp
-    values to try (those the kv heads do not divide are refused)."""
+    values to try (those ``sharding.check_tp`` refuses are listed under
+    ``refused``)."""
     dev = T.resolve_device(device)
     cfg = registry.get_smoke(ARCH, sparse=True) if smoke else registry.get(ARCH, sparse=True)
     batch, prompt_len, gen, repeats = 4, 32, 16, 2
     if smoke:
         cfg = cfg.replace(num_layers=2, vocab_size=256)
         batch, prompt_len, gen, repeats = 2, 8, 4, 1
-    run_tps = [t for t in tps if cfg.num_kv_heads % t == 0]
-    refused = {str(t): f"{cfg.num_kv_heads} kv heads do not divide over {t}; {REFUSED['attention']}"
-               for t in tps if t not in run_tps}
+    refused = {}
+    for t in tps:
+        try:
+            check_tp(cfg, t)
+        except ValueError as e:
+            refused[str(t)] = str(e)
+    run_tps = [t for t in tps if str(t) not in refused]
     if params is None:
         params = T.init_model(cfg, seed=0, device=dev).state_dict()
     rng = np.random.default_rng(0)

@@ -17,8 +17,9 @@ even when sparse) do not fit one 80 GB card: the port runs them at smoke
 width, and at full width only builds them on the meta device. Tensor
 parallelism (``distributed.sharding``) does not change that on one card:
 its shards share the card. deepseek-67b would shard in the heads mode on
-cards of its own; kimi-k2's experts wait for expert parallelism (ROADMAP
-Queue 1 item 17).
+cards of its own, and kimi-k2's experts and router shard on the model
+axis (expert parallelism); kimi-k2's attention at tp 16 (8 kv heads)
+waits for the sequence-parallel mode (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations

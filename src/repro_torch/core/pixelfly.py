@@ -16,15 +16,17 @@ import dataclasses
 import functools
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.analysis.roofline import uncounted
 from repro_torch.core import budget as budget_lib
 from repro_torch.core import butterfly
 from repro_torch.kernels import autograd
 
 __all__ = [
-    "LinearSpec", "init_linear", "apply_linear", "linear_tables", "param_count", "Linear",
+    "LinearSpec", "init_linear", "apply_linear", "linear_tables", "column_features", "param_count", "Linear",
 ]
 
 
@@ -150,6 +152,7 @@ def apply_linear(
     params: dict[str, torch.Tensor],
     x: torch.Tensor,
     rows: tuple[int, int] | None = None,
+    cols: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """y = x @ W (+ bias), with the JAX package's rounding points: the BSR
     term comes back in x's dtype, ``x @ U`` and ``@ Vᵀ`` run in the model
@@ -161,13 +164,31 @@ def apply_linear(
     holds block rows [first, end) of the pattern (its rows of ``blocks``,
     ``V`` and the bias), and its tables are those rows of the global
     pattern's ``cols``. A shard's pattern is a row slice of the global
-    butterfly, not the pattern of a narrower linear."""
+    butterfly, not the pattern of a narrower linear.
+
+    ``cols`` (c0, c1): the shard holds output columns [c0, c1) of every
+    block, ``blocks[:, :, :, c0:c1]`` (the JAX rules' layout where tp does
+    not divide the block rows), and ``params["V"]`` is the whole ``V``
+    (the caller gathers it). Its output is the features ``i·b + [c0, c1)``
+    of every block row i, in that order (``column_features``). The BSR
+    term runs on the kernel's square blocks: a (b, b/tp) block is tp
+    stacked (b/tp)² blocks over consecutive input sub-blocks, so the shard
+    is viewed as ``(nb_out, r·tp, b/tp, b/tp)`` over ``n_in / (b/tp)``
+    input blocks (``linear_tables``); its dBlocks comes back through the
+    view."""
     if not spec.sparse:
         y = torch.matmul(x, params["w"])
     else:
         g = params["gamma"].float()
-        ys = autograd.bsr_matmul(x, params["blocks"], linear_tables(spec, x.device, rows))
-        yl = torch.matmul(torch.matmul(x, params["U"]), params["V"].t())
+        blocks, v = params["blocks"], params["V"]
+        if cols is not None:
+            nb, r, b, bc = blocks.shape
+            if spec.use_bias:
+                raise ValueError("a column-sliced pixelfly linear takes no bias")
+            blocks = blocks.reshape(nb, r * (b // bc), bc, bc)
+            v = v.index_select(0, column_features(spec, cols, v.device))
+        ys = autograd.bsr_matmul(x, blocks, linear_tables(spec, x.device, rows, cols))
+        yl = torch.matmul(torch.matmul(x, params["U"]), v.t())
         y = (g * ys.float() + (1.0 - g) * yl.float()).to(x.dtype)
     if spec.use_bias:
         y = y + params["b"].to(y.dtype)
@@ -176,15 +197,37 @@ def apply_linear(
 
 @functools.lru_cache(maxsize=512)
 def linear_tables(
-    spec: LinearSpec, device: torch.device, rows: tuple[int, int] | None = None
+    spec: LinearSpec,
+    device: torch.device,
+    rows: tuple[int, int] | None = None,
+    cols: tuple[int, int] | None = None,
 ) -> autograd.BsrTables:
     """The BSR tables (forward and transposed) of a sparse spec's pattern
-    on ``device``, built once per spec, device and row range (``rows``:
-    a shard's block rows of the pattern, all of them when None)."""
-    cols = spec.pattern().cols
+    on ``device``, built once per spec, device and slice (``rows``: a
+    shard's block rows of the pattern, all of them when None; ``cols``: a
+    shard's output columns of every block, whose view of tp square blocks
+    a slot reads input sub-block ``cols[i, t]·tp + j`` in slot ``t·tp + j``,
+    ``apply_linear``)."""
+    table = spec.pattern().cols
     if rows is not None:
-        cols = cols[rows[0] : rows[1]]
-    return autograd.bsr_tables(cols, spec.in_features // spec.block, device)
+        table = table[rows[0] : rows[1]]
+    if cols is None:
+        return autograd.bsr_tables(table, spec.in_features // spec.block, device)
+    bc = cols[1] - cols[0]
+    tp = spec.block // bc
+    view = (table[:, :, None] * tp + np.arange(tp)).reshape(table.shape[0], -1)
+    return autograd.bsr_tables(view, spec.in_features // bc, device)
+
+
+@functools.lru_cache(maxsize=512)
+@uncounted
+def column_features(spec: LinearSpec, cols: tuple[int, int], device: torch.device) -> torch.Tensor:
+    """The output features a column-sliced shard computes, in its order:
+    ``i·b + c`` for every block row i and c in [c0, c1) (int64 on
+    ``device``)."""
+    nb = spec.out_features // spec.block
+    idx = np.arange(nb)[:, None] * spec.block + np.arange(cols[0], cols[1])
+    return torch.as_tensor(idx.reshape(-1), device=device)
 
 
 def param_count(spec: LinearSpec) -> int:
@@ -201,7 +244,9 @@ class Linear(nn.Module):
     A sparse pattern's BSR tables are looked up on the input's device at
     each call (cached per spec and device; not in the state dict).
     ``rows``: set on a tensor-parallel shard of a pixelfly linear, the
-    block rows of the pattern it holds (``apply_linear``)."""
+    block rows of the pattern it holds; ``cols``: set instead on a shard
+    that holds output columns of every block, whose call takes the whole
+    ``V`` (``apply_linear``)."""
 
     def __init__(
         self, spec: LinearSpec, *, gen: torch.Generator, device: torch.device
@@ -209,8 +254,11 @@ class Linear(nn.Module):
         super().__init__()
         self.spec = spec
         self.rows: tuple[int, int] | None = None
+        self.cols: tuple[int, int] | None = None
         for name, t in init_linear(spec, gen).items():
             self.register_parameter(name, nn.Parameter(t.to(device)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_linear(self.spec, self._parameters, x, self.rows)
+    def forward(self, x: torch.Tensor, v: torch.Tensor | None = None) -> torch.Tensor:
+        """``v``: the whole ``V`` of a column-sliced shard (else unused)."""
+        params = self._parameters if v is None else {**self._parameters, "V": v}
+        return apply_linear(self.spec, params, x, self.rows, self.cols)

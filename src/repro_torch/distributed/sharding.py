@@ -65,10 +65,9 @@ __all__ = [
 
 # what the port's tensor parallelism leaves to later work, by ROADMAP item
 REFUSED = {
-    "attention": "ROADMAP Queue 1 item 16 (the sequence-parallel attention mode, the head_dim pool "
-                 "fallback and the other layouts of the JAX rules)",
-    "experts": "ROADMAP Queue 1 item 17 (expert parallelism)",
-    "ssm": "ROADMAP Queue 1 item 18 (the SSM Server at tp > 1)",
+    "attention": "ROADMAP Queue 1 item 16 (the sequence-parallel attention mode and the head_dim pool "
+                 "fallback of the JAX rules)",
+    "ssm": "ROADMAP Queue 1 item 18 (the SSM mixer and its state at tp > 1, and the fixed-batch Server)",
     "engine_fsdp": "ROADMAP Queue 1 item 20 (an Engine holding FSDP-sharded weights on a (data, model) mesh, "
                    "the JAX Engine's strategy=\"fsdp\" on such a mesh)",
 }
@@ -423,13 +422,13 @@ def check_tp(cfg: ModelConfig, tp: int) -> None:
     configuration whose tensor-parallel layout the port does not have:
     the port shards attention in the JAX "heads" mode only (kv heads
     divisible by tp), dense and pixelfly linears on their output or input
-    features, and the vocabulary; experts and SSM state wait."""
+    features (a pixelfly linear whose block rows tp does not divide on its
+    blocks' output columns), the MoE family's experts and router on their
+    expert axis, and the vocabulary; SSM state waits."""
     if tp <= 1:
         return
     if cfg.has_ssm:
         raise ValueError(f"{cfg.name} at tp={tp}: SSM layers are not sharded; {REFUSED['ssm']}")
-    if cfg.family == "moe":
-        raise ValueError(f"{cfg.name} at tp={tp}: routed experts are not sharded; {REFUSED['experts']}")
     if cfg.num_kv_heads % tp:
         raise ValueError(
             f"{cfg.name} at tp={tp}: {cfg.num_kv_heads} kv heads do not divide over {tp} shards, "

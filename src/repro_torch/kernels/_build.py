@@ -16,6 +16,7 @@ package, read by ``analysis.guards.compile_events_total``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -135,7 +136,9 @@ class CudaKernel:
 
     ``launch`` builds and loads the library at first use, calls the entry
     point on the current stream of the tensors' device, raises if it
-    returns a CUDA error, and counts the launch in ``launches``.
+    returns a CUDA error, and counts the launch in ``launches`` and, when
+    the caller names a ``key`` (``bsr_matmul``'s block), in
+    ``launches_by[key]``.
     ``argtypes`` lists the entry point's arguments before the trailing
     stream pointer.
     """
@@ -145,6 +148,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.launches_by = collections.Counter()
         self._fn = None
         self._error_string = None
 
@@ -159,7 +163,7 @@ class CudaKernel:
         err.restype = ctypes.c_char_p
         self._fn, self._error_string = fn, err
 
-    def launch(self, device: torch.device, *args) -> None:
+    def launch(self, device: torch.device, *args, key=None) -> None:
         if self._fn is None:
             self._load()
         with torch.cuda.device(device):
@@ -169,3 +173,5 @@ class CudaKernel:
             text = self._error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({text})")
         self.launches += 1
+        if key is not None:
+            self.launches_by[key] += 1

@@ -34,6 +34,8 @@ def bsr_matmul_cuda(
     bfloat16), cols (nb_out, r) int32, all contiguous on one CUDA device;
     b must be one of ``BLOCKS``. bfloat16 x and blocks are read in 16-byte chunks
     and must be 16-byte aligned. Returns y (M, nb_out * b) in x's dtype.
+    A launch is counted in ``KERNEL.launches`` and, by b, in
+    ``KERNEL.launches_by``.
     """
     if not (x.is_cuda and blocks.device == x.device and cols.device == x.device):
         raise ValueError("bsr_matmul_cuda needs x, blocks, cols on one CUDA device")
@@ -61,6 +63,6 @@ def bsr_matmul_cuda(
     KERNEL.launch(
         x.device,
         x.data_ptr(), blocks.data_ptr(), cols.data_ptr(), y.data_ptr(),
-        m, n_in, nb_out, r, b, dtype_code(x.dtype),
+        m, n_in, nb_out, r, b, dtype_code(x.dtype), key=b,
     )
     return y

@@ -91,8 +91,8 @@ from repro_torch.models import transformer as T
 from repro_torch.training.loop import MeshState, make_train_step
 from repro_torch.training.optimizer import OptConfig, init_opt_state
 
-__all__ = ["meta_mesh", "_prep_cfg", "pick_microbatches", "Cell", "build_cell", "count_cell", "count_by_microbatches",
-           "count_by_layers", "run_cell", "main"]
+__all__ = ["meta_mesh", "_prep_cfg", "pick_microbatches", "Cell", "check_cell", "sweep_split", "build_cell", "count_cell",
+           "count_by_microbatches", "count_by_layers", "run_cell", "main"]
 
 
 def meta_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -182,6 +182,37 @@ class Cell:
     build_s: float
 
 
+def check_cell(cfg: ModelConfig, shape: ShapeSpec, st: sharding.Strategy) -> None:
+    """Raise the ``ValueError`` (naming the ROADMAP item) with which the
+    cell's step would refuse ``cfg`` (``_prep_cfg``'s) on ``st``'s mesh,
+    from the specs alone: the tensor-parallel layouts
+    (``transformer.check_tp_layout``) and a decode cache cut along the
+    sequence (``transformer.init_mesh_cache``'s refusal). The sweep's
+    split of ok and refused cells costs no build (``sweep_split``)."""
+    if st.tp_size > 1:
+        T.check_tp_layout(cfg, st, specs_lib.params_specs(cfg))
+    if shape.kind == "decode":
+        T.check_mesh_cache(cfg, st, shape.global_batch, shape.seq_len)
+
+
+def sweep_split(*, sparse: bool = True) -> dict[str, str | None]:
+    """Every cell of ``--all --both-meshes`` (arch, shape, mesh) with the
+    words it is refused with, or None where it counts (``check_cell``)."""
+    out = {}
+    for arch in registry.ARCH_NAMES:
+        for shape in registry.shapes_for(arch, sparse=sparse):
+            for mp in (False, True):
+                mesh = meta_mesh(multi_pod=mp)
+                st = sharding.Strategy(mesh, registry.DEFAULT_STRATEGY.get(arch, "tp"))
+                key = f"{arch} {shape.name} {'2x16x16' if mp else '16x16'}"
+                try:
+                    check_cell(_prep_cfg(registry.get(arch, sparse=sparse), mesh, st), shape, st)
+                    out[key] = None
+                except ValueError as e:
+                    out[key] = str(e)
+    return out
+
+
 def build_cell(
     cfg: ModelConfig,
     shape: ShapeSpec,
@@ -203,7 +234,7 @@ def build_cell(
     anything."""
     st = sharding.Strategy(mesh, strategy)
     cfg = _prep_cfg(cfg, mesh, st)
-    sharding.check_tp(cfg, st.tp_size)
+    check_cell(cfg, shape, st)
     t0 = time.perf_counter()
     state = MeshState(cfg, mesh, strategy, specs_lib.params_specs(cfg) if params is None else params, copy=False)
     dev = state.devices[0]
@@ -298,22 +329,40 @@ def count_by_microbatches(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *, mic
     return _extended(two, three, k - 2, memory="last")
 
 
+def _repeated_group(cfg: ModelConfig) -> int | None:
+    """The layers ahead of a model's last layer group, when that group is
+    the one that grows with the depth (the MoE family's routed layers after
+    its leading dense ones, a one-group model's only group); None when the
+    depth changes anything else (the hybrid's cycles)."""
+    groups = cfg.layer_groups()
+    head = sum(g.count for g in groups[:-1])
+    last = groups[-1]
+    for j in (2, 3):
+        cut = cfg.replace(num_layers=head + j).layer_groups()
+        if cut[:-1] != groups[:-1] or (cut[-1].kind, cut[-1].shared) != (last.kind, last.shared) or last.shared:
+            return None
+    return head
+
+
 def count_by_layers(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, **kw) -> dict:
-    """``count_by_microbatches`` of the model cut to two layers and to
-    three, extended to ``cfg.num_layers``: the layers of a one-group model
-    run the same program, so every count is the two-layer count plus
-    ``num_layers - 2`` times what the third layer adds (the JAX walker
-    multiplies a scanned layer's body by its trip count the same way). The
-    memory is extended the same way, which holds while the same phase of
-    the step has the peak at every depth: from two layers on, not from one
-    (a one-layer prefill of musicgen-large peaks elsewhere), and the tests
-    hold it equal to a count of every layer. A model of several layer
-    groups, or of three layers or fewer, is counted whole."""
+    """``count_by_microbatches`` of the model cut to two layers of its last
+    layer group and to three (the groups ahead of it whole), extended to
+    ``cfg.num_layers``: the layers of one group run the same program, so
+    every count is the two-layer count plus ``num_layers - head - 2`` times
+    what the third layer adds (the JAX walker multiplies a scanned layer's
+    body by its trip count the same way). The memory is extended the same
+    way, which holds while the same phase of the step has the peak at every
+    depth: from two layers on, not from one (a one-layer prefill of
+    musicgen-large peaks elsewhere), and the tests hold it equal to a count
+    of every layer. A model whose depth changes more than its last group
+    (``_repeated_group``), or with no more than three layers in that group,
+    is counted whole."""
     n = cfg.num_layers
-    if len(cfg.layer_groups()) != 1 or n <= 3:
+    head = _repeated_group(cfg)
+    if head is None or n - head <= 3:
         return count_by_microbatches(cfg, shape, mesh, **kw)
-    two, three = (count_by_microbatches(cfg.replace(num_layers=j), shape, mesh, **kw) for j in (2, 3))
-    return _extended(two, three, n - 2, memory="linear")
+    two, three = (count_by_microbatches(cfg.replace(num_layers=head + j), shape, mesh, **kw) for j in (2, 3))
+    return _extended(two, three, n - head - 2, memory="linear")
 
 
 def run_cell(

@@ -803,24 +803,72 @@ def apply_mlp(mlp: Mlp, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_hidden(mlp: Mlp, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU's hidden activation ``silu(wg x) * wu x`` (a shard's slice of
-    it on a tensor-parallel shard)."""
-    gate = mlp.wg(x)
-    up = mlp.wu(x)
-    return F.silu(gate.float()).to(x.dtype) * up
+    """SwiGLU's hidden activation ``silu(wg x) * wu x``."""
+    return _swiglu(mlp.wg(x), mlp.wu(x), x.dtype)
 
 
-def tp_project(linears: list[Linear], hs: list[torch.Tensor]) -> list[torch.Tensor]:
+def _swiglu(gate: torch.Tensor, up: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return F.silu(gate.float()).to(dtype) * up
+
+
+def tp_linear(linears: list[Linear], xs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Each shard's linear on its input. A column-sliced pixelfly shard
+    (``Linear.cols``) takes the whole ``V``: the shards' rows of it, as the
+    JAX rules place them (contiguous), are all-gathered first; the
+    gather's backward is the reduce-scatter of their gradients."""
+    if linears[0].cols is None:
+        return [li(x) for li, x in zip(linears, xs)]
+    vs = collectives.all_gather([li.V for li in linears], dim=0)
+    return [li(x, v) for li, x, v in zip(linears, xs, vs)]
+
+
+def in_feature_order(lin: Linear, ys: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Outputs of ``lin``'s shards gathered in shard order along the last
+    dim, put back in feature order: a column-sliced shard computes the
+    features ``i·b + [c0, c1)`` of every block row i (``pixelfly.
+    column_features``), so the gather holds (tp, nb_out, b/tp) where the
+    features are (nb_out, tp, b/tp). Row-sliced and dense shards gather in
+    feature order already. A tensor two shards share is permuted once."""
+    if lin.cols is None:
+        return ys
+    bc = lin.cols[1] - lin.cols[0]
+    tp, nb = lin.spec.block // bc, lin.spec.out_features // lin.spec.block
+    done: dict[int, torch.Tensor] = {}
+    out = []
+    for y in ys:
+        if id(y) not in done:
+            done[id(y)] = y.reshape(*y.shape[:-1], tp, nb, bc).transpose(-3, -2).reshape(y.shape)
+        out.append(done[id(y)])
+    return out
+
+
+def tp_mlp(mlps: list[Mlp], xs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """SwiGLU on ``tp`` shards: each shard's gate and up slices (row- or
+    column-sliced alike, ``tp_linear``) and its hidden units, then
+    ``tp_project`` of ``down`` from them."""
+    gates = tp_linear([m.wg for m in mlps], xs)
+    ups = tp_linear([m.wu for m in mlps], xs)
+    hidden = [_swiglu(g, u, x.dtype) for g, u, x in zip(gates, ups, xs)]
+    return tp_project([m.wd for m in mlps], hidden, source=mlps[0].wg)
+
+
+def tp_project(linears: list[Linear], hs: list[torch.Tensor], source: Linear | None = None) -> list[torch.Tensor]:
     """The output projection (``o`` or ``down``) of ``tp`` shards, from each
     shard's slice of its input (its heads, its hidden units) to the whole
     output on every shard, as the JAX layouts place it
     (``distributed.sharding``): a pixelfly linear is column-parallel (its
-    block rows of the output), so the inputs are all-gathered first and
-    the output slices after; a dense one is row-parallel (its rows of
-    ``w``), so the partial products are all-reduced."""
+    block rows of the output, or its output columns of every block), so
+    the inputs are all-gathered first and the output slices after, each
+    put back in feature order (``in_feature_order``; ``source``: the linear
+    whose shards made the inputs, ``down``'s ``gate``); a dense one is
+    row-parallel (its rows of ``w``), so the partial products are
+    all-reduced."""
     if linears[0].spec.sparse:
         full = collectives.all_gather(hs, dim=-1)
-        return collectives.all_gather([lin(h) for lin, h in zip(linears, full)], dim=-1)
+        if source is not None:
+            full = in_feature_order(source, full)
+        out = collectives.all_gather(tp_linear(linears, full), dim=-1)
+        return in_feature_order(linears[0], out)
     return collectives.all_reduce([lin(h) for lin, h in zip(linears, hs)])
 
 

@@ -21,6 +21,12 @@ The combine sums each token's k expert outputs in a fixed order (by
 expert id, the order the reference's scatter-add visits them), through
 the inverse of the sort permutation: no atomic scatter, so the CPU and
 the card sum alike.
+
+``apply_moe_tp`` is the expert-parallel form on ``tp`` shards, the JAX
+rules' layout (experts and router columns on the model axis): the router
+logits are all-gathered along E so every shard routes as one device does,
+each shard runs its experts on its capacity rows, and the fp32 partial
+combines are all-reduced (``distributed.collectives``).
 """
 
 from __future__ import annotations
@@ -34,12 +40,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.analysis.roofline import uncounted
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import budget as budget_lib
 from repro_torch.core import butterfly
+from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 
-__all__ = ["MoeSpec", "Routing", "Moe", "capacity", "routing_groups", "route", "apply_moe"]
+__all__ = ["MoeSpec", "Routing", "Moe", "capacity", "routing_groups", "route", "router_logits", "route_logits",
+           "apply_moe", "apply_moe_tp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +78,7 @@ def _layout(density: float, block: int, lowrank_frac: float, din: int, dout: int
 
 
 @functools.lru_cache(maxsize=64)
+@uncounted
 def _cols(density, block, lowrank_frac, din, dout, device: torch.device) -> torch.Tensor:
     pat, _ = _layout(density, block, lowrank_frac, din, dout)
     return torch.as_tensor(pat.cols, dtype=torch.long, device=device)
@@ -158,30 +168,38 @@ def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor) -> Routing:
     """The reference's routing of x (B, S, D): groups, fp32 softmax over
     the router's logits, top-k with gates renormalised, the Switch-style
     load-balance loss, and the capacity cut of the sort-based dispatch."""
+    return route_logits(cfg, router_logits(cfg, router, x))
+
+
+def router_logits(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) in its routing groups (g, t, D), times the router's
+    columns (all of them, or a shard's) in fp32: (g, t, columns)."""
     b, s, d = x.shape
-    e, k = cfg.moe_num_experts, cfg.moe_top_k
-    tokens = b * s
-    groups = routing_groups(cfg, tokens)
-    t = tokens // groups
-    xf = x.reshape(groups, t, d)
-    logits = torch.matmul(xf.float(), router.float())
+    groups = routing_groups(cfg, b * s)
+    xf = x.reshape(groups, b * s // groups, d)
+    return torch.matmul(xf.float(), router.float())
+
+
+def route_logits(cfg: ModelConfig, logits: torch.Tensor) -> Routing:
+    """``route`` from the (g, t, E) fp32 router logits of every expert."""
+    groups, t, e = logits.shape
+    k = cfg.moe_top_k
+    dev = logits.device
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, k, dim=-1)
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
 
     me = probs.mean(dim=1)  # (g, e)
     fe = idx.reshape(groups, t * k)
-    ce = torch.zeros((groups, e), device=x.device).scatter_add_(
-        1, fe, torch.ones(fe.shape, device=x.device)
-    ) / (t * k)
+    ce = torch.zeros((groups, e), device=dev).scatter_add_(1, fe, torch.ones(fe.shape, device=dev)) / (t * k)
     lb = e * (me * ce).sum(dim=-1).mean()
 
     cap = capacity(cfg, t)
     order = torch.argsort(fe, dim=-1, stable=True)
     se = torch.gather(fe, 1, order)  # sorted expert ids
-    experts = torch.arange(e, device=x.device).expand(groups, e).contiguous()
+    experts = torch.arange(e, device=dev).expand(groups, e).contiguous()
     starts = torch.searchsorted(se, experts)  # (g, e)
-    pos = torch.arange(t * k, device=x.device)[None] - torch.gather(starts, 1, se)
+    pos = torch.arange(t * k, device=dev)[None] - torch.gather(starts, 1, se)
     keep = pos < cap
     slot = torch.where(keep, se * cap + pos, e * cap)
     return Routing(groups, t, cap, idx, gates, order, slot, keep, lb)
@@ -234,6 +252,42 @@ def _expert_ffn(spec: MoeSpec, moe: Moe, x: torch.Tensor) -> torch.Tensor:
     return _expert_matmul(spec, moe.wd, h, f, d)
 
 
+def _dispatch(x: torch.Tensor, r: Routing, slot: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Every token's k copies, permuted into expert order (the sort is a
+    permutation, so neither this gather nor its backward collides), laid
+    into buffer rows ``slot`` (g, tk) of n_rows + 1, the last a trash row
+    for the pairs this buffer does not keep: (g, n_rows, d)."""
+    d = x.shape[-1]
+    g, k = r.groups, r.idx.shape[-1]
+    tk = r.t * k
+    xk = x.reshape(g, r.t, 1, d).expand(g, r.t, k, d).reshape(g, tk, d)
+    xs = torch.gather(xk, 1, r.order[..., None].expand(g, tk, d))
+    buf = x.new_zeros((g, n_rows + 1, d)).scatter(1, slot[..., None].expand(g, tk, d), xs)
+    return buf[:, :n_rows]
+
+
+def _combine(yb: torch.Tensor, r: Routing, slot: torch.Tensor) -> torch.Tensor:
+    """The gated sum of each token's k expert outputs read from buffer
+    rows ``slot`` (the trash row reads zeros): fp32 (g, t, d), each
+    token's choices summed in expert-id order through the inverse of the
+    sort permutation (no atomics)."""
+    g, n_rows, d = yb.shape
+    k = r.idx.shape[-1]
+    tk = r.t * k
+    yflat = torch.cat([yb, yb.new_zeros((g, 1, d))], dim=1)
+    ys = torch.gather(yflat, 1, slot[..., None].expand(g, tk, d))
+    gflat = torch.gather(r.gates.reshape(g, tk), 1, r.order)
+    contrib = ys.float() * gflat[..., None]
+    inv = torch.argsort(r.order, dim=-1)  # back to (token, choice) order
+    contrib = torch.gather(contrib, 1, inv[..., None].expand(g, tk, d)).reshape(g, r.t, k, d)
+    by_expert = torch.argsort(r.idx, dim=-1)  # each token's choices by expert id
+    contrib = torch.gather(contrib, 2, by_expert[..., None].expand(g, r.t, k, d))
+    y = contrib[:, :, 0]
+    for j in range(1, k):
+        y = y + contrib[:, :, j]
+    return y
+
+
 def apply_moe(moe: Moe, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), load-balance loss). The dispatch,
     the expert products and the combine run inside the profiler ranges
@@ -241,32 +295,50 @@ def apply_moe(moe: Moe, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     spec = moe.spec
     cfg = spec.cfg
     b, s, d = x.shape
-    e, k = spec.n_exp, cfg.moe_top_k
     with torch.profiler.record_function("moe_dispatch"):
         r = route(cfg, moe.router, x)
-        g, tk, cap = r.groups, r.t * k, r.cap
-        # every token's k copies, permuted into expert order: the sort is a
-        # permutation, so neither this gather nor its backward collides
-        xk = x.reshape(g, r.t, 1, d).expand(g, r.t, k, d).reshape(g, tk, d)
-        xs = torch.gather(xk, 1, r.order[..., None].expand(g, tk, d))
-        rows = r.slot[..., None].expand(g, tk, d)
-        buf = x.new_zeros((g, e * cap + 1, d)).scatter(1, rows, xs)
-        buf = buf[:, : e * cap].reshape(g, e, cap, d)
+        n_rows = spec.n_exp * r.cap
+        buf = _dispatch(x, r, r.slot, n_rows).reshape(r.groups, spec.n_exp, r.cap, d)
     with torch.profiler.record_function("moe_experts"):
         yb = _expert_ffn(spec, moe, buf)
     with torch.profiler.record_function("moe_combine"):
-        yflat = torch.cat([yb.reshape(g, e * cap, d), yb.new_zeros((g, 1, d))], dim=1)
-        ys = torch.gather(yflat, 1, rows)  # dropped pairs read the zero row
-        gflat = torch.gather(r.gates.reshape(g, tk), 1, r.order)
-        contrib = ys.float() * gflat[..., None]
-        inv = torch.argsort(r.order, dim=-1)  # back to (token, choice) order
-        contrib = torch.gather(contrib, 1, inv[..., None].expand(g, tk, d)).reshape(g, r.t, k, d)
-        by_expert = torch.argsort(r.idx, dim=-1)  # each token's choices by expert id
-        contrib = torch.gather(contrib, 2, by_expert[..., None].expand(g, r.t, k, d))
-        y = contrib[:, :, 0]
-        for j in range(1, k):
-            y = y + contrib[:, :, j]
-        y = y.to(x.dtype).reshape(b, s, d)
+        y = _combine(yb.reshape(r.groups, n_rows, d), r, r.slot).to(x.dtype).reshape(b, s, d)
     if cfg.moe_num_shared:
         y = y + L.apply_mlp(moe.shared, x)
     return y, r.lb_loss
+
+
+def apply_moe_tp(moes: list[Moe], xs: list[torch.Tensor]) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """``apply_moe`` on ``tp`` expert-parallel shards, the JAX rules'
+    layout: shard j holds the router's columns and the weights of experts
+    [j·E/tp, (j+1)·E/tp) (``moes[j]``) and ``xs[j]`` is the (replicated)
+    input on its device. Each shard takes its router columns' logits in
+    fp32; they are all-gathered along E, so every shard routes every token
+    as one device does (the global E in ``capacity``, the global stable
+    sort: the same pairs are dropped). Each shard dispatches only into its
+    experts' capacity rows, runs its experts, and combines its pairs (the
+    others read zeros) in fp32; the partial combines are all-reduced, cast,
+    and added to the shared experts' output (``layers.tp_mlp``). Returns
+    each shard's y and the load-balance loss, taken once (shard 0's)."""
+    spec = moes[0].spec
+    cfg = spec.cfg
+    b, s, d = xs[0].shape
+    el = moes[0].router.shape[1]  # experts a shard
+    with torch.profiler.record_function("moe_dispatch"):
+        logits = C.all_gather([router_logits(cfg, m.router, x) for m, x in zip(moes, xs)], dim=-1)
+        routes = [route_logits(cfg, lg) for lg in logits]
+        slots, bufs = [], []
+        for j, (x, r) in enumerate(zip(xs, routes)):
+            n_rows = el * r.cap
+            local = r.slot - j * n_rows
+            slot = torch.where((local >= 0) & (local < n_rows), local, n_rows)
+            slots.append(slot)
+            bufs.append(_dispatch(x, r, slot, n_rows).reshape(r.groups, el, r.cap, d))
+    with torch.profiler.record_function("moe_experts"):
+        ybs = [_expert_ffn(spec, m, buf) for m, buf in zip(moes, bufs)]
+    with torch.profiler.record_function("moe_combine"):
+        parts = [_combine(yb.reshape(r.groups, el * r.cap, d), r, slot) for yb, r, slot in zip(ybs, routes, slots)]
+        ys = [y.to(x.dtype).reshape(b, s, d) for y, x in zip(C.all_reduce(parts), xs)]
+    if cfg.moe_num_shared:
+        ys = [y + sh for y, sh in zip(ys, L.tp_mlp([m.shared for m in moes], xs))]
+    return ys, routes[0].lb_loss

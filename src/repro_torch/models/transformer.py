@@ -59,9 +59,13 @@ a ``ShardedLM`` (``shard_model``: the state dict cut by
 ``distributed.sharding``, shard r on device r of a ``(1, tp)`` mesh) and
 one list of pools a shard, each with its kv heads (``serving.kv_cache``).
 One process drives every shard, layer by layer: each shard runs its heads
-and its slice of the MLP, and ``layers.tp_project`` and the vocab-sharded
-embedding and logits join them (``distributed.collectives``); the
-residual stream and the norms are replicated. The logits are gathered
+and its slice of the MLP (its block rows of each pixelfly linear, or its
+output columns of every block where tp does not divide the block rows),
+or, in an MoE layer, its experts and router columns (``moe.apply_moe_tp``)
+and its slice of the shared experts; ``layers.tp_project``, the MoE joins
+and the vocab-sharded embedding and logits join them
+(``distributed.collectives``); the residual stream and the norms are
+replicated. The logits are gathered
 onto the first shard's device, where the fused sampler runs once.
 ``forward_train`` takes a ``ShardedLM`` too (``build_shards(...,
 trainable=True)``, the mesh trainer's, ``training.loop``): the same layers
@@ -101,11 +105,13 @@ __all__ = [
     "ShardedLM",
     "shard_model",
     "build_shards",
+    "mark_linear_slices",
     "check_tp_layout",
     "skeleton",
     "assign",
     "init_cache",
     "init_mesh_cache",
+    "check_mesh_cache",
     "prefill",
     "decode_step",
     "init_paged_cache",
@@ -238,35 +244,46 @@ class ShardedLM(nn.Module):
         self.vocab_first = [r * rows for r in range(len(shards))]
 
 
-# the tensors a shard of each kind holds, by the dimension of the full
-# tensor that the JAX rules put on the model axis ("heads" mode, pixelfly
-# and dense linears on their natural axis, a vocab-sharded table); None =
-# replicated. A spec that differs is a layout this port does not have.
+# the dimensions of the full tensor that the JAX rules may put on the model
+# axis for each kind of tensor, in the layouts the shard-local forms
+# compute ("heads" mode; pixelfly and dense linears on their natural axis,
+# an MLP's pixelfly gate or up (dense or shared experts') on its blocks'
+# output columns where tp does not divide its block rows; the MoE experts on their expert
+# axis and the router on its columns; a vocab-sharded table); None =
+# replicated. The first pattern that matches decides; a spec that differs
+# is a layout this port does not have.
 _TP_LAYOUT = (
-    (r"embed\.tok$", 0),
-    (r"head\.w$", 1),
-    (r"\.(blocks|V|b)$", 0),
-    (r"\.(wq|wk|wv|wg|wu)\.w$", 1),
-    (r"\.(wo|wd)\.w$", 0),
-    (r"\.(U|gamma|scale|q_norm|k_norm)$", None),
+    (r"embed\.tok$", {0}),
+    (r"head\.w$", {1}),
+    (r"\.moe\.router$", {1}),
+    (r"\.moe\.w[gud](\.(blocks|U|V|gamma))?$", {0}),
+    (r"\.(wg|wu)\.blocks$", {0, 3}),
+    (r"\.(blocks|V|b)$", {0}),
+    (r"\.(wq|wk|wv|wg|wu)\.w$", {1}),
+    (r"\.(wo|wd)\.w$", {0}),
+    (r"\.(U|gamma|scale|q_norm|k_norm)$", {None}),
 )
 
 
 def check_tp_layout(cfg: ModelConfig, st: sharding.Strategy, shapes: dict) -> dict:
     """Refuse (``ValueError``) any configuration ``sharding.check_tp``
     refuses and any tensor whose tensor-parallel spec is not the layout the
-    shard-local forms compute. ``shapes``: a state dict (or anything with
-    shapes). Returns the specs."""
+    shard-local forms compute (a q, k or v projection cut on its blocks'
+    output columns would split heads: the heads mode takes whole heads; an
+    o or down projection so cut is in no configuration the port runs).
+    ``shapes``: a state dict (or anything with shapes). Returns the
+    specs."""
     tp = st.tp_size
     sharding.check_tp(cfg, tp)
     specs = sharding.param_specs(st, shapes)
     for name, spec in specs.items():
-        want = next((d for pat, d in _TP_LAYOUT if re.search(pat, name)), "none of the port's")
+        want = next((d for pat, d in _TP_LAYOUT if re.search(pat, name)), set())
         got = sharding.model_dim(st, spec)
-        if got != want:
+        if got not in want:
             raise ValueError(
                 f"{cfg.name} at tp={tp}: {name} {tuple(shapes[name].shape)} has spec {spec}, not the "
-                f"layout of the port's tensor-parallel forms; {sharding.REFUSED['attention']}"
+                f"layout of the port's tensor-parallel forms (of the blocks cut on their output columns they "
+                f"take an MLP's gate and up only); ROADMAP Queue 1 item 16"
             )
     return specs
 
@@ -297,18 +314,31 @@ def build_shards(
 ) -> ShardedLM:
     """A ``ShardedLM`` whose shard r takes the tensors ``parts[r]`` (its
     model-axis slices) on ``devices[r]``; its pixelfly linears learn their
-    block rows of the global pattern (``Linear.rows``). ``trainable``: the
-    parameters require grad (the mesh trainer's tensor-parallel forward)."""
+    block rows of the global pattern (``Linear.rows``), or their output
+    columns of every block where the blocks are cut on those
+    (``Linear.cols``). ``trainable``: the parameters require grad (the mesh
+    trainer's tensor-parallel forward)."""
     shards = []
     for r, (part, dev) in enumerate(zip(parts, devices)):
         shard = skeleton(cfg)
         assign(shard, {name: t.to(dev) for name, t in part.items()}, trainable=trainable)
-        for mod in shard.modules():
-            if isinstance(mod, Linear) and mod.spec.sparse:
-                n = mod.blocks.shape[0]
-                mod.rows = (r * n, (r + 1) * n)
+        mark_linear_slices(shard, r)
         shards.append(shard)
     return ShardedLM(cfg, devices, shards)
+
+
+def mark_linear_slices(module: nn.Module, r: int) -> None:
+    """Tell each pixelfly ``Linear`` of ``module``, model shard ``r``'s
+    slices, what it holds: its block rows of the global pattern
+    (``Linear.rows``), or its output columns of every block where the
+    blocks are cut on those (``Linear.cols``)."""
+    for mod in module.modules():
+        if isinstance(mod, Linear) and mod.spec.sparse:
+            n, bc = mod.blocks.shape[0], mod.blocks.shape[-1]
+            if bc < mod.spec.block:
+                mod.cols = (r * bc, (r + 1) * bc)
+            else:
+                mod.rows = (r * n, (r + 1) * n)
 
 
 def shard_model(cfg: ModelConfig, mesh: Mesh, state_dict: dict[str, torch.Tensor]) -> ShardedLM:
@@ -456,13 +486,7 @@ def init_mesh_cache(cfg: ModelConfig, state, batch: int, max_len: int, *, replic
     refuses, by the ``MeshState``. An SSM group's state stays whole in each
     replica where the JAX layout cuts its longest dimension over the data
     axes (ROADMAP Queue 3)."""
-    whole = init_cache(cfg, batch, max_len, device="meta")
-    for g, group, spec in zip(cfg.layer_groups(), whole, sharding.cache_specs(state.st, whole)):
-        if g.kind != "ssm" and sharding.axes_size(state.mesh, spec["k"][2]) > 1:
-            raise ValueError(
-                f"{cfg.name}: a decode cache of {batch} row(s) x {max_len} on mesh {state.mesh.shape} is cut along "
-                f"the sequence ({spec['k']}), which needs sequence-parallel attention; {sharding.REFUSED['attention']}"
-            )
+    check_mesh_cache(cfg, state.st, batch, max_len)
     reps = state.replicas(batch)
     out = []
     for r, ps in reps if replica is None else [reps[replica]]:
@@ -474,6 +498,19 @@ def init_mesh_cache(cfg: ModelConfig, state, batch: int, max_len: int, *, replic
         out.append([[{name: torch.zeros((g.count, *shape), dtype=cfg.torch_dtype, device=state.devices[p])
                       for name in ("k", "v")} for g in cfg.layer_groups()] for p in ps])
     return out
+
+
+def check_mesh_cache(cfg: ModelConfig, st: sharding.Strategy, batch: int, max_len: int) -> None:
+    """Refuse (``ValueError`` naming ROADMAP Queue 1 item 16) a decode cache
+    of ``batch`` rows x ``max_len`` that the JAX decode layout cuts along
+    the sequence on ``st``'s mesh (``init_mesh_cache``)."""
+    whole = init_cache(cfg, batch, max_len, device="meta")
+    for g, spec in zip(cfg.layer_groups(), sharding.cache_specs(st, whole)):
+        if g.kind != "ssm" and sharding.axes_size(st.mesh, spec["k"][2]) > 1:
+            raise ValueError(
+                f"{cfg.name}: a decode cache of {batch} row(s) x {max_len} on mesh {st.mesh.shape} is cut along "
+                f"the sequence ({spec['k']}), which needs sequence-parallel attention; {sharding.REFUSED['attention']}"
+            )
 
 
 def _mesh_runs(cfg: ModelConfig, state, n_rows: int, replica: int | None, run) -> list:
@@ -655,8 +692,9 @@ def _layers_tp(
     pools or contiguous caches when ``caches`` is given, its fresh K/V
     scattered into the pools when ``rows`` is given and appended to
     ``fresh``, one list of the shards' (k, v) a layer, when that is a
-    list), ``tp_project`` of ``o``, every shard's SwiGLU slice,
-    ``tp_project`` of ``down``; then the final norm. Returns each shard's
+    list), ``tp_project`` of ``o``, every shard's SwiGLU slice and
+    ``tp_project`` of ``down`` (``layers.tp_mlp``) or its experts
+    (``moe.apply_moe_tp``); then the final norm. Returns each shard's
     (N, S, d) rows at ``plens - 1`` (the whole rows when ``plens`` is
     None), on its device."""
     devs = model.devices
@@ -666,12 +704,13 @@ def _layers_tp(
         x = L.embed_tokens_tp([sh.embed for sh in model.shards], C.broadcast(tokens.long(), devs), model.vocab_first)
     cos, sin, rows = C.broadcast(cos, devs), C.broadcast(sin, devs), _to_shards(rows, devs)
     kws = [dict(zip(attn_kw, vals)) for vals in zip(*(_to_shards(v, devs) for v in attn_kw.values()))]
+    kinds = [kind for kind, _ in model.shards[0].blocks()]
     layers = [[blk for _, blk in sh.blocks()] for sh in model.shards]
     pools = None if caches is None else [_layer_pools(cfg, c) for c in caches]
     for i in range(len(layers[0])):
         per_layer = [] if fresh is not None else None
-        x = _tp_block(cfg, [ls[i] for ls in layers], x, cos, sin, kws,
-                      None if pools is None else [p[i] for p in pools], rows, per_layer)
+        x, _ = _tp_block(cfg, kinds[i], [ls[i] for ls in layers], x, cos, sin, kws,
+                         None if pools is None else [p[i] for p in pools], rows, per_layer)
         if fresh is not None:
             fresh.append(per_layer)
     out = [L.rmsnorm(sh.final_norm.scale, a, cfg.norm_eps) for sh, a in zip(model.shards, x)]
@@ -681,14 +720,16 @@ def _layers_tp(
 
 
 def _tp_block(
-    cfg: ModelConfig, blks: list[Block], x: list, cos: list, sin: list, kws: list,
+    cfg: ModelConfig, kind: str, blks: list[Block], x: list, cos: list, sin: list, kws: list,
     pools: list | None = None, rows: list | None = None, fresh: list | None = None,
-) -> list[torch.Tensor]:
-    """One dense block on every shard: its heads (``attention_heads`` with
-    its ``kws``, on its ``pools`` with the fresh K/V scattered into them at
-    ``rows`` when given, and appended to ``fresh`` when it is a list),
-    ``tp_project`` of ``o``, its SwiGLU slice, ``tp_project`` of ``down``.
-    Returns each shard's residual stream."""
+) -> tuple[list[torch.Tensor], torch.Tensor | None]:
+    """One ``dense`` or ``moe`` block on every shard: its heads
+    (``attention_heads`` with its ``kws``, on its ``pools`` with the fresh
+    K/V scattered into them at ``rows`` when given, and appended to
+    ``fresh`` when it is a list), ``tp_project`` of ``o``, then its SwiGLU
+    slice (``layers.tp_mlp``) or its experts (``moe.apply_moe_tp``).
+    Returns each shard's residual stream and the block's load-balance loss
+    (None for a dense block)."""
     heads = []
     for r, blk in enumerate(blks):
         h = L.rmsnorm(blk.attn_norm.scale, x[r], cfg.norm_eps)
@@ -701,9 +742,13 @@ def _tp_block(
         heads.append(o)
     y = L.tp_project([blk.attn.wo for blk in blks], heads)
     x = [a + b for a, b in zip(x, y)]
-    hidden = [L.mlp_hidden(blk.mlp, L.rmsnorm(blk.mlp_norm.scale, a, cfg.norm_eps)) for blk, a in zip(blks, x)]
-    y = L.tp_project([blk.mlp.wd for blk in blks], hidden)
-    return [a + b for a, b in zip(x, y)]
+    h = [L.rmsnorm(blk.mlp_norm.scale, a, cfg.norm_eps) for blk, a in zip(blks, x)]
+    lb = None
+    if kind == "moe":
+        y, lb = moe_lib.apply_moe_tp([blk.moe for blk in blks], h)
+    else:
+        y = L.tp_mlp([blk.mlp for blk in blks], h)
+    return [a + b for a, b in zip(x, y)], lb
 
 
 @torch.no_grad()
@@ -884,14 +929,16 @@ def forward_train(
     than 7 + 4 residuals of (B, S, d_model) at full width and does not run
     every layer's forward a third time.
 
-    A ``ShardedLM`` (``build_shards(..., trainable=True)``, the dense family
-    in the heads mode) runs the tensor-parallel forward: the vocab-sharded
-    embedding (or the embeds on every shard), each layer's ``_tp_block``,
-    then a vocab-sharded cross-entropy. Each shard takes its rows' fp32
-    logits over its vocabulary slice, their logsumexp and the gold logit
-    (zero outside its slice); ``logz`` is the log-sum-exp of the shards'
-    values and ``gold`` their sum, taken in rank order on the first shard's
-    device, so no device holds the whole (B, S, V) logits.
+    A ``ShardedLM`` (``build_shards(..., trainable=True)``: attention in the
+    heads mode, the MoE family's experts on the model axis) runs the
+    tensor-parallel forward: the vocab-sharded embedding (or the embeds on
+    every shard), each layer's ``_tp_block`` (the MoE layers' load-balance
+    losses summed, each taken once), then a vocab-sharded cross-entropy. Each
+    shard takes its rows' fp32 logits over its vocabulary slice, their
+    logsumexp and the gold logit (zero outside its slice); ``logz`` is the
+    log-sum-exp of the shards' values and ``gold`` their sum, taken in rank
+    order on the first shard's device, so no device holds the whole (B, S, V)
+    logits.
     """
     if isinstance(model, ShardedLM):
         return _forward_train_tp(cfg, model, batch, count)
@@ -918,8 +965,11 @@ def forward_train(
     return nll + 0.01 * lb, {"nll": nll, "lb_loss": lb}
 
 
-def _tp_train_layer(cfg: ModelConfig, blks: list[Block], x: list, cos: list, sin: list) -> list[torch.Tensor]:
-    return _tp_block(cfg, blks, x, cos, sin, [{"mode": "train"}] * len(blks))
+def _tp_train_layer(
+    cfg: ModelConfig, kind: str, blks: list[Block], x: list, cos: list, sin: list
+) -> tuple[list[torch.Tensor], torch.Tensor]:
+    x, lb = _tp_block(cfg, kind, blks, x, cos, sin, [{"mode": "train"}] * len(blks))
+    return x, torch.zeros((), device=x[0].device) if lb is None else lb
 
 
 def _forward_train_tp(
@@ -937,13 +987,16 @@ def _forward_train_tp(
     b, s = labels.shape
     cos, sin = _angles(cfg, _positions(cfg, batch, b, s, dev))
     cos, sin = C.broadcast(cos, devs), C.broadcast(sin, devs)
+    kinds = [kind for kind, _ in model.shards[0].blocks()]
     layers = [[blk for _, blk in sh.blocks()] for sh in model.shards]
+    lb = torch.zeros((), device=dev)
     for i in range(len(layers[0])):
         blks = [ls[i] for ls in layers]
         if cfg.remat:
-            x = checkpoint(_tp_train_layer, cfg, blks, x, cos, sin, use_reentrant=False)
+            x, lb_i = checkpoint(_tp_train_layer, cfg, kinds[i], blks, x, cos, sin, use_reentrant=False)
         else:
-            x = _tp_train_layer(cfg, blks, x, cos, sin)
+            x, lb_i = _tp_train_layer(cfg, kinds[i], blks, x, cos, sin)
+        lb = lb + lb_i.to(dev)
     logz, gold = [], []
     for sh, h, lab, lo in zip(model.shards, x, C.broadcast(labels, devs), model.vocab_first):
         logits = L.lm_logits(cfg, sh.head, sh.embed, L.rmsnorm(sh.final_norm.scale, h, cfg.norm_eps))
@@ -959,5 +1012,4 @@ def _forward_train_tp(
     mask = (labels >= 0).float()
     denom = mask.sum().clamp(min=1.0) if count is None else torch.as_tensor(count, device=dev)
     nll = ((top + torch.log(total) - g) * mask).sum() / denom
-    lb = torch.zeros((), device=dev)
     return nll + 0.01 * lb, {"nll": nll, "lb_loss": lb}

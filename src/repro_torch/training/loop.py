@@ -320,8 +320,8 @@ def _loss_and_grads(model_cfg: ModelConfig, state: MeshState, batch: dict, acc: 
         if groups % n_reps:
             raise ValueError(
                 f"{cfg.name}: {groups} MoE routing group(s) of the global batch do not split over "
-                f"{n_reps} data replicas, so a replica cannot route its share of them; "
-                f"{sharding.REFUSED['experts']}"
+                f"{n_reps} data replicas, so a replica cannot route its share of them (a routing group "
+                f"is routed whole on one replica; raise moe_routing_groups to a multiple of {n_reps})"
             )
         cfg = cfg.replace(moe_routing_groups=groups // n_reps)
     parts = [_rows(batch, r, state.devices[ps[0]]) for r, ps in reps]

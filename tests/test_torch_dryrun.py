@@ -37,6 +37,7 @@ from repro_torch.bridge import port_names
 from repro_torch.configs import registry
 from repro_torch.configs.base import SHAPES, ShapeSpec
 from repro_torch.core.butterfly import transpose_tables
+from repro_torch.core.pixelfly import Linear
 from repro_torch.distributed import sharding
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import hillclimb
@@ -131,16 +132,18 @@ def lowrank_flops(text):
                                            for l in text.splitlines())).flops
 
 devs = jax.devices()
-for key, (shape, strat, cell) in req["cells"].items():
-    n = shape[0] * shape[1]
-    m = jax.sharding.Mesh(np.array(devs[:n]).reshape(shape), ("data", "model"))
-    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
-    if cell == "train_4k":
-        cfg = cfg.replace(remat=False)
-    c = D.lower_cell(cfg, SHAPES[cell], m, strategy=strat).compile()
-    text = c.as_text()
-    out["cells"][key] = [roofline.analyze_hlo(text).flops, c.memory_analysis().argument_size_in_bytes,
-                         lowrank_flops(text)]
+for group, arch in (("cells", "qwen3-1.7b"), ("moe_cells", "deepseek-moe-16b")):
+    out[group] = {}
+    for key, (shape, strat, cell) in req[group].items():
+        n = shape[0] * shape[1]
+        m = jax.sharding.Mesh(np.array(devs[:n]).reshape(shape), ("data", "model"))
+        cfg = registry.get_smoke(arch, sparse=True)
+        if cell == "train_4k":
+            cfg = cfg.replace(remat=False)
+        c = D.lower_cell(cfg, SHAPES[cell], m, strategy=strat).compile()
+        text = c.as_text()
+        out[group][key] = [roofline.analyze_hlo(text).flops, c.memory_analysis().argument_size_in_bytes,
+                           lowrank_flops(text)]
 
 import jax.numpy as jnp
 from repro.serving import Engine, EngineConfig
@@ -161,6 +164,10 @@ def _cells() -> dict:
             for strat in ("fsdp", "tp") for cell in ("prefill_32k", "decode_32k", "train_4k")}
 
 
+# (iv) smoke deepseek-moe-16b under expert parallelism, one cell a mesh
+MOE_CELLS = {"2x2 tp prefill_32k": [[2, 2], "tp", "prefill_32k"], "1x2 tp decode_32k": [[1, 2], "tp", "decode_32k"]}
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _jax_proc():
     """Start the JAX subprocess when the module's first test runs; the
@@ -170,7 +177,7 @@ def _jax_proc():
     err = tempfile.TemporaryFile(mode="w+")
     proc = subprocess.Popen([sys.executable, "-c", _JAX], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                             stderr=err, text=True, env=env)
-    proc.stdin.write(json.dumps({"cells": _cells(), "engine": ENGINE}))
+    proc.stdin.write(json.dumps({"cells": _cells(), "moe_cells": MOE_CELLS, "engine": ENGINE}))
     proc.stdin.close()
     _JAX_STATE.update(proc=proc, err=err)
     yield
@@ -372,11 +379,11 @@ def test_dryrun_cli_full_width_cell_and_refusals(tmp_path, monkeypatch, capsys):
     assert row["xla_cost_flops_per_device"] is None and row["bottleneck"] in ("compute", "memory", "collective")
     assert row["collective_breakdown"]["all-gather"] > 0 and 0 < row["useful_flops_ratio"] < 1
     # --all over the refused archs: a row each, naming its item; exit 1
-    monkeypatch.setattr(registry, "ARCH_NAMES", ["deepseek-67b", "deepseek-moe-16b", "zamba2-2.7b"])
+    monkeypatch.setattr(registry, "ARCH_NAMES", ["deepseek-67b", "kimi-k2-1t-a32b", "zamba2-2.7b"])
     refused = tmp_path / "refused.json"
     assert D.main(["--all", "--json", str(refused)]) == 1
     rows = json.loads(refused.read_text())
-    items = {"deepseek-67b": "item 16", "deepseek-moe-16b": "item 17", "zamba2-2.7b": "item 18"}
+    items = {"deepseek-67b": "item 16", "kimi-k2-1t-a32b": "item 16", "zamba2-2.7b": "item 18"}
     assert len(rows) == 10 and all(not r["ok"] and items[r["arch"]] in r["error"] for r in rows)
     table = report.render(str(refused))
     assert table.count("FAILED") == 10
@@ -409,6 +416,21 @@ def test_count_by_layers_equals_every_layer(strategy):
     for kind in ("train", "prefill", "decode"):
         full = D.count_cell(cfg, SMALL[kind], meta((2, 2)), strategy=strategy)
         ext = D.count_by_layers(cfg, SMALL[kind], meta((2, 2)), strategy=strategy)
+        assert full["cost"] == ext["cost"], kind
+        for key in ("temp_bytes", "argument_bytes", "output_bytes"):
+            assert full[key] == ext[key], (kind, key)
+
+
+def test_count_by_layers_of_the_moe_family_equals_every_layer():
+    """A model of two layer groups whose last one repeats (smoke
+    deepseek-moe-16b: its dense layer, then MoE layers, extended to 6) is
+    counted from its dense layer and two and three MoE layers under tp on
+    (2, 2): the count of every layer, memory included."""
+    cfg = registry.get_smoke("deepseek-moe-16b", sparse=True).replace(num_layers=6)
+    assert D._repeated_group(cfg) == 1 and D._repeated_group(registry.get_smoke("zamba2-2.7b")) is None
+    for kind in ("train", "prefill", "decode"):
+        full = D.count_cell(cfg, SMALL[kind], meta((2, 2)), strategy="tp")
+        ext = D.count_by_layers(cfg, SMALL[kind], meta((2, 2)), strategy="tp")
         assert full["cost"] == ext["cost"], kind
         for key in ("temp_bytes", "argument_bytes", "output_bytes"):
             assert full[key] == ext[key], (kind, key)
@@ -573,13 +595,15 @@ def _linears(cfg) -> list[tuple[int, int]]:
 
 def _lowrank_flops(cfg, tokens: int, kind: str) -> float:
     """The port's FLOPs of one position's low-rank input products ``x @
-    U``: U (n_in x rank) of every pixelfly linear is replicated over the
-    model axis, and each shard computes the whole product (``o``'s and
+    U``: U (n_in x rank) of every pixelfly linear of the model (attention,
+    MLP, the MoE family's shared experts) is replicated over the model
+    axis, and each shard computes the whole product (``o``'s and
     ``down``'s inputs are all-gathered first). Training has three uses:
-    x @ U and its two gradients."""
-    rank = L.linear_spec(cfg, cfg.d_model, cfg.q_dim, False).rank
+    x @ U and its two gradients. The routed experts' low-rank products
+    are cut by expert on both sides, and are not among them."""
     uses = 3 if kind == "train" else 1
-    return 2.0 * tokens * rank * sum(din for din, _ in _linears(cfg)) * uses * cfg.num_layers
+    lins = [m.spec for m in T.skeleton(cfg).modules() if isinstance(m, Linear) and m.spec.sparse]
+    return 2.0 * tokens * uses * sum(spec.in_features * spec.rank for spec in lins)
 
 
 def _padded_dx(cfg, tokens: int, tp: int) -> float:
@@ -659,6 +683,24 @@ def test_counted_flops_equal_jax_walker_up_to_named_terms(key):
     assert c["argument_bytes"] == jargs
     if cell == "decode_32k" and strategy == "fsdp":
         assert not terms  # the decode step counts exactly what JAX's does
+
+
+@pytest.mark.parametrize("key", list(MOE_CELLS))
+def test_moe_counted_flops_equal_jax_walker_up_to_named_terms(key):
+    """Smoke deepseek-moe-16b under tp: the router's columns, the routed
+    experts (their BSR, low-rank and router products cut by expert, as
+    GSPMD cuts them) and the shared experts count what the walker counts,
+    up to (iv)'s inference terms: the attention's masked pairs and the
+    low-rank ``x @ U`` that GSPMD splits and every port shard computes
+    whole. The argument bytes equal XLA's."""
+    m, strategy, cell = key.split()
+    cfg = registry.get_smoke("deepseek-moe-16b", sparse=True)
+    c = D.count_by_microbatches(cfg, SHAPES[cell], meta(MESHES[m]), strategy=strategy)
+    jflops, jargs, jlowrank = jax_side()["moe_cells"][key]
+    terms = _named_terms(cfg, MESHES[m], strategy, cell, jlowrank)
+    assert c["cost"].flops + sum(terms.values()) == jflops, terms
+    assert terms["split_lowrank"] < 0 and c["argument_bytes"] == jargs
+    assert c["cost"].collective_bytes["all-gather"] > 0 and c["cost"].collective_bytes["all-reduce"] > 0
 
 
 # ----------------------------------------------------------------------

@@ -7,7 +7,9 @@ copy-on-write page copy and the swap round trip through pinned memory,
 the partial-prefill attention (1e-5 fp32, 2e-2 bf16), and the engine's
 observability on the card (a valid trace, streams equal with tracing on
 and off, the allocator's bytes in use, no kernel-library build or load
-after warm-up), and the fixed-batch ``Server`` against the engine. bf16 takes the tensor-core paths
+after warm-up), the fixed-batch ``Server`` against the engine, and expert
+parallelism (the column-sliced ``bsr_matmul`` views, the MoE tp engine
+against tp 1). bf16 takes the tensor-core paths
 (and, for bsr at M <= 16, the cluster-reduced decode kernel), float32 the
 SIMT kernels; tolerances: bsr 2e-2 bf16 / 1e-4 fp32, attention 2e-2 /
 2e-4, paged decode 1e-2 / 1e-5.
@@ -1222,3 +1224,91 @@ def test_sharded_prefill_decode_tp2_on_card_equals_cpu(cuda):
         k.launches = 0
     assert greedy(cuda) == want
     assert all(k.launches > 0 for k in kernels)
+
+
+@pytest.mark.parametrize("linear,tp", [("dense gate/up", 2), ("dense gate/up", 4), ("dense gate/up", 8),
+                                       ("shared gate/up", 4), ("shared gate/up", 8)])
+@pytest.mark.parametrize("m", [8, 300])
+def test_bsr_matmul_column_sliced_view(cuda, linear, tp, m):
+    """Full-width deepseek-moe-16b's linears whose block rows tp does not
+    divide, as a column-sliced shard holds them: rank r's output columns
+    [r b/tp, (r+1) b/tp) of every block, (nb_out, r, b, b/tp), run as the
+    (nb_out, r tp, b/tp, b/tp) view over the input's b/tp sub-blocks
+    (``pixelfly.linear_tables``), bf16, against the plain version on the
+    same view (2e-2) and against the shard's columns of the whole linear's
+    plain product (the view is the column slice). Each launch is counted
+    at the view's block in ``KERNEL.launches_by``."""
+    from repro_torch.core.pixelfly import linear_tables
+    from repro_torch.kernels.bsr_matmul import KERNEL
+
+    full = registry.get("deepseek-moe-16b", sparse=True)
+    f = {"dense gate/up": full.moe_dense_ff, "shared gate/up": full.moe_num_shared * full.moe_d_ff}[linear]
+    spec = linear_spec(full, full.d_model, f, False)
+    pat = spec.pattern()
+    b = pat.block
+    bc = b // tp
+    assert pat.nb_out % tp and bc in (8, 16, 32, 64)  # column-sliced, on a block the kernel takes
+    rng = np.random.default_rng(tp * 10 + m)
+    x = _t(rng.standard_normal((m, full.d_model)), torch.bfloat16, cuda)
+    whole = _t(rng.standard_normal((pat.nb_out, pat.r, b, b)) / np.sqrt(pat.r * b), torch.bfloat16, cuda)
+    cols = linear_tables(spec, cuda, None, (0, bc)).cols
+    full_y = ref.bsr_matmul_gather(x, whole, torch.as_tensor(pat.cols, device=cuda)).float()
+    launches, at_bc = KERNEL.launches, KERNEL.launches_by[bc]
+    for r in range(tp):
+        view = whole[..., r * bc:(r + 1) * bc].contiguous().reshape(pat.nb_out, pat.r * tp, bc, bc)
+        y = bsr_matmul_cuda(x, view, cols)
+        assert y.shape == (m, pat.nb_out * bc)
+        torch.testing.assert_close(y.float(), ref.bsr_matmul_gather(x, view, cols).float(), rtol=2e-2, atol=2e-2)
+        feats = (torch.arange(pat.nb_out, device=cuda)[:, None] * b + torch.arange(r * bc, (r + 1) * bc, device=cuda))
+        torch.testing.assert_close(y.float(), full_y[:, feats.reshape(-1)], rtol=2e-2, atol=2e-2)
+    assert KERNEL.launches - launches == KERNEL.launches_by[bc] - at_bc == tp
+
+
+def test_bsr_matmul_column_view_below_the_kernel_blocks_raises(cuda):
+    """At tp 16 the b = 64 dense layer's view has blocks of 4, which the
+    kernel does not take: the card raises (only the dry-run's meta count
+    reaches that shape), it does not fall back to the plain version."""
+    from repro_torch.core.pixelfly import linear_tables
+
+    full = registry.get("deepseek-moe-16b", sparse=True)
+    spec = linear_spec(full, full.d_model, full.moe_dense_ff, False)
+    pat = spec.pattern()
+    view = torch.zeros((pat.nb_out, pat.r * 16, 4, 4), dtype=torch.bfloat16, device=cuda)
+    x = torch.zeros((8, full.d_model), dtype=torch.bfloat16, device=cuda)
+    from repro_torch.kernels import ops
+
+    with pytest.raises(ValueError, match="takes the blocks"):
+        ops.bsr_matmul(x, view, linear_tables(spec, cuda, None, (0, 4)).cols)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_moe_tp_engine_on_card_equals_tp1(cuda, tp):
+    """Smoke deepseek-moe-16b with a 3-block-row dense layer (fp32) at tp 2
+    and 4 on the card: greedy streams equal the tp 1 engine's, the three
+    kernels launch, and the dense layer's gate is column-sliced, its view
+    launching at b / tp."""
+    from repro_torch.kernels import bsr_attention, bsr_matmul, paged_attention
+    from repro_torch.launch.mesh import make_tp_mesh
+
+    cfg = registry.get_smoke("deepseek-moe-16b", sparse=True).replace(moe_dense_ff=192)
+    ecfg = EngineConfig(max_slots=4, max_len=256)
+    one = Engine(cfg, engine_cfg=ecfg, device=cuda)
+    eng = Engine(cfg, engine_cfg=ecfg, params=one.model.state_dict(), mesh=make_tp_mesh(tp, [cuda] * tp))
+    assert eng.model.shards[0].layers[0].mlp.wg.cols == (0, 64 // tp)
+    rng = np.random.default_rng(7)
+    work = [rng.integers(1, 500, int(n)).astype(np.int32) for n in (9, 70, 130, 30)]
+
+    def serve_all(e):
+        for p in work:
+            e.submit(p, 10)
+        return [f.tokens.tolist() for f in sorted(e.drain(max_steps=200), key=lambda f: f.uid)]
+
+    want = serve_all(one)
+    kernels = (bsr_matmul.KERNEL, paged_attention.KERNEL, bsr_attention.KERNEL)
+    for k in kernels:
+        k.launches = 0
+        k.launches_by.clear()
+    assert serve_all(eng) == want
+    assert all(k.launches > 0 for k in kernels)
+    by_block = bsr_matmul.KERNEL.launches_by
+    assert sum(by_block.values()) == bsr_matmul.KERNEL.launches and by_block[64 // tp] > 0

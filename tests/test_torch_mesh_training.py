@@ -267,17 +267,20 @@ def test_families_under_fsdp_equal_one_device(arch, over):
 
 def test_refusals_name_their_roadmap_items():
     """One routing group does not split over two replicas: the MoE family
-    refuses fsdp (2, 1) naming item 17. Under tp the MoE and SSM families
-    refuse (items 17 and 18), and so do kv heads tp does not divide (16)."""
+    refuses fsdp (2, 1) saying so. Under tp the SSM and hybrid families
+    refuse (item 18), and so do kv heads tp does not divide (item 16:
+    kimi-k2 at tp 16, whose experts would shard)."""
     moe = registry.get_smoke("deepseek-moe-16b", sparse=True).replace(num_layers=2)
     sd = T.init_model(moe, seed=0, device="cpu").state_dict()
-    with pytest.raises(ValueError, match="item 17"):
+    with pytest.raises(ValueError, match="routing group"):
         _one_step(moe, sd, _mesh((2, 1)))
-    with pytest.raises(ValueError, match="item 17"):
-        MeshState(moe, _mesh((1, 2)), "tp", sd)
-    ssm = registry.get_smoke("mamba2-130m", sparse=True).replace(num_layers=2)
-    with pytest.raises(ValueError, match="item 18"):
-        MeshState(ssm, _mesh((1, 2)), "tp", T.init_model(ssm, seed=0, device="cpu").state_dict())
+    kimi = registry.get_smoke("kimi-k2-1t-a32b", sparse=True).replace(num_layers=2)
+    with pytest.raises(ValueError, match="item 16"):
+        MeshState(kimi, Mesh(("data", "model"), (1, 16), ["meta"] * 16), "tp", T.skeleton(kimi).state_dict())
+    for arch in ("mamba2-130m", "zamba2-2.7b"):
+        ssm = registry.get_smoke(arch, sparse=True)
+        with pytest.raises(ValueError, match="item 18"):
+            MeshState(ssm, _mesh((1, 2)), "tp", T.skeleton(ssm).state_dict())
     cfg = _small()
     with pytest.raises(ValueError, match="item 16"):
         MeshState(cfg, _mesh((1, 4)), "tp", T.init_model(cfg, seed=0, device="cpu").state_dict())

@@ -170,10 +170,13 @@ def test_refusals_name_their_roadmap_items():
     odd = cfg.replace(num_heads=2, num_kv_heads=2, head_dim=96)
     with pytest.raises(ValueError, match="item 16"):
         tp_engine(odd, 2)
-    with pytest.raises(ValueError, match="item 17"):
-        tp_engine(registry.get_smoke("deepseek-moe-16b", sparse=True), 2)
-    with pytest.raises(ValueError, match="item 18"):
-        tp_engine(registry.get_smoke("mamba2-130m", sparse=True), 2)
+    # the MoE family's experts shard (expert parallelism); kimi-k2's kv
+    # heads at tp 16 still need the sequence-parallel mode
+    with pytest.raises(ValueError, match="item 16"):
+        tp_engine(registry.get_smoke("kimi-k2-1t-a32b", sparse=True), 16)
+    for arch in ("mamba2-130m", "zamba2-2.7b"):
+        with pytest.raises(ValueError, match="item 18"):
+            tp_engine(registry.get_smoke(arch, sparse=True), 2)
     # positions off the model axis: serving does not shard by data
     with pytest.raises(ValueError, match="item 20"):
         Engine(cfg, engine_cfg=ecfg, mesh=make_local_mesh(model=2, devices=["cpu"] * 4))
