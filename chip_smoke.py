@@ -74,13 +74,14 @@ Phases; any failure raises and the script exits non-zero:
    plain version at qwen3-1.7b's training shape. (b) fp32 sparse smoke
    models of both: equal greedy streams on the CPU and the card, and one
    qwen2-1.5b train step held as in 7b. (c) Each at full width, sparse,
-   at cut depth (``DEPTH_CUTS``: 16 of 32 and 14 of 28 layers):
+   at cut depth (``DEPTH_CUTS``: 4 of 32 and 14 of 28 layers):
    ``Engine(max_slots=8, max_len=2048)`` serves 8 requests of 200-1000
    prompt tokens, 32 new each, then a ``Trainer`` takes 1 warm-up and 2
    timed steps at B = 4, S = 2048, the kernels' counts set to 0 just
    before each and read just after. (d) ``repro_torch.bench.lm_speedup``:
    dense against pixelfly training for qwen3-1.7b (B = 4) and smollm-360m
-   (B = 8) at S = 2048: step times, speedup, parameter ratio, each arm's
+   (B = 8) at S = 2048, published widths, 14 of 28 and 16 of 32 layers
+   (``SPEEDUP_DEPTHS``): step times, speedup, parameter ratio, each arm's
    device busy share and top device kernels.
 9. The serve CLI and observability. (a) ``repro_torch.launch.serve.main``
    serves full-width sparse qwen3-1.7b: 24 requests of 512 tokens (a
@@ -94,10 +95,11 @@ Phases; any failure raises and the script exits non-zero:
    span per decode step and prefill call, the snapshot agrees with
    ``stats_summary()``, the allocator's bytes in use cover the parameters
    and the KV pool, every kernel launched. (b) ``--legacy-server``: at
-   smoke width its grid equals the engine's; at full width (8 x 128, 16
+   smoke width its grid equals the engine's; at full width (8 x 32, 16
    new) ``bsr_matmul`` launches and the share of tokens equal to the
    engine's is reported. (c) What observability costs: a bare and a
-   fully observed full-width engine on one state dict serve the same 8
+   fully observed engine (published widths, 14 of the 28 layers,
+   ``DEPTH_CUTS``) on one state dict serve the same 8
    greedy requests in turns off, on, on, off (decode-step p50, host us a
    ``_observe_step``, tracer ns an event, host_sync's share of a decode
    step from the trace). (d) A ``workloads.poisson_burst`` replay through
@@ -126,12 +128,12 @@ Phases; any failure raises and the script exits non-zero:
    equal greedy streams on the CPU and the card, ``forward_train`` on
    embeddings and distinct position streams (loss and gradients), and one
    train step. (c), (d) Each at full width, sparse, as in phase 8c (at
-   cut depth: 7 of 28 and 12 of 48 layers), the
+   cut depth: 2 of 28 and 3 of 48 layers), the
    Trainer on ``EmbedsWrapper`` batches (B = 4; B = 2 only if B = 4 runs
    out of memory or peaks above 72 GB), and one more step traced on the
    device (busy share). (e) ``repro_torch.bench.serve_engine`` at full
-   width, two repeats (three until phase 17 joined; the bench lists the cut
-   under ``config.reduced``). (f) ``repro_torch.examples.serve_lm`` on the card.
+   width, one repeat (three until phase 17 joined, two until phase 18 did;
+   the bench lists the cut under ``config.reduced``). (f) ``repro_torch.examples.serve_lm`` on the card.
    The kernels' counts are set to 0 just before each of (c)-(f) and read
    just after.
 12. The MoE, SSM and hybrid families. (a) The three kernels at the new
@@ -159,8 +161,8 @@ Phases; any failure raises and the script exits non-zero:
    training, bsr_matmul in mamba2's. kimi-k2 (344 GB sparse) does not
    fit the card: the CPU tests cover it. The three run at the depth of
    ``DEPTH_CUTS``, published widths.
-13. The analysis instruments, the router and the tools, on full-width
-   sparse qwen3-1.7b. (a) ``Engine(max_slots=8, max_len=2048)`` admits 8
+13. The analysis instruments, the router and the tools, on sparse
+   qwen3-1.7b at published widths, 14 of its 28 layers (``DEPTH_CUTS``). (a) ``Engine(max_slots=8, max_len=2048)`` admits 8
    greedy requests; its next 16 decode steps run inside
    ``DispatchGuard(max_compiles=0)``: 0 kernel-library builds, 0
    implicit syncs, one explicit fetch a step; then a step with an
@@ -175,8 +177,9 @@ Phases; any failure raises and the script exits non-zero:
    ``repro_torch.examples.train_lm`` for 4 steps, and ``python -m
    repro_torch.bench.run --only roofline``. The kernels' counts are set to
    0 just before each of (a), (c), (d) and (e) and read just after.
-14. Tensor-parallel serving of full-width sparse qwen3-1.7b (bf16,
-   random weights from --seed) on (1, tp) meshes of the card (every shard
+14. Tensor-parallel serving of sparse qwen3-1.7b at published widths
+   (bf16, random weights from --seed; (a) and (c) at 14 of its 28 layers,
+   ``DEPTH_CUTS``) on (1, tp) meshes of the card (every shard
    on the one card: this measures what sharding costs, not a speedup).
    (a) Engines at tp 1, 2 and 4 (``TP_DEGREES``; ``max_slots=8,
    max_len=2048``, one state dict shared): the first prefill's and the
@@ -195,14 +198,15 @@ Phases; any failure raises and the script exits non-zero:
    H = 8 / 4, Hk = 4 / 2. (c) ``ReplicaRouter(replicas=2, tp=2)`` (4
    shards on the card) serves 16 greedy requests: streams equal to one
    tp 2 engine's bit for bit. (d) ``repro_torch.bench.serve_mesh`` at
-   full width on (a)'s weights, at tp 1 and 2 (its oracle and the
-   smallest split; tp 8 is cut for the time budget) with its 2-replica
-   router: its rows
-   beside the card's name and power limit; then the serve CLI with ``--tp 2
+   full width at tp 1 and 2 (its oracle and the smallest split; tp 8 is
+   cut for the time budget) with its 2-replica router, as 11e ran it (its
+   mesh scenario; since phase 18 not run twice): its rows beside the
+   card's name and power limit; then the serve CLI with ``--tp 2
    --strategy tp``. The kernels' counts are set to 0 just before each of
    (a), (c) and (d) and read just after: all three launch.
 15. Training on a mesh (one card, every position on it): (a) full-width
-   sparse qwen3-1.7b through ``Trainer(mesh=...)`` at B = 4, S = 2048, bf16,
+   sparse qwen3-1.7b, 14 of its 28 layers (``DEPTH_CUTS``), through
+   ``Trainer(mesh=...)`` at B = 4, S = 2048, bf16,
    1 warm-up and 2 timed steps on the (1, 1) reference, fsdp (2, 1), tp
    (1, 2) and tp (2, 2) from one state dict: step ms, tokens/s, peak memory,
    positions and distinct devices; each step's loss and grad norm and the
@@ -228,8 +232,9 @@ Phases; any failure raises and the script exits non-zero:
    cells refused (``DRYRUN_SPLIT``, from each cell's refusal checks):
    per-device bytes, argument bytes, the three roofline terms, the
    collective bytes by class, the bottleneck and the useful ratio (counts
-   at the data-sheet peaks, not times). (b) Full-width sparse
-   qwen3-1.7b on the (1, 1) mesh, B = 4, S = 2048, one step: its meta count
+   at the data-sheet peaks, not times). (b) Sparse qwen3-1.7b at
+   published widths, 14 of its 28 layers (``DEPTH_CUTS``, as (c)), on the
+   (1, 1) mesh, B = 4, S = 2048, one step: its meta count
    and ``roofline.count`` of the same step on the card give equal FLOPs
    and bytes, and the meta prediction (argument + temp bytes) is within
    ``DRYRUN_MEM_TOL`` of ``torch.cuda.max_memory_allocated()`` over the
@@ -260,10 +265,35 @@ Phases; any failure raises and the script exits non-zero:
    within ``MESH_TOL`` of (1, 1). (c) smoke kimi-k2 at
    tp 2: streams equal to tp 1's. The kernels' counts are set to 0 just
    before each run and read just after.
-18. The kernels line (with each kernel's launches in phases 5 to 17, a
+18. Serving where tp does not divide the kv heads (the sequence-parallel
+   mode): qwen2-1.5b sparse at published widths (d 1536, 12 / 2 heads,
+   D 128, block 128, bf16), ``DEPTH_CUTS`` depth. (d) first: the three
+   kernel entries of the mode against their plain versions, timed as in
+   phase 3: ``block_sparse_attention`` on each tp 4 shard's query slice of
+   a 1024-token prefill (every slice equal bit for bit to the whole call's
+   rows; SDPA on the slice beside it), the head_dim decode read's partial
+   scores and apply kernels on 8 slots' pools cut into 32 (a gathered
+   ``torch.matmul`` beside them; the shards' joined outputs against
+   ``ref.paged_decode_attention_gather``), and the same at smoke
+   qwen3-1.7b's tp 8 shapes (fp32, slices of 8). (a) Engines at tp 1 and
+   4 (``SEQ_DEGREES``; pools ``(..., 2, 32)`` a shard): the first logits
+   within ``TP_LOGIT_TOL`` of tp 1's, two planted faults (``SEQ_FAULTS``:
+   a shard's partial scores dropped from the all-reduce, the query slices
+   shifted by one block) above it; 12 greedy requests of 200-1024 prompt
+   tokens (buckets of 256 and 384 among them: a quarter is not a whole
+   block), 16 new each, held to tp 1's streams (a divergence only at a tp
+   1 top-2 gap under ``EP_GAP_TOL``), decode p50 and tok/s; then in fp32
+   on the same weights equal to tp 1's token for token, and at tp 4 on
+   one slot a preemption with swap and a prefix hit leaving the streams
+   tp 1's. (b) ``repro_torch.bench.serve_mesh --smoke`` on the card at tp
+   1, 2, 4 and 8 (``SEQ_BENCH``): every tp served, streams equal. The
+   kernels' counts are set to 0 just before each run and read just after:
+   at tp 4 the two head_dim kernels launch in place of the paged read.
+19. The kernels line (with each kernel's launches in phases 5 to 18, a
    row for the b = 32 tensor-core path at ViT-B/16's shapes, one for
-   attention at head dim 80 and one for the column-sliced views), the
-   script's wall time, then the last line
+   attention at head dim 80, one for the column-sliced views and one for
+   each kernel entry of phase 18), the script's wall time, then the last
+   line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -297,7 +327,13 @@ RANGES = ("sampler", "prefix_flash_attention", "train_forward", "train_backward"
           "moe_dispatch", "moe_experts", "moe_combine", "ssd_scan")
 
 
+# (seconds since the start, the line's first 60 characters) of every
+# logged line: where the script's time goes, in the JSON report
+TIMELINE: list[tuple[float, str]] = []
+
+
 def log(*a):
+    TIMELINE.append((round(time.perf_counter() - T_START, 1), str(a[0])[:60] if a else ""))
     print(*a, flush=True)
 
 
@@ -1460,12 +1496,15 @@ def family_smoke(seed):
 
 
 # The layers kept of each family path's published depth (32, 28, 28, 48
-# in 8c, 11c and 11d; 28, 54, 24 in 12c and 12d): the widths stay
-# published, the depth is cut to keep the whole script inside its time
-# budget, 12c/d's the most (the kernels run at these models' shapes in 8a,
-# 11a and 12a whatever the depth).
-DEPTH_CUTS = {"smollm-360m": 16, "qwen2-1.5b": 14, "qwen2-vl-7b": 7, "musicgen-large": 12,
-              "deepseek-moe-16b": 4, "zamba2-2.7b": 6, "mamba2-130m": 6}
+# in 8c, 11c and 11d; 28, 54, 24 in 12c and 12d; qwen2-1.5b's also in
+# 18; qwen3-1.7b's 28 in 9c, 9d, 13, 14a, 14c, 15a, 16b and 16c): the
+# widths stay published, the depth is cut to keep the whole script inside
+# its time budget, 12c/d's the most (the kernels run at these models'
+# shapes in 8a, 11a and 12a whatever the depth). When phase 18 joined, smollm-360m,
+# qwen2-vl-7b and musicgen-large went from 16, 7, 12 to 4, 2, 3, and
+# qwen3-1.7b's phases above from 28 to 14.
+DEPTH_CUTS = {"smollm-360m": 4, "qwen2-1.5b": 14, "qwen2-vl-7b": 2, "musicgen-large": 3,
+              "deepseek-moe-16b": 4, "zamba2-2.7b": 6, "mamba2-130m": 6, "qwen3-1.7b": 14}
 
 
 def family_full_width(arch, seed, smi, kernels, tag="8c", traced=False):
@@ -1638,22 +1677,30 @@ def trainer_steps(full, seed, smi, kernels, tag, traced=False, must_launch=("bsr
     return training
 
 
+# 8d's depth of each arch, half its published 28 and 32 layers (for the
+# script's time budget): both arms alike
+SPEEDUP_DEPTHS = {"qwen3-1.7b": 14, "smollm-360m": 16}
+
+
 def dense_vs_pixelfly(seed):
     """(d) ``repro_torch.bench.lm_speedup`` for qwen3-1.7b at B = 4 and
-    smollm-360m at B = 8, S = 2048: the dense model and its pixelfly twin,
-    2 warm-up, 3 timed and 1 device-traced step each."""
+    smollm-360m at B = 8, S = 2048, published widths at the depths of
+    ``SPEEDUP_DEPTHS``: the dense model and its pixelfly twin, 2 warm-up,
+    2 timed (3 until phase 18 joined) and 1 device-traced step each."""
     from repro_torch.bench import lm_speedup
 
     out = {}
     for arch, b in (("qwen3-1.7b", 4), ("smollm-360m", 8)):
-        res = lm_speedup.compare(arch, batch=b, seq=2048, steps=3, seed=seed, device="cuda")
+        res = lm_speedup.compare(arch, batch=b, seq=2048, steps=2, seed=seed, device="cuda",
+                                 num_layers=SPEEDUP_DEPTHS[arch])
         out[arch] = res
         for arm in ("dense", "sparse"):
             a = res[arm]
             tr = a["device_trace"]
             busy = ("the profiler recorded no device time: busy share not measured" if tr["device_busy_ms"] is None
                     else f"device busy {tr['device_busy_ms']:.1f} ms, idle share {tr['device_idle_share']:.3f}")
-            log(f"[8d] {arch} {arm}, B={b} S=2048: {a['parameters'] / 1e6:.1f} M parameters, step "
+            log(f"[8d] {arch} {arm}, {res['num_layers']} layers, B={b} S=2048: {a['parameters'] / 1e6:.1f} M "
+                f"parameters, step "
                 f"{', '.join(f'{x:.1f}' for x in a['step_ms'])} ms (median {a['step_ms_median']:.1f} ms, "
                 f"{a['train_tok_s']:.0f} train tokens/s), loss (last 5) {a['loss_last5_mean']:.4f}, peak memory "
                 f"{a['max_memory_allocated_gb']:.2f} GB; traced step {tr['window_ms']:.1f} ms, {busy}")
@@ -1820,7 +1867,8 @@ def serve_cli_full_width(full, kernels, smi):
 
 def legacy_server(kernels, smi):
     """(b) ``--legacy-server``: at smoke width (fp32) its grid equals the
-    engine's on the card; at full width (8 x prompt 128 x 16 new) it runs
+    engine's on the card; at full width (8 x prompt 32 x 16 new: the
+    Server feeds a prompt through its decode step, one token a step) it runs
     ``bsr_matmul``, and the share of tokens equal to the engine's is
     reported (bf16 argmax ties may part)."""
     from repro_torch.launch import serve
@@ -1831,7 +1879,7 @@ def legacy_server(kernels, smi):
     legacy_grid = np.stack(serve.main(smoke + ["--legacy-server"]).tokens)
     if not np.array_equal(eng_grid, legacy_grid):
         raise AssertionError(f"smoke legacy grid differs from the engine's:\n{legacy_grid}\n{eng_grid}")
-    full = CLI_FULL + ["--batch", "8", "--prompt-len", "128", "--gen", "16"]
+    full = CLI_FULL + ["--batch", "8", "--prompt-len", "32", "--gen", "16"]
     zero_launches(kernels)
     legacy = serve.main(full + ["--legacy-server"])
     launches = {name: k.launches for name, k in kernels.items()}
@@ -2266,17 +2314,18 @@ def vlm_audio_smoke(seed):
 
 def serve_bench_full_width(kernels, smi):
     """(e) ``repro_torch.bench.serve_engine`` at full width on the card,
-    two repeats (its own cuts are listed under ``config.reduced``; a third
-    is cut for the script's time budget): the overhead floors take the
-    upper of two paired ratios; its stream
-    assertions must pass. The kernels'
+    one repeat (its own cuts are listed under ``config.reduced``; the
+    second and third repeats are cut for the script's time budget): the
+    overhead floors read the one paired ratio; its stream assertions must
+    pass. Its mesh scenario is ``bench.serve_mesh`` at full width, tp 1
+    and 2 and the router: phase 14d reads it from here. The kernels'
     counts are set to 0 just before and read just after: all three must
     launch."""
     from repro_torch.bench import serve_engine
 
     zero_launches(kernels)
     t0 = time.perf_counter()
-    res = serve_engine.run(device="cuda", repeats=2, out=str(ROOT / "build" / "bench_serve_torch.json"))
+    res = serve_engine.run(device="cuda", repeats=1, out=str(ROOT / "build" / "bench_serve_torch.json"))
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     for name, n in launches.items():
@@ -3147,29 +3196,24 @@ def tp_router(full, sd, eng, seed, smi, kernels):
     return out
 
 
-def tp_bench(sd, smi, kernels):
-    """(d) ``repro_torch.bench.serve_mesh`` at full width on the card, on
-    (a)'s weights, at ``TP_BENCH``: tp 1 (its oracle) and tp 2, and its
-    2-replica router, streams asserted equal; its
-    payload line goes to the report, its rows to the log beside the card. Then the serve CLI at full width with
+def tp_bench(mesh, smi, kernels):
+    """(d) ``repro_torch.bench.serve_mesh`` at full width on the card at
+    ``TP_BENCH``: tp 1 (its oracle) and tp 2, and its 2-replica router,
+    streams asserted equal, read from 11e's payload (``mesh``: the serving
+    bench runs ``serve_mesh.run`` at full width, tp 1 and 2, as its mesh
+    scenario; running it again here cost the time phase 18 needed); its
+    rows to the log beside the card. Then the serve CLI at full width with
     ``--tp 2 --strategy tp``: 8 requests of 512 tokens, 16 new each. The
-    kernels' counts are set to 0 just before each and read just after:
-    all three must launch."""
+    kernels' counts are set to 0 just before it and read just after: all
+    three must launch."""
     import contextlib
     import io
 
-    from repro_torch.bench import serve_mesh
     from repro_torch.launch import serve
 
-    zero_launches(kernels)
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):  # its payload line is not this script's
-        res = serve_mesh.run(device="cuda", params=sd, tps=TP_BENCH)
-    wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"14d: kernel {name} was never launched by bench.serve_mesh")
+    res = mesh
+    launches = {name: 0 for name in kernels}
     if not res["streams_equal"] or set(res["by_tp"]) != {str(t) for t in TP_BENCH}:
         raise AssertionError(f"14d: bench.serve_mesh streams_equal {res['streams_equal']}, tps {sorted(res['by_tp'])}")
     for tp, row in res["by_tp"].items():
@@ -3177,7 +3221,7 @@ def tp_bench(sd, smi, kernels):
             f"decode {row['decode_tok_s']} tok/s, wall {row['wall_tok_s']:.2f} tok/s ({row['wall_s']:.3f} s), "
             f"p95 token {row['p95_token_latency_ms']} ms, paged {row['paged_impl']}")
     log(f"[14d] serve_mesh router replicas=2: {res['router']['wall_tok_s']:.2f} tok/s, streams equal "
-        f"{res['router']['streams_equal']}; {wall:.1f} s in all; launches {launches}")
+        f"{res['router']['streams_equal']} (11e's mesh scenario; its launches are 11e's)")
     zero_launches(kernels)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -3193,7 +3237,7 @@ def tp_bench(sd, smi, kernels):
     log(f"[14d] serve --tp 2 --strategy tp at full width: {lines[0]}; {lines[1]}; launches {cli_launches}")
     for name in launches:
         launches[name] += cli_launches[name]
-    return {"wall_s": wall, "launches": launches, "result": res, "cli": lines[:2], "card": smi}
+    return {"wall_s": time.perf_counter() - t0, "launches": launches, "result": res, "cli": lines[:2], "card": smi}
 
 
 # ----------------------------------------------------------------------
@@ -3340,9 +3384,10 @@ def mesh_run(full, sd, data, opt, strategy, shape, device, kernels, *, ref=None,
 
 
 def mesh_training(full, seed, smi, kernels, device="cuda"):
-    """(a) Full-width sparse qwen3-1.7b (bf16, seed 0) through ``Trainer`` on
-    the meshes of ``MESH_TRAIN``, every position the card, at B = 4, S =
-    2048: 1 warm-up and 2 timed steps each, from one state dict. Each mesh
+    """(a) Full-width sparse qwen3-1.7b (bf16, seed 0) at the depth of
+    ``DEPTH_CUTS`` through ``Trainer`` on the meshes of ``MESH_TRAIN``,
+    every position the card, at B = 4, S = 2048: 1 warm-up and 2 timed
+    steps each, from one state dict. Each mesh
     against (1, 1): its losses, grad norms and first-step gradient by
     parameter kind within ``MESH_TOL``, its parameters after each step
     beside (1, 1)'s update (printed, not held: bf16 rounding and AdamW's
@@ -3356,9 +3401,11 @@ def mesh_training(full, seed, smi, kernels, device="cuda"):
     from repro_torch.training.data import SyntheticLM
     from repro_torch.training.optimizer import OptConfig
 
+    full = full.replace(num_layers=min(full.num_layers, DEPTH_CUTS.get(full.name, full.num_layers)))
     t0 = time.perf_counter()
     sd = T.init_model(full, seed=seed, device=device).state_dict()
-    log(f"[15a] full-width qwen3-1.7b sparse weights in {time.perf_counter() - t0:.1f} s (shared by every mesh)")
+    log(f"[15a] full-width qwen3-1.7b sparse, {full.num_layers} layers (DEPTH_CUTS), weights in "
+        f"{time.perf_counter() - t0:.1f} s (shared by every mesh)")
     data = SyntheticLM(full.vocab_size, 2048, 4, seed=seed)
     opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=100)
     runs, ref = {}, None
@@ -3476,7 +3523,7 @@ DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"), ("qwe
                 ("deepseek-moe-16b", "decode_32k"))
 DRYRUN_REFUSED = ("kimi-k2-1t-a32b", "train_4k", "item 16")
 # the sweep's cells (``--all --both-meshes``): those that count, those refused
-DRYRUN_SPLIT = (38, 28)
+DRYRUN_SPLIT = (50, 16)
 DRYRUN_MEM_TOL = 0.10  # |predicted / max_memory_allocated - 1|
 SHARDED_MESHES = (("fsdp", (1, 1)), ("tp", (1, 2)), ("fsdp", (2, 1)))
 SHARDED_FP32_TOL = 1e-4
@@ -3689,10 +3736,11 @@ def engine_rooflines(full, seed, smi):
     return {"tp1": one, "tp2": two, "card": smi}
 
 
-def dryrun_phase(full, seed, smi, kernels, rows=None):
+def dryrun_phase(full, cut, seed, smi, kernels, rows=None):
     """Phase 16: (a) (``rows``: the helper process's future, else run here),
-    then (c), (b) and (d) on the card with the kernels' counts set to 0
-    just before and read just after."""
+    then (c) and (b) on ``cut`` (14 of the 28 layers) and (d) on ``full``
+    on the card, with the kernels' counts set to 0 just before and read
+    just after."""
     from repro_torch.configs import registry
     from repro_torch.models import transformer as T
 
@@ -3700,8 +3748,8 @@ def dryrun_phase(full, seed, smi, kernels, rows=None):
     out = {"dryrun": check_dryrun_rows(dryrun_rows() if rows is None else rows.result(timeout=600), smi)}
     log(f"[16a] rows ready after {time.perf_counter() - t0:.1f} s more in phase 16")
     zero_launches(kernels)
-    out["engine_roofline"] = engine_rooflines(full, seed, smi)
-    out["card_count"] = dryrun_on_card(full, seed, smi)
+    out["engine_roofline"] = engine_rooflines(cut, seed, smi)
+    out["card_count"] = dryrun_on_card(cut, seed, smi)
     smoke = registry.get_smoke("qwen3-1.7b", sparse=True)
     out["sharded_smoke"] = sharded_contiguous(
         smoke, T.init_model(smoke, seed=seed, device="cuda").state_dict(), seed, smi, SHARDED_FP32_TOL, "16d")
@@ -4088,6 +4136,446 @@ def expert_parallel_phase(timer, seed, smi, kernels):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 18: serving where tp does not divide the kv heads
+# ----------------------------------------------------------------------
+
+# the tensor-parallel degrees of 18a's engines (tp 1 the oracle): qwen2-1.5b
+# has 2 kv heads, so tp 4 serves in the sequence-parallel mode (query rows
+# over the shards in prefill, pools and caches on head_dim)
+SEQ_DEGREES = (1, 4)
+# the faults 18a plants at tp 4; each must read above TP_LOGIT_TOL
+SEQ_FAULTS = ("partial scores dropped", "query slice shifted")
+# bench.serve_mesh's tp values at smoke width (2 kv heads: 4 and 8 in the
+# sequence-parallel mode)
+SEQ_BENCH = (1, 2, 4, 8)
+
+
+def seq_config():
+    """qwen2-1.5b sparse at published widths (d 1536, 12 / 2 heads, D 128,
+    block 128, bf16), ``DEPTH_CUTS`` depth."""
+    from repro_torch.configs import registry
+
+    return registry.get("qwen2-1.5b", sparse=True).replace(num_layers=DEPTH_CUTS["qwen2-1.5b"])
+
+
+@contextlib.contextmanager
+def planted_seq_fault(tp, kind):
+    """A fault of the sequence-parallel mode at ``tp`` for the length of the
+    block. "partial scores dropped": shard 1's partial decode scores are
+    zeros when they join the all-reduce (every layer). "query slice
+    shifted": every shard after the first attends its query rows as the
+    block before them (schedule rows and causal positions one block
+    early)."""
+    from repro_torch.models import layers as L
+
+    if kind == "partial scores dropped":
+        owner, name = L.ops, "paged_decode_scores"
+        orig, calls = L.ops.paged_decode_scores, [0]
+
+        def fault(*a, **kw):
+            out = orig(*a, **kw)
+            calls[0] += 1
+            return torch.zeros_like(out) if calls[0] % tp == 2 % tp else out
+    elif kind == "query slice shifted":
+        owner, name = L, "sparse_prefill_attention"
+        orig = L.sparse_prefill_attention
+
+        def fault(cfg, q, k, v, *, sm_scale, q_block0=0):
+            return orig(cfg, q, k, v, sm_scale=sm_scale, q_block0=max(q_block0 - 1, 0))
+    else:
+        raise ValueError(kind)
+    setattr(owner, name, fault)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def seq_launches_wanted(tp):
+    """The kernels a request run at ``tp`` must launch: at tp 1 the three of
+    the heads mode; in the sequence-parallel mode the decode read is the
+    two head_dim kernels."""
+    return ("bsr_matmul", "block_sparse_attention") + (
+        ("paged_decode_attention",) if tp == 1 else ("paged_decode_scores", "paged_decode_apply"))
+
+
+def seq_requests(eng, work, kernels, tag, gen=16):
+    """``eng`` (warmed up first) serves the greedy ``work``, ``gen`` new
+    tokens each, every kernel's counts set to 0 just before and read just
+    after (``seq_launches_wanted``)."""
+    tp = eng.mesh.size if eng.mesh else 1
+    eng.submit(np.arange(1, 301, dtype=np.int32), 4)  # warm-up
+    eng.drain(max_steps=50)
+    eng.reset_stats()
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    for p in work:
+        eng.submit(p, gen)
+    fins = eng.drain(max_steps=400)
+    torch.cuda.synchronize()
+    row = {"tp": tp, "wall_s": time.perf_counter() - t0}
+    if len(fins) != len(work) or any(f.finish_reason != "length" or len(f.tokens) != gen for f in fins):
+        raise AssertionError(f"{tag}: tp {tp}: {[(f.finish_reason, len(f.tokens)) for f in fins]}")
+    row["greedy"] = [f.tokens.tolist() for f in sorted(fins, key=lambda f: f.uid)]
+    row["launches"] = {name: k.launches for name, k in kernels.items()}
+    for name in seq_launches_wanted(tp):
+        if row["launches"][name] <= 0:
+            raise AssertionError(f"{tag}: kernel {name} was never launched at tp {tp}")
+    return row
+
+
+def seq_serving(full, seed, smi, kernels):
+    """(a) Engines at tp 1 and 4 on one state dict (``max_slots=8,
+    max_len=2048``): the first prefill's and decode step's logits of 4
+    fixed prompts (1024 to 200 tokens) within ``TP_LOGIT_TOL`` of tp 1's,
+    and at tp 4 under each of ``SEQ_FAULTS``, which must read above it;
+    then 12 greedy requests of 200-1024 prompt tokens (the first two of
+    200 and 300: buckets of 256 and 384, whose quarter is not a whole
+    block), 16 new each, each stream held to tp 1's (a divergence only at
+    a tp 1 top-2 gap under ``EP_GAP_TOL``), decode p50 and tok/s; then the
+    same requests in ``EP_EXACT_DTYPE`` on the same weights at tp 1 and 4,
+    equal token for token, and at tp 4 on one slot a preemption with swap
+    and a prefix hit, whose streams must equal tp 1's too."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.request import ScheduleParams
+
+    t0 = time.perf_counter()
+    sd = T.init_model(full, seed=seed, device="cuda").state_dict()
+    log(f"[18a] qwen2-1.5b sparse, published widths, {full.num_layers} layers: weights in "
+        f"{time.perf_counter() - t0:.1f} s (shared by every tp)")
+    rng = np.random.default_rng(seed + 180)
+    lens = [200, 300] + [int(n) for n in rng.integers(200, 1025, 10)]
+    work = [rng.integers(0, full.vocab_size, n).astype(np.int32) for n in lens]
+    fixed = torch.as_tensor(rng.integers(0, full.vocab_size, (4, 1024)), dtype=torch.int32, device="cuda")
+    fixed_lens = torch.tensor([1024, 700, 300, 200], dtype=torch.int32, device="cuda")
+    out, engines, ref = {}, {}, None
+    for tp in SEQ_DEGREES:
+        t0 = time.perf_counter()
+        eng = Engine(full, engine_cfg=EngineConfig(max_slots=8, max_len=2048), params=sd, mesh=make_tp_mesh(tp))
+        engines[tp] = eng
+        build_s = time.perf_counter() - t0
+        pools = [tuple(shard[0]["k"].shape[-2:]) for shard in eng.kv.buffers] if tp > 1 else []
+        lp, ld = first_logits(full, eng, fixed, fixed_lens)
+        if lp.shape != (4, full.padded_vocab) or not (torch.isfinite(lp).all() and torch.isfinite(ld).all()):
+            raise AssertionError(f"18a: tp {tp} logits not finite or of the wrong shape")
+        if ref is None:
+            ref = (lp, ld)
+        err = {"prefill": (lp - ref[0]).abs().max().item(), "decode": (ld - ref[1]).abs().max().item()}
+        if max(err.values()) > TP_LOGIT_TOL:
+            raise AssertionError(f"18a: tp {tp} logits off tp 1's by {err} (tol {TP_LOGIT_TOL})")
+        faults = {}
+        for kind in SEQ_FAULTS if tp > 1 else ():
+            with planted_seq_fault(tp, kind):
+                fp, fd = first_logits(full, eng, fixed, fixed_lens)
+            faults[kind] = {"prefill": (fp - ref[0]).abs().max().item(), "decode": (fd - ref[1]).abs().max().item()}
+            log(f"[18a] tp {tp} with a planted {kind} fault: logits vs tp 1 prefill {faults[kind]['prefill']:.4g} "
+                f"decode {faults[kind]['decode']:.4g} (tol {TP_LOGIT_TOL})")
+            if max(faults[kind].values()) <= TP_LOGIT_TOL:
+                raise AssertionError(f"18a: a planted {kind} fault reads {faults[kind]}, within {TP_LOGIT_TOL}")
+        row = seq_requests(eng, work, kernels, "18a")
+        st = engine_stats(eng)
+        steps = sorted(st["decode_step_s"])
+        row.update(mesh_positions=eng.mesh.size if eng.mesh else 1, distinct_devices=eng.distinct_devices,
+                   build_s=build_s, pools_per_shard=pools, logit_max_abs_err=err, planted_faults=faults,
+                   decode_steps=st["decode_steps"], decode_tok_s=st["decode_tokens"] / sum(steps),
+                   decode_step_ms_p50=1e3 * steps[len(steps) // 2], card=smi)
+        row["divergences"] = []
+        for i in range(len(work)) if tp != 1 else ():
+            a, b = out[1]["greedy"][i], row["greedy"][i]
+            if a == b:
+                continue
+            j = next(j for j in range(len(a)) if a[j] != b[j])
+            gap = decision_gap(full, engines[1].model, work[i], a[:j], None, j)
+            row["divergences"].append({"request": i, "step": j, "tp1": a[j], "tp": b[j], "top2_gap": gap})
+            log(f"[18a] tp {tp} request {i} diverges from tp 1 at token {j} ({a[j]} vs {b[j]}): tp 1's top-2 "
+                f"gap there {gap:.4f} (accepted under {EP_GAP_TOL})")
+        wide = [d for d in row["divergences"] if d["top2_gap"] >= EP_GAP_TOL]
+        if wide:
+            raise AssertionError(f"18a: tp {tp} streams leave tp 1's at a top-2 gap of {EP_GAP_TOL} or more: {wide}")
+        out[tp] = row
+        log(f"[18a] tp {tp} ({row['mesh_positions']} shard(s) on {eng.distinct_devices} device(s), pools a shard "
+            f"(..., Hk, D) {pools or 'whole'}; {smi}): logits vs tp 1 prefill {err['prefill']:.4g} decode "
+            f"{err['decode']:.4g} (tol {TP_LOGIT_TOL}); 12 greedy requests in {row['wall_s']:.2f} s, decode "
+            f"{row['decode_tok_s']:.1f} tok/s, step p50 {row['decode_step_ms_p50']:.2f} ms; "
+            f"{len(row['divergences'])} divergence(s) from tp 1; launches {row['launches']}")
+    exact = {k: v.to(getattr(torch, EP_EXACT_DTYPE)) if v.is_floating_point() else v for k, v in sd.items()}
+    del engines, sd
+    gc_collect()
+    report = {str(tp): {k: v for k, v in r.items() if k != "greedy"} for tp, r in out.items()}
+    report.update(seq_exact_streams(full, exact, work, smi, kernels))
+    del exact
+    gc_collect()
+    return report
+
+
+def seq_exact_streams(full, sd, work, smi, kernels):
+    """(a) in ``EP_EXACT_DTYPE`` (``sd``): engines at tp 1 and 4 serve
+    ``work``; tp 4's streams must equal tp 1's token for token. Then a tp
+    4 engine with one slot: request 0 at priority 0, request 1 at priority
+    5 two steps later (it preempts request 0, whose pages' head_dim slices
+    swap out of every shard and back), then request 0's prompt again (a
+    prefix hit on its pages); all three streams must equal tp 1's."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.request import ScheduleParams
+
+    cfg = full.replace(dtype=EP_EXACT_DTYPE)
+    out, ref = {}, None
+    for tp in SEQ_DEGREES:
+        eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=8, max_len=2048), params=sd, mesh=make_tp_mesh(tp))
+        row = seq_requests(eng, work, kernels, f"18a {EP_EXACT_DTYPE}")
+        del eng
+        ref = row["greedy"] if ref is None else ref
+        diff = [(i, next(j for j in range(16) if a[j] != b[j])) for i, (a, b) in enumerate(zip(ref, row["greedy"]))
+                if a != b]
+        log(f"[18a] {EP_EXACT_DTYPE} tp {tp} ({smi}): {len(work)} greedy requests in {row['wall_s']:.2f} s, "
+            f"streams equal to tp 1's: {not diff}; launches {row['launches']}")
+        if diff:
+            raise AssertionError(f"18a: {EP_EXACT_DTYPE} tp {tp} streams leave tp 1's at (request, token) {diff}")
+        out[f"{EP_EXACT_DTYPE} {tp}"] = {k: v for k, v in row.items() if k != "greedy"} | {"streams_equal": True}
+    tp = SEQ_DEGREES[-1]
+    eng = Engine(cfg, engine_cfg=EngineConfig(max_slots=1, max_len=2048, preempt_min_steps=1, prefix_cache=True),
+                 params=sd, mesh=make_tp_mesh(tp))
+    zero_launches(kernels)
+    eng.submit(work[0], 16, schedule=ScheduleParams(priority=0))
+    fins = eng.step()
+    eng.step()
+    eng.submit(work[1], 16, schedule=ScheduleParams(priority=5))
+    fins += eng.drain(max_steps=200)
+    eng.submit(work[0], 16)
+    fins += eng.drain(max_steps=200)
+    got = [f.tokens.tolist() for f in sorted(fins, key=lambda f: f.uid)]
+    st = engine_stats(eng)
+    row = {"preemptions": st["preemptions"], "resumes": st["resumes"], "prefix_hit_tokens": st["prefix_hit_tokens"],
+           "launches": {name: k.launches for name, k in kernels.items()}}
+    log(f"[18a] {EP_EXACT_DTYPE} tp {tp}, one slot: {row['preemptions']} preemption(s), {row['resumes']} resume(s), "
+        f"{row['prefix_hit_tokens']} prefix-hit tokens; streams equal to tp 1's: {got == [ref[0], ref[1], ref[0]]}")
+    if row["preemptions"] < 1 or row["prefix_hit_tokens"] <= 0:
+        raise AssertionError(f"18a: no preemption or no prefix hit at tp {tp}: {row}")
+    if got != [ref[0], ref[1], ref[0]]:
+        raise AssertionError(f"18a: a preemption or a prefix hit at tp {tp} changed the streams")
+    out[f"{EP_EXACT_DTYPE} {tp} preemption and prefix hit"] = row | {"streams_equal": True}
+    return out
+
+
+def seq_attention_row(timer, *, b, s, h, hk, d, block, tp, dtype, tol, seed):
+    """``block_sparse_attention`` on each of ``tp`` shards' query slices
+    (``layers.query_slices``) against the whole K/V: every slice against
+    the plain version and against the same rows of the whole call (equal
+    bit for bit), the last (most keys) timed beside its bound, the plain
+    version and SDPA on the slice (the pixelfly mask's rows expanded, K/V
+    repeated)."""
+    from repro_torch.core import attn_pattern as ap
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bsr_attention import block_sparse_attention_cuda
+    from repro_torch.kernels.ops import block_sparse_attention_cost
+    from repro_torch.models import layers as L
+
+    mask = ap.pixelfly_attention_block_mask(
+        s, s, ap.AttentionPatternConfig(block=block, local_blocks=2, global_blocks=1), causal=True)
+    sched = ap.block_schedule(mask, block, block)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(dtype)
+    kv_index = torch.as_tensor(sched.kv_index, device="cuda")
+    valid = torch.as_tensor(sched.valid, device="cuda")
+    g = h // hk
+    kw = dict(block=block, causal=True, sm_scale=d ** -0.5)
+    whole = block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw)
+    err = 0.0
+    for a0, a1 in L.query_slices(s, tp, block):
+        qs = q[:, a0:a1].contiguous()
+        got = block_sparse_attention_cuda(qs, k, v, kv_index, valid, q_block0=a0 // block, **kw)
+        want = ref.sparse_attention(qs.reshape(b, a1 - a0, hk, g, d), k, v, kv_index, valid,
+                                    q_block0=a0 // block, **kw)
+        err = max(err, check_close(f"block_sparse_attention slice [{a0}, {a1}) of S={s} {dtype}", got,
+                                   want.reshape(got.shape), tol))
+        if not torch.equal(got, whole[:, a0:a1]):
+            raise AssertionError(f"18d: the slice [{a0}, {a1}) differs from the whole call's rows")
+    a0, a1 = L.query_slices(s, tp, block)[-1]
+    qs = q[:, a0:a1].contiguous()
+    flops, nbytes = block_sparse_attention_cost(qs.reshape(b, a1 - a0, hk, g, d), k, v, kv_index, valid,
+                                                q_block0=a0 // block, **kw)
+    b_ms, b_by = bound_ms(nbytes, flops, str(dtype).split(".")[1])
+    dense = torch.as_tensor(ref.block_mask_to_dense(mask, block, block, s, s, True), device="cuda")[a0:a1]
+    qt = qs.transpose(1, 2)
+    kt = k.repeat_interleave(g, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return {
+        "shape": f"B={b} S={s} H={h} Hk={hk} D={d} block={block} tp={tp}, query slice [{a0}, {a1})",
+        "dtype": str(dtype).split(".")[1],
+        "max_abs_err": err,
+        "tol": tol,
+        "ms": timer.ms(lambda: block_sparse_attention_cuda(qs, k, v, kv_index, valid, q_block0=a0 // block, **kw)),
+        "plain_ms": timer.ms(lambda: ref.sparse_attention(qs.reshape(b, a1 - a0, hk, g, d), k, v, kv_index, valid,
+                                                          q_block0=a0 // block, **kw)),
+        "library_ms": timer.ms(lambda: sdpa(qt, kt, vt, attn_mask=dense, scale=d ** -0.5)),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
+def seq_decode_rows(timer, *, b, hk, g, d, page, pps, tp, dtype, tol, seed):
+    """The decode read on pools cut along head_dim at ``tp``: every shard's
+    partial scores against the plain version, the apply kernel on the
+    scores summed in rank order against its plain version, the joined
+    outputs against ``ref.paged_decode_attention_gather`` of the whole
+    pools (ragged positions, an idle slot, a poisoned trash page, the
+    sparse schedule); rank 0's two kernels timed beside their bounds, the
+    plain versions and a gathered ``torch.matmul`` formulation."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import paged_decode_apply_cost, paged_decode_scores_cost
+    from repro_torch.kernels.paged_partial import paged_decode_apply_cuda, paged_decode_scores_cuda
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(seed)
+    n_pages = b * pps + 1
+    k = torch.randn((n_pages, page, hk, d), generator=gen)
+    v = torch.randn((n_pages, page, hk, d), generator=gen)
+    k[0], v[0] = 1e4, -1e4
+    table = torch.randperm(n_pages - 1, generator=gen)[: b * pps].reshape(b, pps).to(torch.int32) + 1
+    pos = torch.randint(0, pps * page, (b,), generator=gen, dtype=torch.int32)
+    table[1], pos[1] = 0, 0
+    table[2, 3:] = 0
+    pos[2] = 3 * page - 5
+    q = torch.randn((b, hk, g, d), generator=gen)
+    q, k, v = (t.to("cuda", dtype) for t in (q, k, v))
+    table, pos = table.to("cuda"), pos.to("cuda")
+    logical, phys, keep = L.paged_sparse_schedule(table, pos, page, local_blocks=2, global_blocks=1)
+    sched = (phys, logical, keep, pos)
+    dc, scale = d // tp, d ** -0.5
+    qs = [q[..., r * dc:(r + 1) * dc].contiguous() for r in range(tp)]
+    ks = [k[..., r * dc:(r + 1) * dc].contiguous() for r in range(tp)]
+    vs = [v[..., r * dc:(r + 1) * dc].contiguous() for r in range(tp)]
+    parts, err_scores = [], 0.0
+    for r in range(tp):
+        got = paged_decode_scores_cuda(qs[r], ks[r], *sched)
+        want = ref.paged_decode_scores_gather(qs[r], ks[r], *sched)
+        bound = ref.paged_decode_scores_gather(qs[r].float().abs(), ks[r].float().abs(), *sched)
+        if not ((got - want).abs() <= 1e-5 * bound + 1e-6).all():
+            raise AssertionError(f"18d: partial scores of rank {r} off the plain version by "
+                                 f"{(got - want).abs().max().item():.3e}")
+        err_scores = max(err_scores, (got - want).abs().max().item())
+        parts.append(got)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    outs, err_apply = [], 0.0
+    for r in range(tp):
+        got = paged_decode_apply_cuda(total, vs[r], *sched, sm_scale=scale)
+        err_apply = max(err_apply, check_close(f"paged_decode_apply rank {r} {dtype}", got,
+                                               ref.paged_decode_apply_gather(total, vs[r], *sched, sm_scale=scale),
+                                               tol))
+        outs.append(got)
+    err = check_close(f"head_dim decode read tp {tp} {dtype}", torch.cat(outs, dim=-1),
+                      ref.paged_decode_attention_gather(q, k, v, *sched, sm_scale=scale), tol)
+    w = phys.shape[1]
+    kg = ks[0][phys.long()].reshape(b, w * page, hk, dc).permute(0, 2, 3, 1)  # (b, hk, dc, w·page)
+    vg = vs[0][phys.long()].reshape(b, w * page, hk, dc).transpose(1, 2)      # (b, hk, w·page, dc)
+    kpos = (logical.long()[:, :, None] * page + torch.arange(page, device="cuda")).reshape(b, -1)
+    ok = ((kpos <= pos.long()[:, None]) & keep.bool().repeat_interleave(page, 1))[:, None, None, :]
+
+    def library_apply():
+        p = torch.softmax((total * scale).masked_fill(~ok, float("-inf")), dim=-1)
+        return torch.matmul(p.to(dtype), vg)
+
+    shape = f"B={b} Hk={hk} G={g} D={d} (slices of {dc} at tp {tp}) page={page} w={w}"
+    rows = {}
+    for name, fn, plain, lib, cost in (
+        ("paged_decode_scores", lambda: paged_decode_scores_cuda(qs[0], ks[0], *sched),
+         lambda: ref.paged_decode_scores_gather(qs[0], ks[0], *sched), lambda: torch.matmul(qs[0], kg),
+         paged_decode_scores_cost(qs[0], ks[0], *sched)),
+        ("paged_decode_apply", lambda: paged_decode_apply_cuda(total, vs[0], *sched, sm_scale=scale),
+         lambda: ref.paged_decode_apply_gather(total, vs[0], *sched, sm_scale=scale), library_apply,
+         paged_decode_apply_cost(total, vs[0], *sched, sm_scale=scale)),
+    ):
+        b_ms, b_by = bound_ms(cost[1], cost[0], str(dtype).split(".")[1])
+        rows[name] = {"shape": shape, "dtype": str(dtype).split(".")[1],
+                      "max_abs_err": err_scores if name == "paged_decode_scores" else err_apply,
+                      "tol": "1e-5 of the terms' magnitudes" if name == "paged_decode_scores" else tol,
+                      "joined_max_abs_err": err,
+                      "ms": timer.ms(fn), "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib),
+                      "bound_ms": b_ms, "bound_by": b_by}
+    return rows
+
+
+def seq_kernels(timer, full, seed):
+    """(d) The three kernel entries of the mode against their plain
+    versions at this phase's shapes (qwen2-1.5b at tp 4: the longest
+    bucket's query slices; 8 decode slots on D = 128 pools cut into 32)
+    and at smoke qwen3-1.7b's at tp 8 (fp32, D = 64 cut into 8), timed as
+    in phase 3."""
+    from repro_torch.configs import registry
+
+    smoke = registry.get_smoke("qwen3-1.7b", sparse=True)
+    hk, g, d = full.num_kv_heads, full.num_heads // full.num_kv_heads, full.head_dim
+    out = {"block_sparse_attention_query_slice": [], "paged_decode_scores": [], "paged_decode_apply": []}
+    out["block_sparse_attention_query_slice"].append(seq_attention_row(
+        timer, b=1, s=1024, h=full.num_heads, hk=hk, d=d, block=full.attn_block, tp=4, dtype=torch.bfloat16,
+        tol=2e-2, seed=seed + 181))
+    out["block_sparse_attention_query_slice"].append(seq_attention_row(
+        timer, b=2, s=512, h=smoke.num_heads, hk=smoke.num_kv_heads, d=smoke.head_dim, block=smoke.attn_block, tp=8,
+        dtype=torch.float32, tol=2e-4, seed=seed + 182))
+    for kw in (dict(b=8, hk=hk, g=g, d=d, page=full.attn_block, pps=16, tp=4, dtype=torch.bfloat16, tol=1e-2),
+               dict(b=4, hk=smoke.num_kv_heads, g=smoke.num_heads // smoke.num_kv_heads, d=smoke.head_dim,
+                    page=smoke.attn_block, pps=6, tp=8, dtype=torch.float32, tol=1e-5)):
+        for name, row in seq_decode_rows(timer, seed=seed + 183, **kw).items():
+            out[name].append(row)
+    for name, rows in out.items():
+        for row in rows:
+            log(f"[18d] {name} {row['dtype']} {row['shape']}: err {row['max_abs_err']:.2e} (tol {row['tol']}) "
+                f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms pytorch {row['library_ms']:.4f} ms "
+                f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return out
+
+
+def seq_bench(kernels, smi):
+    """(b) ``repro_torch.bench.serve_mesh`` at smoke width on the card at tp
+    1, 2, 4 and 8 (``SEQ_BENCH``; 2 kv heads, so 4 and 8 serve in the
+    sequence-parallel mode): every tp served, none refused, streams equal
+    to tp 1's, the kernels' counts set to 0 just before."""
+    from repro_torch.bench import serve_mesh
+
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    res = serve_mesh.run(smoke=True, device="cuda", tps=SEQ_BENCH)
+    wall = time.perf_counter() - t0
+    if res["refused"] or set(res["by_tp"]) != {str(t) for t in SEQ_BENCH} or not res["streams_equal"]:
+        raise AssertionError(f"18b: bench.serve_mesh at {SEQ_BENCH}: refused {res['refused']}, served "
+                             f"{sorted(res['by_tp'])}, streams equal {res['streams_equal']}")
+    launches = {name: k.launches for name, k in kernels.items()}
+    for name in seq_launches_wanted(4):
+        if launches[name] <= 0:
+            raise AssertionError(f"18b: kernel {name} was never launched by bench.serve_mesh")
+    log(f"[18b] bench.serve_mesh --smoke on the card ({smi}) in {wall:.1f} s: tp "
+        + ", ".join(f"{t} {r['decode_tok_s']} tok/s" for t, r in res["by_tp"].items())
+        + f"; streams equal {res['streams_equal']}; launches {launches}")
+    return {"wall_s": wall, "launches": launches, "by_tp": res["by_tp"], "streams_equal": res["streams_equal"]}
+
+
+def seq_parallel_phase(timer, seed, smi, kernels):
+    """Phase 18: (d) first (the new kernels' first calls are short ones),
+    then (a) and (b)."""
+    full = seq_config()
+    out = {"kernels": seq_kernels(timer, full, seed)}
+    out["serving"] = seq_serving(full, seed, smi, kernels)
+    out["bench"] = seq_bench(kernels, smi)
+    launches = {name: 0 for name in kernels}
+    for part in [r for r in out["serving"].values() if "launches" in r] + [out["bench"]]:
+        for name in kernels:
+            launches[name] += part["launches"][name]
+    out["launches"] = launches
+    # tp 4's runs: every block_sparse_attention launch there is a query slice
+    out["query_slice_launches"] = sum(r["launches"]["block_sparse_attention"] for key, r in out["serving"].items()
+                                      if key != "1" and not key.endswith(" 1"))
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4106,7 +4594,7 @@ def main(argv=None) -> int:
 
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
-    from repro_torch.kernels import bsr_attention, bsr_matmul, paged_attention
+    from repro_torch.kernels import bsr_attention, bsr_matmul, paged_attention, paged_partial
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -4351,11 +4839,14 @@ def main(argv=None) -> int:
     log(f"[8] phase 8 took {family['wall_s']:.1f} s")
 
     # ---- 9. the serve CLI, the Server oracle, observability ---------
+    # 9c, 9d, 13, 14a/c and 16b/c run qwen3-1.7b at 14 of its 28 layers
+    # (DEPTH_CUTS), published widths; the CLIs and 16d the whole depth
+    cut = full.replace(num_layers=DEPTH_CUTS[full.name])
     t9 = time.perf_counter()
     cli = {"cli": serve_cli_full_width(full, kernels, smi), "legacy": legacy_server(kernels, smi)}
-    cli["cost"], traced = observability_cost(full, args.seed, smi)
+    cli["cost"], traced = observability_cost(cut, args.seed, smi)
     step_s = statistics.median(t["decode_step_ms_p50"] for t in cli["cost"]["turns"] if t["traced"]) / 1e3
-    cli["replay"] = burst_replay(full, traced, step_s, smi)
+    cli["replay"] = burst_replay(cut, traced, step_s, smi)
     del traced
     torch.cuda.empty_cache()
     cli["wall_s"] = time.perf_counter() - t9
@@ -4400,11 +4891,11 @@ def main(argv=None) -> int:
 
     # ---- 13. the analysis instruments, the router, the tools --------
     t13 = time.perf_counter()
-    analysis, eng = guarded_decode(full, args.seed, smi, kernels)
-    analysis["router"] = router_streams(full, eng, args.seed, smi, kernels)
+    analysis, eng = guarded_decode(cut, args.seed, smi, kernels)
+    analysis["router"] = router_streams(cut, eng, args.seed, smi, kernels)
     del eng
     torch.cuda.empty_cache()
-    analysis["training_step"] = guarded_training_step(full, args.seed, smi, kernels)
+    analysis["training_step"] = guarded_training_step(cut, args.seed, smi, kernels)
     analysis["tools"] = tools_on_card(kernels)
     analysis["wall_s"] = time.perf_counter() - t13
     report["analysis"] = analysis
@@ -4412,12 +4903,12 @@ def main(argv=None) -> int:
 
     # ---- 14. tensor-parallel serving --------------------------------
     t14 = time.perf_counter()
-    tp_report, tp_sd, tp_engines, _ = tp_serving(full, args.seed, smi, kernels)
+    tp_report, tp_sd, tp_engines, _ = tp_serving(cut, args.seed, smi, kernels)
     tp = {"serving": tp_report, "kernels": tp_kernels(timer, full, args.seed)}
-    tp["router"] = tp_router(full, tp_sd, tp_engines[2], args.seed, smi, kernels)
+    tp["router"] = tp_router(cut, tp_sd, tp_engines[2], args.seed, smi, kernels)
     del tp_engines
     torch.cuda.empty_cache()
-    tp["bench"] = tp_bench(tp_sd, smi, kernels)
+    tp["bench"] = tp_bench(vlm["bench"]["result"]["mesh"], smi, kernels)
     del tp_sd
     torch.cuda.empty_cache()
     tp["wall_s"] = time.perf_counter() - t14
@@ -4435,7 +4926,7 @@ def main(argv=None) -> int:
     # ---- 16. the dry-run, sharded contiguous prefill and decode -----
     t16 = time.perf_counter()
     try:
-        dry = dryrun_phase(full, args.seed, smi, kernels, dry_rows)
+        dry = dryrun_phase(full, cut, args.seed, smi, kernels, dry_rows)
     finally:
         dry_pool.shutdown(cancel_futures=True)
     dry["wall_s"] = time.perf_counter() - t16
@@ -4449,7 +4940,16 @@ def main(argv=None) -> int:
     report["expert_parallel"] = ep
     log(f"[17] phase 17 took {ep['wall_s']:.1f} s")
 
-    # ---- 18. report ------------------------------------------------
+    # ---- 18. serving where tp does not divide the kv heads ----------
+    t18 = time.perf_counter()
+    seq_kernels_all = {**kernels, "paged_decode_scores": paged_partial.SCORES_KERNEL,
+                       "paged_decode_apply": paged_partial.APPLY_KERNEL}
+    seq = seq_parallel_phase(timer, args.seed, smi, seq_kernels_all)
+    seq["wall_s"] = time.perf_counter() - t18
+    report["seq_parallel"] = seq
+    log(f"[18] phase 18 took {seq['wall_s']:.1f} s")
+
+    # ---- 19. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -4548,6 +5048,7 @@ def main(argv=None) -> int:
             k["launches_phase15"] = mesh_train["training"]["launches"][k["name"]]
         k["launches_phase16"] = dry["launches"][k["name"]]
         k["launches_phase17"] = ep["launches"][k["name"]]
+        k["launches_phase18"] = seq["launches"][k["name"]]
     views = [r for r in ep["kernels"] if r["shape"].startswith("M=8 ")]
     line["kernels"].append({
         "name": "bsr_matmul_column_view",
@@ -4564,6 +5065,26 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in views) else "operations",
         "library_ms": summed(views, "library_ms"),
     })
+    for name, source, replaces in (
+        ("block_sparse_attention_query_slice", "bsr_attention.cu", "src/repro/kernels/bsr_attention.py:100"),
+        ("paged_decode_scores", "paged_partial.cu", "src/repro/kernels/paged_attention.py:109"),
+        ("paged_decode_apply", "paged_partial.cu", "src/repro/kernels/paged_attention.py:109"),
+    ):
+        main_row = seq["kernels"][name][0]
+        line["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces,
+            "shape": main_row["shape"] + f", {main_row['dtype']} (qwen2-1.5b at tp 4, phase 18)",
+            "launches": seq["query_slice_launches"] if name.endswith("query_slice") else seq["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in seq["kernels"][name]),
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+        })
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -4572,8 +5093,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"paged_decode_attention {paged_main['ms']:.4f} ms is not below "
                              f"SDPA's {paged_main['library_ms']:.4f} ms on the same inputs")
     report["wall_s"] = time.perf_counter() - T_START
+    report["timeline"] = TIMELINE
     out.write_text(json.dumps(report, indent=1))
-    log(f"[18] chip_smoke.py took {report['wall_s']:.1f} s")
+    log(f"[19] chip_smoke.py took {report['wall_s']:.1f} s")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -125,20 +125,25 @@ def compare(
     steps: int,
     seed: int = 0,
     device: str | torch.device | None = None,
+    num_layers: int | None = None,
 ) -> dict:
     """Dense, then pixelfly, for ``arch`` at its published widths (AdamW
     lr 3e-4, as the full-width training of ``chip_smoke.py``), or for
-    ``smoke_config`` when ``arch`` is None (lr 3e-3, as the JAX script)."""
+    ``smoke_config`` when ``arch`` is None (lr 3e-3, as the JAX script).
+    ``num_layers``: the depth of both arms (default: the config's own)."""
     dev = T.resolve_device(device)
     if arch is None:
         cfgs, lr = (smoke_config(False), smoke_config(True)), 3e-3
     else:
         cfgs, lr = (registry.get(arch), registry.get(arch, sparse=True)), 3e-4
+    if num_layers is not None:
+        cfgs = tuple(c.replace(num_layers=num_layers) for c in cfgs)
     dense, sparse = (run_arm(c, batch=batch, seq=seq, steps=steps, lr=lr, seed=seed, device=dev) for c in cfgs)
     out = {
         "arch": arch or cfgs[0].name,
         "batch": batch,
         "seq": seq,
+        "num_layers": cfgs[0].num_layers,
         "warmup_steps": WARMUP,
         "timed_steps": steps,
         "lr": lr,

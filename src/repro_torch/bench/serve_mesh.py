@@ -2,7 +2,7 @@
 ``benchmarks/serve_mesh.py``: tensor-parallel decode throughput per tp,
 and data-parallel replica routing.
 
-For each tp in {1, 2, 4, 8} that ``sharding.check_tp`` takes, one engine
+For each tp in {1, 2, 4, 8} that ``sharding.check_tp`` takes in serving, one engine
 on a ``(1, tp)`` mesh (``launch.mesh.make_tp_mesh``: the weights and the
 paged KV pools in ``tp`` shards) serves the same uniform trace, greedy and
 seeded-sampled; both streams must equal the tp = 1 engine's
@@ -10,8 +10,9 @@ seeded-sampled; both streams must equal the tp = 1 engine's
 gives ``decode_tok_s``, ``wall_tok_s``, ``wall_s`` and
 ``p95_token_latency_ms``. The other tp values are listed under
 ``refused`` with ``check_tp``'s words, which name the ROADMAP item that
-would shard them (for qwen3-1.7b: kv heads tp does not divide, whose
-attention the JAX rules shard by sequence). A 2-replica ``ReplicaRouter`` run
+would shard them (none for qwen3-1.7b: where tp does not divide its kv
+heads, the engine serves in the sequence-parallel mode). A 2-replica
+``ReplicaRouter`` run
 rides along, its streams held to the same oracle.
 
 By default the mesh is the card ``tp`` times: all shards share one H100's
@@ -22,8 +23,8 @@ devices share one host in the same way. With ``--device cpu`` every shard
 runs the plain versions on the CPU.
 
 Sizes: ``--smoke`` is the JAX script's (smoke qwen3-1.7b, 2 layers, a
-256-token vocabulary; 2 requests of 8 tokens, 4 new, one repeat: tp 1 and
-2, its 2 kv heads). The default is full-width sparse qwen3-1.7b (28
+256-token vocabulary; 2 requests of 8 tokens, 4 new, one repeat: tp 1
+and 2 by heads, 4 and 8 by sequence, its 2 kv heads). The default is full-width sparse qwen3-1.7b (28
 layers, d 2048, 8 kv heads: tp 1, 2, 4 and 8) in bf16, random weights
 from seed 0, at the JAX script's non-smoke trace (4 requests of 32
 tokens, 16 new, 2 repeats). It runs in the calling process. The last line

@@ -18,8 +18,10 @@ width, and at full width only builds them on the meta device. Tensor
 parallelism (``distributed.sharding``) does not change that on one card:
 its shards share the card. deepseek-67b would shard in the heads mode on
 cards of its own, and kimi-k2's experts and router shard on the model
-axis (expert parallelism); kimi-k2's attention at tp 16 (8 kv heads)
-waits for the sequence-parallel mode (ROADMAP Queue 1 item 16).
+axis (expert parallelism); at tp 16, where their 8 kv heads do not
+divide, both serve in the sequence-parallel mode (the dry-run's prefill
+and decode cells), and their training at that tp waits (ROADMAP Queue 1
+item 16).
 """
 
 from __future__ import annotations

@@ -168,8 +168,9 @@ def apply_linear(
 
     ``cols`` (c0, c1): the shard holds output columns [c0, c1) of every
     block, ``blocks[:, :, :, c0:c1]`` (the JAX rules' layout where tp does
-    not divide the block rows), and ``params["V"]`` is the whole ``V``
-    (the caller gathers it). Its output is the features ``i·b + [c0, c1)``
+    not divide the block rows), and ``params["V"]`` and ``params["b"]`` are
+    the whole ``V`` and bias (the caller gathers them: the JAX rules cut
+    both in contiguous rows, which are not the shard's features). Its output is the features ``i·b + [c0, c1)``
     of every block row i, in that order (``column_features``). The BSR
     term runs on the kernel's square blocks: a (b, b/tp) block is tp
     stacked (b/tp)² blocks over consecutive input sub-blocks, so the shard
@@ -183,15 +184,16 @@ def apply_linear(
         blocks, v = params["blocks"], params["V"]
         if cols is not None:
             nb, r, b, bc = blocks.shape
-            if spec.use_bias:
-                raise ValueError("a column-sliced pixelfly linear takes no bias")
             blocks = blocks.reshape(nb, r * (b // bc), bc, bc)
             v = v.index_select(0, column_features(spec, cols, v.device))
         ys = autograd.bsr_matmul(x, blocks, linear_tables(spec, x.device, rows, cols))
         yl = torch.matmul(torch.matmul(x, params["U"]), v.t())
         y = (g * ys.float() + (1.0 - g) * yl.float()).to(x.dtype)
     if spec.use_bias:
-        y = y + params["b"].to(y.dtype)
+        bias = params["b"]
+        if cols is not None:
+            bias = bias.index_select(0, column_features(spec, cols, bias.device))
+        y = y + bias.to(y.dtype)
     return y
 
 
@@ -246,7 +248,7 @@ class Linear(nn.Module):
     ``rows``: set on a tensor-parallel shard of a pixelfly linear, the
     block rows of the pattern it holds; ``cols``: set instead on a shard
     that holds output columns of every block, whose call takes the whole
-    ``V`` (``apply_linear``)."""
+    ``V`` and bias (``apply_linear``)."""
 
     def __init__(
         self, spec: LinearSpec, *, gen: torch.Generator, device: torch.device
@@ -258,7 +260,10 @@ class Linear(nn.Module):
         for name, t in init_linear(spec, gen).items():
             self.register_parameter(name, nn.Parameter(t.to(device)))
 
-    def forward(self, x: torch.Tensor, v: torch.Tensor | None = None) -> torch.Tensor:
-        """``v``: the whole ``V`` of a column-sliced shard (else unused)."""
-        params = self._parameters if v is None else {**self._parameters, "V": v}
+    def forward(self, x: torch.Tensor, v: torch.Tensor | None = None, b: torch.Tensor | None = None) -> torch.Tensor:
+        """``v``, ``b``: the whole ``V`` and bias of a column-sliced shard
+        (else unused)."""
+        params = self._parameters
+        if v is not None or b is not None:
+            params = {**params, **{k: t for k, t in (("V", v), ("b", b)) if t is not None}}
         return apply_linear(self.spec, params, x, self.rows, self.cols)

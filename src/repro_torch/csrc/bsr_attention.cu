@@ -90,8 +90,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) block_sparse_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ kv_index, const int* __restrict__ valid,
-    T* __restrict__ out, int S, int H, int Hk, int nkv, int block, int causal,
-    float sm_scale) {
+    T* __restrict__ out, int Sq, int Sk, int q_off, int H, int Hk, int nkv,
+    int block, int causal, float sm_scale) {
   constexpr int DPT = D / kLanes;  // output dims per thread
   __shared__ float qs[kRows][D + 1];
   __shared__ float ks[kKeys][D + 1];
@@ -106,14 +106,15 @@ __global__ void __launch_bounds__(kThreads) block_sparse_attention_kernel(
   const int h = bh % H;
   const int hk = h / (H / Hk);
   const int q0 = blockIdx.x * kRows;  // first query row of this thread block
-  const int qb = q0 / block;          // its query block in the schedule
-  const int qpos = q0 + row;
+  const int a0 = q_off + q0;          // its absolute position
+  const int qb = a0 / block;          // its query block in the schedule
+  const int qpos = a0 + row;
 
   for (int e = tid; e < kRows * D; e += kThreads) {
     const int r = e / D;
     const int d = e % D;
     qs[r][d] = repro::to_float(
-                   q[((static_cast<size_t>(b) * S + q0 + r) * H + h) * D + d]) *
+                   q[((static_cast<size_t>(b) * Sq + q0 + r) * H + h) * D + d]) *
                sm_scale;
   }
 
@@ -130,13 +131,13 @@ __global__ void __launch_bounds__(kThreads) block_sparse_attention_kernel(
       const int k0 = kb0 + s0;
       // block-uniform: this and every later sub-tile of the key block lie
       // above the diagonal for all 16 rows
-      if (causal && k0 > q0 + kRows - 1) break;
+      if (causal && k0 > a0 + kRows - 1) break;
       __syncthreads();  // the previous sub-tile's readers are done
       for (int e = tid; e < kKeys * D; e += kThreads) {
         const int kk = e / D;
         const int d = e % D;
         const size_t off =
-            ((static_cast<size_t>(b) * S + k0 + kk) * Hk + hk) * D + d;
+            ((static_cast<size_t>(b) * Sk + k0 + kk) * Hk + hk) * D + d;
         ks[kk][d] = repro::to_float(k[off]);
         vs[kk][d] = repro::to_float(v[off]);
       }
@@ -192,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) block_sparse_attention_kernel(
   }
 
   const float inv = 1.f / (l == 0.f ? 1.f : l);
-  T* orow = out + ((static_cast<size_t>(b) * S + qpos) * H + h) * D;
+  T* orow = out + ((static_cast<size_t>(b) * Sq + q0 + row) * H + h) * D;
 #pragma unroll
   for (int e = 0; e < DPT; ++e) {
     const int d = sub + kLanes * e;
@@ -203,12 +204,13 @@ __global__ void __launch_bounds__(kThreads) block_sparse_attention_kernel(
 
 template <typename T, int D>
 void launch_simt(const T* q, const T* k, const T* v, const int* kv_index,
-                 const int* valid, T* out, int B, int S, int H, int Hk,
-                 int nkv, int block, int causal, float sm_scale,
+                 const int* valid, T* out, int B, int Sq, int Sk, int q_off,
+                 int H, int Hk, int nkv, int block, int causal, float sm_scale,
                  cudaStream_t stream) {
-  dim3 grid(S / kRows, B * H);
+  dim3 grid(Sq / kRows, B * H);
   block_sparse_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      q, k, v, kv_index, valid, out, S, H, Hk, nkv, block, causal, sm_scale);
+      q, k, v, kv_index, valid, out, Sq, Sk, q_off, H, Hk, nkv, block, causal,
+      sm_scale);
 }
 
 // ---- bf16: tensor cores -------------------------------------------------
@@ -236,9 +238,10 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
                                      const bf16* __restrict__ v,
                                      const int* __restrict__ kv_index,
                                      const int* __restrict__ valid,
-                                     bf16* __restrict__ out, int S, int H,
-                                     int Hk, int Gs, int nkv, int block,
-                                     int causal, float scale_log2) {
+                                     bf16* __restrict__ out, int Sq, int Sk,
+                                     int q_off, int H, int Hk, int Gs,
+                                     int nkv, int block, int causal,
+                                     float scale_log2) {
   using Tl = AttnTile<D>;
   constexpr int kThr = kTcWarps * 32;
   constexpr int kDT = D / 8;          // n8 tiles over the head dim
@@ -264,8 +267,9 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
   const int hk = blockIdx.y / n_sub % Hk;
   const int h0 = hk * G + blockIdx.y % n_sub * Gs;  // first query head
   // the last query tiles see the most keys: they are launched first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * Pq;
-  const int qb = q0 / block;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * Pq;  // in q's rows
+  const int a0 = q_off + q0;                          // absolute position
+  const int qb = a0 / block;
 
   // the block's key tiles, in schedule order: the schedule row is read in
   // parallel (first key of a slot, or -1), then listed by one thread
@@ -278,7 +282,7 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
       const int kb0 = sched[t];
       if (kb0 < 0) continue;
       for (int s0 = 0; s0 < block; s0 += kTcKeys)
-        if (!causal || kb0 + s0 <= q0 + Pq - 1) tiles[n++] = kb0 + s0;
+        if (!causal || kb0 + s0 <= a0 + Pq - 1) tiles[n++] = kb0 + s0;
     }
     n_tiles = n;
   }
@@ -289,7 +293,7 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
     const int pos = q0 + row % Pq;
     repro::cp_async16(
         qs + row * Tl::kRow + ch * 8,
-        q + (static_cast<size_t>(b * S + pos) * H + h0 + row / Pq) * D +
+        q + (static_cast<size_t>(b * Sq + pos) * H + h0 + row / Pq) * D +
             ch * 8);
   }
   repro::cp_async_commit();
@@ -306,7 +310,7 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
       const int key = e / (D / 8);
       const int ch = e % (D / 8);
       const size_t off =
-          (static_cast<size_t>(b * S + k0 + key) * Hk + hk) * D + ch * 8;
+          (static_cast<size_t>(b * Sk + k0 + key) * Hk + hk) * D + ch * 8;
       repro::cp_async16(kd + key * Tl::kRow + ch * 8, k + off);
       repro::cp_async16(vd + key * Tl::kRow + ch * 8, v + off);
     }
@@ -318,14 +322,16 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
     repro::cp_async_commit();
   }
 
-  // this warp's 16 rows: one head, positions p0 .. p0+15
+  // this warp's 16 rows: one head, rows p0 .. p0+15 of q, at absolute
+  // positions ap0 .. ap0+15
   const int r0 = warp * 16;
   const int gh = r0 / Pq;
   const int p0 = q0 + r0 % Pq;
+  const int ap0 = q_off + p0;
   const int g = lane >> 2;
   const int c2 = (lane & 3) * 2;
-  const int pos_lo = p0 + g;  // rows of accumulator elements 0,1 and 2,3
-  const int pos_hi = p0 + g + 8;
+  const int pos_lo = ap0 + g;  // rows of accumulator elements 0,1 and 2,3
+  const int pos_hi = ap0 + g + 8;
 
   repro::cp_async_wait<kTcStages - 1>();  // Q has landed (tiles may not)
   __syncthreads();
@@ -352,7 +358,7 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
     repro::cp_async_commit();
     const int k0 = tiles[j];
     // warp-uniform: some key of the tile is visible to some row of the warp
-    if (!causal || k0 <= p0 + 15) {
+    if (!causal || k0 <= ap0 + 15) {
       const bf16* kt_s = ks + (j % kTcStages) * Tl::kKV;
       const bf16* vt_s = vs + (j % kTcStages) * Tl::kKV;
       float s[kNT][4];
@@ -373,7 +379,7 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
         }
       }
       // scale to log2 units, mask, and the rows' new max
-      const bool masked = causal && k0 + kTcKeys - 1 > p0;
+      const bool masked = causal && k0 + kTcKeys - 1 > ap0;
       float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
@@ -452,8 +458,8 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
   const float inv_lo = 1.f / (l_lo == 0.f ? 1.f : l_lo);
   const float inv_hi = 1.f / (l_hi == 0.f ? 1.f : l_hi);
   const int h = h0 + gh;
-  bf16* o_lo = out + (static_cast<size_t>(b * S + pos_lo) * H + h) * D + c2;
-  bf16* o_hi = out + (static_cast<size_t>(b * S + pos_hi) * H + h) * D + c2;
+  bf16* o_lo = out + (static_cast<size_t>(b * Sq + p0 + g) * H + h) * D + c2;
+  bf16* o_hi = out + (static_cast<size_t>(b * Sq + p0 + g + 8) * H + h) * D + c2;
 #pragma unroll
   for (int dt = 0; dt < kDT; ++dt) {
     *reinterpret_cast<unsigned*>(o_lo + dt * 8) =
@@ -465,9 +471,9 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
 
 template <int D>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
-                const int* kv_index, const int* valid, bf16* out, int B, int S,
-                int H, int Hk, int nkv, int block, int causal, float sm_scale,
-                cudaStream_t stream) {
+                const int* kv_index, const int* valid, bf16* out, int B, int Sq,
+                int Sk, int q_off, int H, int Hk, int nkv, int block,
+                int causal, float sm_scale, cudaStream_t stream) {
   const int smem =
       AttnTile<D>::kBytes +
       nkv * (1 + block / kTcKeys) * static_cast<int>(sizeof(int));
@@ -479,24 +485,30 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
   const int gs = G % 4 == 0 ? 4 : G % 2 == 0 ? 2 : 1;  // heads a block takes
   const int pq = AttnTile<D>::kRows / gs;
   const float log2e = 1.4426950408889634f;
-  kernel<<<dim3(S / pq, B * Hk * (G / gs)), kTcWarps * 32, smem, stream>>>(
-      q, k, v, kv_index, valid, out, S, H, Hk, gs, nkv, block, causal,
-      sm_scale * log2e);
+  kernel<<<dim3(Sq / pq, B * Hk * (G / gs)), kTcWarps * 32, smem, stream>>>(
+      q, k, v, kv_index, valid, out, Sq, Sk, q_off, H, Hk, gs, nkv, block,
+      causal, sm_scale * log2e);
   return 0;
 }
 
 }  // namespace
 
-// q, out (B, S, H, D); k, v (B, S, Hk, D); all contiguous, one dtype.
-// kv_index, valid (S / block, nkv) int32. D in {64, 80, 128}; S a multiple of
-// block; H a multiple of Hk. fp32: block a multiple of 32. bf16: block a
-// multiple of 64, pointers 16-byte aligned; any G = H / Hk.
-// Returns cudaGetLastError() after the launch.
+// q, out (B, Sq, H, D): the query rows at absolute positions q_off ..
+// q_off + Sq - 1 (the whole sequence when q_off = 0 and Sq = Sk; a query
+// slice of the sequence-parallel mode otherwise), which read the schedule
+// rows q_off / block .. and are masked causally at their absolute
+// positions; k, v (B, Sk, Hk, D); all contiguous, one dtype. kv_index,
+// valid (Sk / block, nkv) int32. D in {64, 80, 128}; Sq, Sk and q_off
+// multiples of block, q_off + Sq <= Sk; H a multiple of Hk. fp32: block a
+// multiple of 32. bf16: block a multiple of 64, pointers 16-byte aligned;
+// any G = H / Hk. Returns cudaGetLastError() after the launch.
 extern "C" int block_sparse_attention_launch(
     const void* q, const void* k, const void* v, const void* kv_index,
-    const void* valid, void* out, int B, int S, int H, int Hk, int D, int nkv,
-    int block, int causal, float sm_scale, int dtype, void* stream) {
-  if (block % kKeys != 0 || S % block != 0 || H % Hk != 0 ||
+    const void* valid, void* out, int B, int Sq, int Sk, int q_off, int H,
+    int Hk, int D, int nkv, int block, int causal, float sm_scale, int dtype,
+    void* stream) {
+  if (block % kKeys != 0 || Sq % block != 0 || Sk % block != 0 ||
+      q_off % block != 0 || q_off < 0 || q_off + Sq > Sk || H % Hk != 0 ||
       (D != 64 && D != 80 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -509,26 +521,26 @@ extern "C" int block_sparse_attention_launch(
     const float* vt = static_cast<const float*>(v);
     float* ot = static_cast<float*>(out);
     if (D == 64)
-      launch_simt<float, 64>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv, block,
-                             causal, sm_scale, s);
+      launch_simt<float, 64>(qt, kt, vt, it, vv, ot, B, Sq, Sk, q_off, H, Hk,
+                             nkv, block, causal, sm_scale, s);
     else if (D == 80)
-      launch_simt<float, 80>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv, block,
-                             causal, sm_scale, s);
+      launch_simt<float, 80>(qt, kt, vt, it, vv, ot, B, Sq, Sk, q_off, H, Hk,
+                             nkv, block, causal, sm_scale, s);
     else
-      launch_simt<float, 128>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv, block,
-                              causal, sm_scale, s);
+      launch_simt<float, 128>(qt, kt, vt, it, vv, ot, B, Sq, Sk, q_off, H, Hk,
+                              nkv, block, causal, sm_scale, s);
   } else if (dtype == REPRO_BF16) {
     if (block % kTcKeys != 0) return static_cast<int>(cudaErrorInvalidValue);
     const bf16* qt = static_cast<const bf16*>(q);
     const bf16* kt = static_cast<const bf16*>(k);
     const bf16* vt = static_cast<const bf16*>(v);
     bf16* ot = static_cast<bf16*>(out);
-    rc = D == 64   ? launch_bf16<64>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv,
-                                     block, causal, sm_scale, s)
-         : D == 80 ? launch_bf16<80>(qt, kt, vt, it, vv, ot, B, S, H, Hk, nkv,
-                                     block, causal, sm_scale, s)
-                   : launch_bf16<128>(qt, kt, vt, it, vv, ot, B, S, H, Hk,
-                                      nkv, block, causal, sm_scale, s);
+    rc = D == 64   ? launch_bf16<64>(qt, kt, vt, it, vv, ot, B, Sq, Sk, q_off,
+                                     H, Hk, nkv, block, causal, sm_scale, s)
+         : D == 80 ? launch_bf16<80>(qt, kt, vt, it, vv, ot, B, Sq, Sk, q_off,
+                                     H, Hk, nkv, block, causal, sm_scale, s)
+                   : launch_bf16<128>(qt, kt, vt, it, vv, ot, B, Sq, Sk, q_off,
+                                      H, Hk, nkv, block, causal, sm_scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

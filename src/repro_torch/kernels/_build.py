@@ -34,7 +34,7 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("bsr_matmul.cu", "paged_attention.cu", "bsr_attention.cu")
+SOURCES = ("bsr_matmul.cu", "paged_attention.cu", "bsr_attention.cu", "paged_partial.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -151,7 +151,7 @@ def bsr_matmul(x: torch.Tensor, blocks: torch.Tensor, tables: BsrTables) -> torc
     return BsrMatmul.apply(x, blocks, tables)
 
 
-def sparse_attention_vjp(q, k, v, kv_index, valid, do, *, block, causal, sm_scale):
+def sparse_attention_vjp(q, k, v, kv_index, valid, do, *, block, causal, sm_scale, q_block0=0):
     """The JAX package's attention gradient: autodiff of the gathered
     sparse attention ``ref.sparse_attention``, recomputed from q, k, v
     (grouped layout) and contracted with the output cotangent ``do``.
@@ -159,7 +159,7 @@ def sparse_attention_vjp(q, k, v, kv_index, valid, do, *, block, causal, sm_scal
     with torch.enable_grad():
         qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
         o = ref.sparse_attention(
-            qd, kd, vd, kv_index, valid, block=block, causal=causal, sm_scale=sm_scale
+            qd, kd, vd, kv_index, valid, block=block, causal=causal, sm_scale=sm_scale, q_block0=q_block0
         )
         return torch.autograd.grad(o, (qd, kd, vd), do)
 
@@ -169,9 +169,9 @@ class BlockSparseAttention(torch.autograd.Function):
     JAX package's gradient (``sparse_attention_vjp``) backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_index, valid, block, causal, sm_scale):
+    def forward(ctx, q, k, v, kv_index, valid, block, causal, sm_scale, q_block0):
         ctx.save_for_backward(q, k, v, kv_index, valid)
-        ctx.kw = dict(block=block, causal=causal, sm_scale=sm_scale)
+        ctx.kw = dict(block=block, causal=causal, sm_scale=sm_scale, q_block0=q_block0)
         return ops.block_sparse_attention(q, k, v, kv_index, valid, **ctx.kw)
 
     @staticmethod
@@ -179,10 +179,11 @@ class BlockSparseAttention(torch.autograd.Function):
         q, k, v, kv_index, valid = ctx.saved_tensors
         with record_function("sparse_attention_vjp"):
             dq, dk, dv = sparse_attention_vjp(q, k, v, kv_index, valid, do, **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
-def block_sparse_attention(q, k, v, kv_index, valid, *, block, causal, sm_scale):
+def block_sparse_attention(q, k, v, kv_index, valid, *, block, causal, sm_scale, q_block0=0):
     """``ops.block_sparse_attention`` through ``BlockSparseAttention``:
-    q (B, S, Hk, G, D), k, v (B, S, Hk, D) -> (B, S, Hk, G, D)."""
-    return BlockSparseAttention.apply(q, k, v, kv_index, valid, block, causal, sm_scale)
+    q (B, Sq, Hk, G, D), k, v (B, Sk, Hk, D) -> (B, Sq, Hk, G, D), q the
+    query blocks from ``q_block0`` on (the whole sequence by default)."""
+    return BlockSparseAttention.apply(q, k, v, kv_index, valid, block, causal, sm_scale, q_block0)

@@ -33,11 +33,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bsr_attention import block_sparse_attention_cuda
 from repro_torch.kernels.bsr_matmul import bsr_matmul_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+from repro_torch.kernels.paged_partial import paged_decode_apply_cuda, paged_decode_scores_cuda
 
 __all__ = [
-    "bsr_matmul", "paged_decode_attention", "block_sparse_attention",
-    "bsr_matmul_cost", "paged_decode_attention_cost", "block_sparse_attention_cost",
-    "register_schedule",
+    "bsr_matmul", "paged_decode_attention", "paged_decode_scores", "paged_decode_apply", "block_sparse_attention",
+    "bsr_matmul_cost", "paged_decode_attention_cost", "paged_decode_scores_cost", "paged_decode_apply_cost",
+    "block_sparse_attention_cost", "register_schedule",
 ]
 
 
@@ -74,38 +75,71 @@ def bsr_matmul_cost(x, blocks, cols, slots: int | None = None) -> tuple[float, f
     return 2.0 * m * slots * b * b, float(nbytes)
 
 
+def _visible_keys(logical, keep, pos, page) -> int:
+    """The keys a paged read sees: the kept pages' positions up to each
+    slot's own (read through one ``guards.device_get``); on meta, every
+    slot of the schedule as a kept, full page."""
+    if logical.is_meta:
+        return logical.numel() * page
+    base = logical.long() * page
+    vis = ((pos.long()[:, None] - base + 1).clamp(0, page) * keep.long()).sum()
+    return int(guards.device_get(vis))
+
+
 def paged_decode_attention_cost(q, k_pages, v_pages, phys, logical, keep, pos, *, sm_scale) -> tuple[float, float]:
     """(FLOPs, bytes) of ``paged_decode_attention``: the keys each slot
-    sees (the kept pages' positions up to its own, read through one
-    ``guards.device_get``), 4 G D FLOPs a key and kv head, their K and V
+    sees (``_visible_keys``), 4 G D FLOPs a key and kv head, their K and V
     rows, q and the output, and the schedule."""
     b, hk, g, d = q.shape
-    page = k_pages.shape[1]
-    if q.is_meta:
-        n_vis = logical.numel() * page
-    else:
-        base = logical.long() * page
-        vis = ((pos.long()[:, None] - base + 1).clamp(0, page) * keep.long()).sum()
-        n_vis = int(guards.device_get(vis))
+    n_vis = _visible_keys(logical, keep, pos, k_pages.shape[1])
     nbytes = (2 * q.numel() + 2 * n_vis * hk * d) * q.element_size() + 4 * (3 * phys.numel() + b)
     return 4.0 * g * d * n_vis * hk, float(nbytes)
 
 
-def block_sparse_attention_cost(q, k, v, kv_index, valid, *, block, causal, sm_scale) -> tuple[float, float]:
+def paged_decode_scores_cost(q, k_pages, phys, logical, keep, pos) -> tuple[float, float]:
+    """(FLOPs, bytes) of ``paged_decode_scores``: 2 G Dc FLOPs a visible
+    key and kv head, q and the visible keys' K rows read once, the fp32
+    scores of every scheduled key written once (the output holds them
+    all, 0 where a key is not visible), and the schedule."""
+    b, hk, g, d = q.shape
+    page = k_pages.shape[1]
+    n_vis = _visible_keys(logical, keep, pos, page)
+    nbytes = (q.numel() + n_vis * hk * d) * q.element_size() + 4 * (hk * g * phys.numel() * page
+                                                                     + 3 * phys.numel() + b)
+    return 2.0 * g * d * n_vis * hk, float(nbytes)
+
+
+def paged_decode_apply_cost(scores, v_pages, phys, logical, keep, pos, *, sm_scale) -> tuple[float, float]:
+    """(FLOPs, bytes) of ``paged_decode_apply``: 2 G Dc FLOPs a visible key
+    and kv head (P @ V), the visible keys' fp32 scores and V rows read
+    once (the rest of the scores is never read), the output written once,
+    and the schedule."""
+    b, hk, g, _ = scores.shape
+    d = v_pages.shape[-1]
+    n_vis = _visible_keys(logical, keep, pos, v_pages.shape[1])
+    es = v_pages.element_size()
+    nbytes = 4 * n_vis * hk * g + (n_vis * hk * d + b * hk * g * d) * es + 4 * (3 * phys.numel() + b)
+    return 2.0 * g * d * n_vis * hk, float(nbytes)
+
+
+def block_sparse_attention_cost(q, k, v, kv_index, valid, *, block, causal, sm_scale,
+                                q_block0: int = 0) -> tuple[float, float]:
     """(FLOPs, bytes) of ``block_sparse_attention``: 4 D FLOPs a visible
-    (query, key) pair of the schedule and query head (a diagonal block
-    holds block (block + 1) / 2 pairs when causal), q, k, v and the output
-    once each, and the schedule (the host arrays it was registered with;
-    else read back from the device)."""
+    (query, key) pair of the schedule rows of q's query blocks and query
+    head (a diagonal block holds block (block + 1) / 2 pairs when causal),
+    q, k, v and the output once each, and those schedule rows (the host
+    arrays it was registered with; else read back from the device)."""
     b, s, hk, g, d = q.shape
     host = _SCHEDULES.get(id(kv_index))
     if host is None and kv_index.is_meta:
         raise ValueError("block_sparse_attention on meta needs a schedule from ops.register_schedule")
     kv, ok = host if host is not None else guards.device_get((kv_index, valid))
-    rows = np.arange(kv.shape[0])[:, None]
+    nqb = s // block
+    kv, ok = kv[q_block0 : q_block0 + nqb], ok[q_block0 : q_block0 + nqb]
+    rows = q_block0 + np.arange(kv.shape[0])[:, None]
     diag = (kv == rows) & bool(causal)
     pairs = int(np.where(ok > 0, np.where(diag, block * (block + 1) // 2, block * block), 0).sum())
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 8 * kv_index.numel()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 8 * kv.size
     return 4.0 * d * pairs * b * hk * g, float(nbytes)
 
 
@@ -146,6 +180,47 @@ def paged_decode_attention(
     return fn(q, k_pages, v_pages, phys, logical, keep, pos, sm_scale=sm_scale)
 
 
+@metered(paged_decode_scores_cost)
+def paged_decode_scores(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    phys: torch.Tensor,
+    logical: torch.Tensor,
+    keep: torch.Tensor,
+    pos: torch.Tensor,
+) -> torch.Tensor:
+    """One shard's partial scores of the decode read on pools cut along
+    head_dim: q (B, Hk, G, Dc) against its key pool (n_pages, page, Hk,
+    Dc) through the (B, w) schedule. Returns (B, Hk, G, w * page) fp32,
+    0 where a key is not visible."""
+    route = _route(q)
+    if route == "meta":
+        return q.new_empty((*q.shape[:3], phys.shape[1] * k_pages.shape[1]), dtype=torch.float32)
+    fn = paged_decode_scores_cuda if route == "cuda" else ref.paged_decode_scores_gather
+    return fn(q, k_pages, phys, logical, keep, pos)
+
+
+@metered(paged_decode_apply_cost)
+def paged_decode_apply(
+    scores: torch.Tensor,
+    v_pages: torch.Tensor,
+    phys: torch.Tensor,
+    logical: torch.Tensor,
+    keep: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    sm_scale: float,
+) -> torch.Tensor:
+    """The masked softmax of the summed scores (B, Hk, G, w * page), then
+    P @ V over one shard's value pool (n_pages, page, Hk, Dc). Returns
+    (B, Hk, G, Dc) in the pool's dtype."""
+    route = _route(scores)
+    if route == "meta":
+        return scores.new_empty((*scores.shape[:3], v_pages.shape[-1]), dtype=v_pages.dtype)
+    fn = paged_decode_apply_cuda if route == "cuda" else ref.paged_decode_apply_gather
+    return fn(scores, v_pages, phys, logical, keep, pos, sm_scale=sm_scale)
+
+
 @metered(block_sparse_attention_cost)
 def block_sparse_attention(
     q: torch.Tensor,
@@ -157,20 +232,23 @@ def block_sparse_attention(
     block: int,
     causal: bool,
     sm_scale: float,
+    q_block0: int = 0,
 ) -> torch.Tensor:
-    """Block-sparse attention in the grouped layout: q (B, S, Hk, G, D),
-    k, v (B, S, Hk, D), schedule (S // block, w). Returns (B, S, Hk, G, D).
-    The kernel reads kv head h // G for query head h; nothing is repeated."""
+    """Block-sparse attention in the grouped layout: q (B, Sq, Hk, G, D),
+    k, v (B, Sk, Hk, D), schedule (Sk // block, w); q holds the query
+    blocks ``q_block0 .. q_block0 + Sq // block`` (the whole sequence by
+    default). Returns (B, Sq, Hk, G, D). The kernel reads kv head h // G
+    for query head h; nothing is repeated."""
     route = _route(q)
     if route == "meta":
         return torch.empty_like(q)
     if route == "cpu":
         return ref.sparse_attention(
-            q, k, v, kv_index, valid, block=block, causal=causal, sm_scale=sm_scale
+            q, k, v, kv_index, valid, block=block, causal=causal, sm_scale=sm_scale, q_block0=q_block0
         )
     b, s, hk, g, d = q.shape
     o = block_sparse_attention_cuda(
         q.reshape(b, s, hk * g, d), k, v, kv_index, valid,
-        block=block, causal=causal, sm_scale=sm_scale,
+        block=block, causal=causal, sm_scale=sm_scale, q_block0=q_block0,
     )
     return o.reshape(b, s, hk, g, d)

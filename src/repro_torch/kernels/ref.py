@@ -16,6 +16,8 @@ __all__ = [
     "bsr_matmul_gather",
     "bsr_matmul_dense_mask",
     "paged_decode_attention_gather",
+    "paged_decode_scores_gather",
+    "paged_decode_apply_gather",
     "sparse_attention",
     "block_mask_to_dense",
     "dense_attention_ref",
@@ -109,6 +111,67 @@ def paged_decode_attention_gather(
     return out.to(q.dtype)
 
 
+def _paged_visible(logical, keep, pos, page) -> torch.Tensor:
+    """(B, w * page) bool: key ``logical * page + offset`` is visible iff
+    it is <= pos and its slot is kept."""
+    b, w = logical.shape
+    off = torch.arange(page, device=logical.device)
+    kpos = (logical.long()[:, :, None] * page + off).reshape(b, w * page)
+    return (kpos <= pos.long()[:, None]) & keep.bool().repeat_interleave(page, dim=1)
+
+
+def paged_decode_scores_gather(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    phys: torch.Tensor,
+    logical: torch.Tensor,
+    keep: torch.Tensor,
+    pos: torch.Tensor,
+) -> torch.Tensor:
+    """The first half of the decode read on pools cut along head_dim: one
+    shard's partial scores. q (B, Hk, G, Dc) is the shard's slice of each
+    query's head dim and k_pages (n_pages, page, Hk, Dc) its slice of the
+    key pool. Returns the fp32 dot products over the slice, (B, Hk, G,
+    w * page), key ``t * page + j`` of the schedule at column ``t * page +
+    j``; a key that is not visible (``paged_decode_attention_gather``'s
+    rule) scores 0. Summed over the shards in rank order they are the
+    unscaled scores of the whole head dim."""
+    b, hk, g, d = q.shape
+    page = k_pages.shape[1]
+    w = phys.shape[1]
+    kg = k_pages[phys.long()].reshape(b, w * page, hk, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", q.float(), kg.float())
+    ok = _paged_visible(logical, keep, pos, page)
+    return s.masked_fill(~ok[:, None, None, :], 0.0)
+
+
+def paged_decode_apply_gather(
+    scores: torch.Tensor,
+    v_pages: torch.Tensor,
+    phys: torch.Tensor,
+    logical: torch.Tensor,
+    keep: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    sm_scale: float,
+) -> torch.Tensor:
+    """The second half: the masked softmax of the summed ``scores`` (B, Hk,
+    G, w * page) times ``sm_scale``, in fp32, with P rounded to the pools'
+    dtype, then P @ V over the shard's slice v_pages (n_pages, page, Hk,
+    Dc). Returns (B, Hk, G, Dc) in the pools' dtype; a row with no visible
+    key is 0. Each shard's output is its head-dim slice of
+    ``paged_decode_attention_gather``'s."""
+    b, hk, g, _ = scores.shape
+    page, d = v_pages.shape[1], v_pages.shape[-1]
+    w = phys.shape[1]
+    vg = v_pages[phys.long()].reshape(b, w * page, hk, d)
+    ok = _paged_visible(logical, keep, pos, page)
+    s = (scores.float() * sm_scale).masked_fill(~ok[:, None, None, :], float("-inf"))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_pages.dtype).float(), vg.float())
+    return out.to(v_pages.dtype)
+
+
 # ----------------------------------------------------------------------
 # Block-sparse prefill attention
 # ----------------------------------------------------------------------
@@ -124,15 +187,21 @@ def sparse_attention(
     block: int,
     causal: bool,
     sm_scale: float,
+    q_block0: int = 0,
 ) -> torch.Tensor:
     """Pixelfly block-sparse attention in the grouped layout: q
-    (B, S, Hk, G, D), k, v (B, S, Hk, D), schedule kv_index/valid
-    (S // block, w). Every query block gathers its scheduled key blocks
-    and normalises over all of them at once. Returns (B, S, Hk, G, D)."""
+    (B, Sq, Hk, G, D), k, v (B, Sk, Hk, D), schedule kv_index/valid
+    (Sk // block, w). Every query block gathers its scheduled key blocks
+    and normalises over all of them at once. ``q_block0``: q holds the
+    query blocks ``q_block0 .. q_block0 + Sq // block`` of the sequence
+    (a query slice, the sequence-parallel mode): they read those rows of
+    the schedule and are masked causally at their absolute positions.
+    Returns (B, Sq, Hk, G, D)."""
     b, sq, hk, g, d = q.shape
     sk = k.shape[1]
     nqb = sq // block
-    kv = kv_index.long()
+    kv = kv_index.long()[q_block0 : q_block0 + nqb]
+    valid = valid[q_block0 : q_block0 + nqb]
     w = kv.shape[1]
     qb = q.reshape(b, nqb, block, hk, g, d).float()
     kg = k.reshape(b, sk // block, block, hk, d)[:, kv].float()  # (b,nqb,w,bk,hk,d)
@@ -142,7 +211,7 @@ def sparse_attention(
     kpos = kv[:, :, None] * block + ar  # (nqb, w, bk)
     ok = (valid[:, :, None] == 1).expand(nqb, w, block)
     if causal:
-        qpos = torch.arange(nqb, device=q.device)[:, None] * block + ar  # (nqb, bq)
+        qpos = (q_block0 + torch.arange(nqb, device=q.device))[:, None] * block + ar  # (nqb, bq)
         ok = ok[:, None] & (kpos[:, None] <= qpos[..., None, None])  # (nqb,bq,w,bk)
         s = s.masked_fill(~ok[None, :, None, None], float("-inf"))
     else:

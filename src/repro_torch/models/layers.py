@@ -10,6 +10,14 @@ linears, and the paged decode read); a dense model's bf16 attention on the
 card is PyTorch's flash kernel, as no TPU kernel stands behind it. Every parameter is trainable:
 ``apply_attention(mode="train")`` is the training step's attention, and
 the two training kernels run through ``kernels.autograd``.
+
+Tensor-parallel shards run ``attention_heads`` on their own heads (the JAX
+"heads" mode) where tp divides the kv heads; where it does not, serving
+runs the JAX "seq" mode (``attention_seq``): every shard joins the whole
+q, k and v, attends its slice of the query rows against the whole K/V in
+prefill, and in decode reads its head_dim slice of the pools (the JAX
+rules' fallback pool layout) through partial scores that are summed over
+the shards (``kernels.ops.paged_decode_scores`` and ``paged_decode_apply``).
 """
 
 from __future__ import annotations
@@ -58,6 +66,10 @@ __all__ = [
     "apply_mlp",
     "mlp_hidden",
     "tp_project",
+    "tp_whole",
+    "seq_mode",
+    "query_slices",
+    "attention_seq",
     "embed_tokens",
     "embed_tokens_tp",
     "lm_logits",
@@ -181,9 +193,12 @@ def flash_attention(
     *,
     sm_scale: float,
     chunk: int,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Causal attention for the dense prefill and training branch: q
-    (B,S,Hk,G,D), k, v (B,S,Hk,D) -> (B,S,Hk,G,D).
+    (B,Sq,Hk,G,D), k, v (B,Sk,Hk,D) -> (B,Sq,Hk,G,D), query i at key
+    position ``q_offset + i`` (the whole sequence by default; a query slice
+    in the sequence-parallel mode).
 
     bfloat16 on the card: PyTorch's flash-attention kernel
     (``scaled_dot_product_attention`` with only the flash backend
@@ -193,8 +208,8 @@ def flash_attention(
     dense baseline's attention. Everything else (the CPU, fp32 on the
     card): ``chunked_attention``, the JAX package's algorithm."""
     if q.is_cuda and q.dtype == torch.bfloat16:
-        return _sdpa_flash(q, k, v, sm_scale=sm_scale)
-    return chunked_attention(q, k, v, sm_scale=sm_scale, chunk=chunk)
+        return _sdpa_flash(q, k, v, sm_scale=sm_scale, q_offset=q_offset)
+    return chunked_attention(q, k, v, sm_scale=sm_scale, chunk=chunk, q_offset=q_offset)
 
 
 def chunked_attention(
@@ -204,12 +219,15 @@ def chunked_attention(
     *,
     sm_scale: float,
     chunk: int,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """The JAX package's ``flash_attention_jnp`` (causal): q (B,Sq,Hk,G,D),
-    k, v (B,Sk,Hk,D), query i at key position i; an online softmax over
-    chunks of ``min(chunk, Sk)`` keys, Sk zero-padded to a whole chunk and
-    the padded keys masked, the scale folded into q in fp32 and q cast
-    back to the model dtype. Holds no (Sq, Sk) tensor."""
+    k, v (B,Sk,Hk,D), query i at key position ``q_offset + i``; an online
+    softmax over chunks of ``min(chunk, Sk)`` keys, Sk zero-padded to a
+    whole chunk and the padded keys masked, the scale folded into q in
+    fp32 and q cast back to the model dtype. Holds no (Sq, Sk) tensor. A
+    query slice walks the same chunks of the same keys as the whole
+    sequence, so its rows are the whole call's."""
     sq, sk = q.shape[1], k.shape[1]
     chunk = min(chunk, sk)
     pad = (-sk) % chunk
@@ -217,7 +235,7 @@ def chunked_attention(
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     q_in = (q.float() * sm_scale).to(q.dtype).float()
-    qpos = torch.arange(sq, device=q.device)
+    qpos = q_offset + torch.arange(sq, device=q.device)
 
     def mask_fn(c0):
         kpos = c0 + torch.arange(chunk, device=q.device)
@@ -227,14 +245,26 @@ def chunked_attention(
 
 
 def _sdpa_flash(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sm_scale: float
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sm_scale: float, q_offset: int = 0
 ) -> torch.Tensor:
+    """The keys up to the last query row are read (the flash kernel takes
+    the causal flag only for as many keys as queries). A query slice
+    (``q_offset`` > 0) reads them with the causal mask aligned to the lower
+    right (``causal_lower_right``: its last query sees every one of them),
+    which reaches the flash kernel only with contiguous (B, H, S, D)
+    inputs; it refuses the transposed views."""
     b, sq, hk, g, d = q.shape
     qt = q.reshape(b, sq, hk * g, d).transpose(1, 2)  # head h = hk * G + g
+    kt, vt = k[:, : q_offset + sq].transpose(1, 2), v[:, : q_offset + sq].transpose(1, 2)
+    mask, causal = None, True
+    if q_offset:
+        from torch.nn.attention.bias import causal_lower_right
+
+        qt, kt, vt = (t.contiguous() for t in (qt, kt, vt))
+        mask, causal = causal_lower_right(sq, q_offset + sq), False
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         o = F.scaled_dot_product_attention(
-            qt, k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, scale=sm_scale, enable_gqa=g > 1,
+            qt, kt, vt, attn_mask=mask, is_causal=causal, scale=sm_scale, enable_gqa=g > 1,
         )
     return o.transpose(1, 2).reshape(b, sq, hk, g, d)
 
@@ -273,14 +303,16 @@ def sparse_prefill_attention(
     v: torch.Tensor,
     *,
     sm_scale: float,
+    q_block0: int = 0,
 ) -> torch.Tensor:
-    """Causal pixelfly attention of a prefill: q (B,S,Hk,G,D), k, v
-    (B,S,Hk,D), S a multiple of ``cfg.attn_block``. The card runs the
-    block-sparse attention kernel, the CPU its plain version, both through
-    ``autograd.BlockSparseAttention`` (whose backward is the JAX package's
-    gradient of the gathered sparse attention)."""
+    """Causal pixelfly attention of a prefill: q (B,Sq,Hk,G,D), k, v
+    (B,S,Hk,D), S a multiple of ``cfg.attn_block``; q holds the query
+    blocks from ``q_block0`` on (the whole sequence by default). The card
+    runs the block-sparse attention kernel, the CPU its plain version, both
+    through ``autograd.BlockSparseAttention`` (whose backward is the JAX
+    package's gradient of the gathered sparse attention)."""
     kv_index, valid = _schedule_tensors(
-        q.shape[1],
+        k.shape[1],
         cfg.attn_block,
         cfg.attn_local_blocks,
         cfg.attn_max_stride,
@@ -289,7 +321,7 @@ def sparse_prefill_attention(
     )
     return autograd.block_sparse_attention(
         q, k, v, kv_index, valid,
-        block=cfg.attn_block, causal=True, sm_scale=sm_scale,
+        block=cfg.attn_block, causal=True, sm_scale=sm_scale, q_block0=q_block0,
     )
 
 
@@ -337,12 +369,15 @@ def prefix_flash_attention(
     sm_scale: float,
     chunk: int,
     block_cfg: tuple[int, int, int, int] | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Partial-prefill attention: suffix queries over [prefix ; suffix],
     the JAX package's ``prefix_flash_attention_jnp``.
 
     q (B,Sq,Hk,G,D) are the uncached suffix queries, at absolute positions
-    ``prefix_len[b] + i``; k_suf/v_suf (B,Sq,Hk,D) their keys; k_pre/v_pre
+    ``prefix_len[b] + q_offset + i`` (``q_offset``: the first suffix row q
+    holds, a query slice in the sequence-parallel mode); k_suf/v_suf
+    (B,Ss,Hk,D) the whole suffix's keys; k_pre/v_pre
     (B,Lp,Hk,D) the cached prefix K/V gathered through the page table
     (rows valid where j < prefix_len[b]; the rest is trash-page padding).
     Online softmax over KV chunks of ``chunk`` keys with per-row masks
@@ -358,7 +393,7 @@ def prefix_flash_attention(
     lp = k_pre.shape[1]
     k = torch.cat([k_pre.to(k_suf.dtype), k_suf], dim=1)
     v = torch.cat([v_pre.to(v_suf.dtype), v_suf], dim=1)
-    sk = lp + sq
+    sk = lp + k_suf.shape[1]
     chunk = min(chunk, sk)
     pad = (-sk) % chunk
     if pad:
@@ -367,7 +402,7 @@ def prefix_flash_attention(
     dev = q.device
     q_in = (q.float() * sm_scale).to(q.dtype).float()
     plen = prefix_len.long()[:, None]
-    qpos = plen + torch.arange(sq, device=dev)[None, :]  # (B, Sq) absolute
+    qpos = plen + q_offset + torch.arange(sq, device=dev)[None, :]  # (B, Sq) absolute
 
     def mask_fn(c0):
         j = c0 + torch.arange(chunk, device=dev)[None, :]  # [prefix ; suffix]
@@ -402,11 +437,24 @@ def _decode_softmax_out(
     fp32 scores and P @ V with P rounded to v's dtype, as the JAX
     package's grouped einsums with an fp32 preferred type. A row with no
     visible key gives 0."""
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * sm_scale
-    s = s.masked_fill(~ok, float("-inf"))
+    return _decode_apply(_decode_dots(q, k), v, ok, sm_scale, q.dtype)
+
+
+def _decode_dots(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The fp32 dot products (B,Hk,G,1,Sk) of q (B,1,Hk,G,D) with k
+    (B,Sk,Hk,D): over a head_dim slice, a shard's partial scores."""
+    return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+
+
+def _decode_apply(
+    dots: torch.Tensor, v: torch.Tensor, ok: torch.Tensor, sm_scale: float, dtype: torch.dtype
+) -> torch.Tensor:
+    """The masked softmax of ``sm_scale`` times the dot products, P rounded
+    to v's dtype, times v (B,Sk,Hk,Dv): (B,1,Hk,G,Dv) in ``dtype``."""
+    s = (dots * sm_scale).masked_fill(~ok, float("-inf"))
     p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
-    return o.to(q.dtype)
+    return o.to(dtype)
 
 
 def decode_attention(
@@ -441,10 +489,18 @@ def sparse_decode_attention(
     the paged layout with an identity page table, so the schedule is
     ``paged_sparse_schedule``'s; a block listed twice (an XOR collision)
     is read once."""
-    b, _, hk, _, d = q.shape
+    kg, vg, ok = _sparse_decode_keys(k_cache, v_cache, pos, block, local_blocks, global_blocks)
+    return _decode_softmax_out(q, kg, vg, ok, sm_scale)
+
+
+def _sparse_decode_keys(k_cache, v_cache, pos: int, block: int, local_blocks: int, global_blocks: int):
+    """The key and value blocks (B, w·block, Hk, D) of a contiguous cache
+    that a pixelfly decode at ``pos`` reads, and which of them it sees."""
+    b, _, hk, d = k_cache.shape
+    dev = k_cache.device
     nb = k_cache.shape[1] // block
-    table = torch.arange(nb, dtype=torch.int32, device=q.device)[None]
-    pos_t = torch.full((1,), pos, dtype=torch.int32, device=q.device)
+    table = torch.arange(nb, dtype=torch.int32, device=dev)[None]
+    pos_t = torch.full((1,), pos, dtype=torch.int32, device=dev)
     idx, _, first = paged_sparse_schedule(
         table, pos_t, block, local_blocks=local_blocks, global_blocks=global_blocks
     )
@@ -452,9 +508,9 @@ def sparse_decode_attention(
     w = idx.shape[0]
     kg = k_cache.reshape(b, nb, block, hk, d)[:, idx].reshape(b, w * block, hk, d)
     vg = v_cache.reshape(b, nb, block, hk, d)[:, idx].reshape(b, w * block, hk, d)
-    kpos = (idx[:, None] * block + torch.arange(block, device=q.device)[None]).reshape(-1)
+    kpos = (idx[:, None] * block + torch.arange(block, device=dev)[None]).reshape(-1)
     ok = (kpos <= pos) & first.repeat_interleave(block)
-    return _decode_softmax_out(q, kg, vg, ok, sm_scale)
+    return kg, vg, ok
 
 
 # ----------------------------------------------------------------------
@@ -813,13 +869,28 @@ def _swiglu(gate: torch.Tensor, up: torch.Tensor, dtype: torch.dtype) -> torch.T
 
 def tp_linear(linears: list[Linear], xs: list[torch.Tensor]) -> list[torch.Tensor]:
     """Each shard's linear on its input. A column-sliced pixelfly shard
-    (``Linear.cols``) takes the whole ``V``: the shards' rows of it, as the
-    JAX rules place them (contiguous), are all-gathered first; the
-    gather's backward is the reduce-scatter of their gradients."""
-    if linears[0].cols is None:
+    (``Linear.cols``) takes the whole ``V`` and bias: the shards' rows of
+    them, as the JAX rules place them (contiguous; a bias the rules leave
+    whole is taken as it is), are all-gathered first; the gather's
+    backward is the reduce-scatter of their gradients."""
+    lin = linears[0]
+    if lin.cols is None:
         return [li(x) for li, x in zip(linears, xs)]
     vs = collectives.all_gather([li.V for li in linears], dim=0)
-    return [li(x, v) for li, x, v in zip(linears, xs, vs)]
+    bs = [None] * len(linears)
+    if lin.spec.use_bias:
+        bs = [li.b for li in linears]
+        if lin.b.shape[0] < lin.spec.out_features:
+            bs = collectives.all_gather(bs, dim=0)
+    return [li(x, v, b) for li, x, v, b in zip(linears, xs, vs, bs)]
+
+
+def tp_whole(linears: list[Linear], xs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Each shard's slice of a linear's output (``tp_linear``), joined into
+    the whole output in feature order on every shard (an all-gather, then
+    ``in_feature_order``): the sequence-parallel mode's q, k and v."""
+    ys = collectives.all_gather(tp_linear(linears, xs), dim=-1)
+    return in_feature_order(linears[0], ys)
 
 
 def in_feature_order(lin: Linear, ys: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -852,7 +923,9 @@ def tp_mlp(mlps: list[Mlp], xs: list[torch.Tensor]) -> list[torch.Tensor]:
     return tp_project([m.wd for m in mlps], hidden, source=mlps[0].wg)
 
 
-def tp_project(linears: list[Linear], hs: list[torch.Tensor], source: Linear | None = None) -> list[torch.Tensor]:
+def tp_project(
+    linears: list[Linear], hs: list[torch.Tensor], source: Linear | None = None, *, whole: bool = False
+) -> list[torch.Tensor]:
     """The output projection (``o`` or ``down``) of ``tp`` shards, from each
     shard's slice of its input (its heads, its hidden units) to the whole
     output on every shard, as the JAX layouts place it
@@ -862,14 +935,170 @@ def tp_project(linears: list[Linear], hs: list[torch.Tensor], source: Linear | N
     put back in feature order (``in_feature_order``; ``source``: the linear
     whose shards made the inputs, ``down``'s ``gate``); a dense one is
     row-parallel (its rows of ``w``), so the partial products are
-    all-reduced."""
+    all-reduced. ``whole``: each of ``hs`` is already the whole input (the
+    sequence-parallel mode's heads): a pixelfly linear takes it as it is,
+    a dense one its shard's rows of the input features."""
     if linears[0].spec.sparse:
-        full = collectives.all_gather(hs, dim=-1)
-        if source is not None:
+        full = hs if whole else collectives.all_gather(hs, dim=-1)
+        if source is not None and not whole:
             full = in_feature_order(source, full)
         out = collectives.all_gather(tp_linear(linears, full), dim=-1)
         return in_feature_order(linears[0], out)
+    if whole:
+        n = linears[0].w.shape[0]
+        hs = [h[..., r * n : (r + 1) * n] for r, h in enumerate(hs)]
     return collectives.all_reduce([lin(h) for lin, h in zip(linears, hs)])
+
+
+def seq_mode(cfg: ModelConfig, tp: int) -> bool:
+    """Whether ``tp`` shards run attention in the JAX "seq" mode: tp does
+    not divide the kv heads (``attention_seq``)."""
+    return tp > 1 and cfg.num_kv_heads % tp != 0
+
+
+def query_slices(s: int, tp: int, unit: int) -> list[tuple[int, int]]:
+    """The query rows [a, b) each of ``tp`` shards attends in the
+    sequence-parallel mode: the S rows cut into whole units of ``unit``
+    rows (the attention block where the block-sparse kernel runs, else
+    one row), shard r taking units [r·n // tp, (r+1)·n // tp) of the n.
+    That is the JAX "seq" mode's [S·r/tp, S·(r+1)/tp) wherever S/tp is a
+    whole number of units; where it is not (the JAX rules then give no
+    constraint) a shard takes whole units all the same, and where there
+    are fewer units than shards some shards take none. Every row's result
+    is the whole sequence's, whichever shard computes it."""
+    n = s // unit
+    return [(r * n // tp * unit, (r + 1) * n // tp * unit) for r in range(tp)]
+
+
+def attention_seq(
+    cfg: ModelConfig,
+    attns: list[Attention],
+    xs: list[torch.Tensor],
+    cos: list[torch.Tensor],
+    sin: list[torch.Tensor],
+    kws: list[dict],
+    caches: list | None = None,
+) -> tuple[list[torch.Tensor], list]:
+    """Attention on ``tp`` shards in the JAX "seq" mode (tp does not divide
+    the kv heads; serving only). Returns (each shard's whole heads' output
+    (B, S, H·D), ready for ``tp_project(..., whole=True)`` of ``o``; each
+    shard's fresh (k, v) head_dim slice (B, S, Hk, D/tp) in the prefill
+    modes, else None).
+
+    Every shard joins the whole q, k and v from the shards' slices of the
+    projections (``tp_whole``), so qk-norm and RoPE run on whole heads.
+    Shard r's caches hold its slice [r·D/tp, (r+1)·D/tp) of head_dim, the
+    JAX rules' fallback layout (``paged_pool_entry``, ``cache_specs``).
+    The modes (``kws[r]["mode"]``, the arguments of ``attention_heads``):
+
+    - ``prefill``: shard r attends its query rows (``query_slices``) of
+      every head against the whole K/V: the block-sparse kernel on its
+      query blocks, or the dense attention at its row offset; the rows are
+      all-gathered back into the whole sequence.
+    - ``prefill_prefix``: the same for a partial prefill; each shard reads
+      its slice of the cached prefix pages, all-gathered along head_dim.
+    - ``decode_paged``: each slot's token's q, k and v are cut on head_dim;
+      each shard writes its k and v slices into its pools and computes
+      partial scores on them (``ops.paged_decode_scores``); the scores are
+      all-reduced (fp32, in rank order) and each shard takes the softmax
+      of the sum times its value slice (``ops.paged_decode_apply``); the
+      head_dim slices of the output are all-gathered.
+    - ``decode``: the same over contiguous caches (B, S_max, Hk, D/tp),
+      with plain torch ops, as ``decode_attention`` and
+      ``sparse_decode_attention`` (whose block gather each shard takes on
+      its slice).
+
+    Training in this mode is refused (ROADMAP Queue 1 item 16)."""
+    c = cfg
+    tp = len(attns)
+    mode = kws[0]["mode"]
+    if mode not in ("prefill", "prefill_prefix", "decode_paged", "decode"):
+        raise ValueError(
+            f"{c.name} at tp={tp}: attention in the {mode!r} mode on kv heads that tp does not divide; the "
+            f"sequence-parallel mode serves only: ROADMAP Queue 1 item 16 (training in the sequence-parallel mode)"
+        )
+    b, s, _ = xs[0].shape
+    d = c.head_dim
+    dc = d // tp
+    scale = d ** -0.5
+    qs = tp_whole([a.wq for a in attns], xs)
+    ks = tp_whole([a.wk for a in attns], xs)
+    vs = tp_whole([a.wv for a in attns], xs)
+    heads = []
+    for r, attn in enumerate(attns):
+        q, k, v = qs[r].reshape(b, s, -1, d), ks[r].reshape(b, s, -1, d), vs[r].reshape(b, s, -1, d)
+        if c.qk_norm:
+            q = rmsnorm(attn.q_norm, q, c.norm_eps)
+            k = rmsnorm(attn.k_norm, k, c.norm_eps)
+        q, k = apply_rope(q, cos[r], sin[r]), apply_rope(k, cos[r], sin[r])
+        heads.append((q.reshape(b, s, k.shape[2], -1, d), k, v))
+    hk, g = heads[0][0].shape[2:4]
+    dsl = [slice(r * dc, (r + 1) * dc) for r in range(tp)]
+    if mode in ("prefill", "prefill_prefix"):
+        sparse = c.sparse_attention and s >= c.attn_block and s % c.attn_block == 0
+        rows = query_slices(s, tp, c.attn_block if sparse else 1)
+        if mode == "prefill_prefix":
+            pre = []
+            for name in ("k", "v"):
+                parts = []
+                for r in range(tp):
+                    idx = kws[r]["prefix_rows"].long()
+                    parts.append(caches[r][name][idx].reshape(b, -1, hk, dc))
+                pre.append(collectives.all_gather(parts, dim=-1))
+        outs = []
+        for r, (qg, k, v) in enumerate(heads):
+            a0, a1 = rows[r]
+            if a0 == a1:
+                outs.append(qg.new_zeros((b, 0, hk, g, d)))
+            elif mode == "prefill_prefix":
+                block_cfg = ((c.attn_block, c.attn_local_blocks, c.attn_global_blocks, c.attn_max_stride)
+                             if sparse else None)
+                with torch.profiler.record_function("prefix_flash_attention"):
+                    outs.append(prefix_flash_attention(
+                        qg[:, a0:a1], k, v, pre[0][r], pre[1][r], kws[r]["pos"],
+                        sm_scale=scale, chunk=c.attn_chunk, block_cfg=block_cfg, q_offset=a0))
+            elif sparse:
+                outs.append(sparse_prefill_attention(c, qg[:, a0:a1].contiguous(), k, v, sm_scale=scale,
+                                                     q_block0=a0 // c.attn_block))
+            else:
+                outs.append(flash_attention(qg[:, a0:a1], k, v, sm_scale=scale, chunk=c.attn_chunk, q_offset=a0))
+        o = collectives.all_gather(outs, dim=1)
+        fresh = [(k[..., dsl[r]], v[..., dsl[r]]) for r, (_, k, v) in enumerate(heads)]
+        return [t.reshape(b, s, hk * g * d) for t in o], fresh
+    dots, values, oks = [], [], []
+    for r, (qg, k, v) in enumerate(heads):
+        kc, vc = caches[r]["k"], caches[r]["v"]
+        qr = qg[..., dsl[r]]
+        if mode == "decode_paged":
+            index = kws[r]["index"]
+            kc[index.write_page, index.write_off] = k[:, 0, :, dsl[r]].to(kc.dtype)
+            vc[index.write_page, index.write_off] = v[:, 0, :, dsl[r]].to(vc.dtype)
+            dots.append(ops.paged_decode_scores(qr[:, 0].contiguous(), kc, index.phys, index.logical, index.keep,
+                                                kws[r]["pos"]))
+            continue
+        pos = kws[r]["pos"]
+        kc[:, pos] = k[:, 0, :, dsl[r]].to(kc.dtype)
+        vc[:, pos] = v[:, 0, :, dsl[r]].to(vc.dtype)
+        smax = kc.shape[1]
+        if c.sparse_attention and smax % c.attn_block == 0 and smax >= 2 * c.attn_block:
+            kg, vg, ok = _sparse_decode_keys(kc, vc, pos, c.attn_block, c.attn_local_blocks, c.attn_global_blocks)
+        else:
+            kg, vg, ok = kc, vc, torch.arange(smax, device=kc.device) <= pos
+        dots.append(_decode_dots(qr, kg))
+        values.append(vg)
+        oks.append(ok)
+    summed = collectives.all_reduce(dots)
+    outs = []
+    for r, (qg, _, _) in enumerate(heads):
+        if mode == "decode_paged":
+            index = kws[r]["index"]
+            o = ops.paged_decode_apply(summed[r], caches[r]["v"], index.phys, index.logical, index.keep,
+                                       kws[r]["pos"], sm_scale=scale)[:, None]
+        else:
+            o = _decode_apply(summed[r], values[r], oks[r], scale, qg.dtype)
+        outs.append(o.to(qg.dtype))
+    o = collectives.all_gather(outs, dim=-1)
+    return [t.reshape(b, s, hk * g * d) for t in o], [None] * tp
 
 
 def embed_tokens(embed: Embedding, tokens: torch.Tensor) -> torch.Tensor:

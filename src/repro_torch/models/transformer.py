@@ -65,7 +65,11 @@ or, in an MoE layer, its experts and router columns (``moe.apply_moe_tp``)
 and its slice of the shared experts; ``layers.tp_project``, the MoE joins
 and the vocab-sharded embedding and logits join them
 (``distributed.collectives``); the residual stream and the norms are
-replicated. The logits are gathered
+replicated. Where tp does not divide the kv heads, serving runs attention
+in the JAX "seq" mode instead of by heads (``layers.attention_seq``: the
+whole q, k and v on every shard, each shard's query rows in prefill, the
+pools and contiguous caches cut on head_dim, the decode scores summed over
+the shards), and ``o`` takes the whole rows. The logits are gathered
 onto the first shard's device, where the fused sampler runs once.
 ``forward_train`` takes a ``ShardedLM`` too (``build_shards(...,
 trainable=True)``, the mesh trainer's, ``training.loop``): the same layers
@@ -246,44 +250,49 @@ class ShardedLM(nn.Module):
 
 # the dimensions of the full tensor that the JAX rules may put on the model
 # axis for each kind of tensor, in the layouts the shard-local forms
-# compute ("heads" mode; pixelfly and dense linears on their natural axis,
-# an MLP's pixelfly gate or up (dense or shared experts') on its blocks'
-# output columns where tp does not divide its block rows; the MoE experts on their expert
-# axis and the router on its columns; a vocab-sharded table); None =
+# compute (pixelfly and dense linears on their natural axis; a pixelfly
+# gate, up, o or down (dense or shared experts') on its blocks' output
+# columns where tp does not divide its block rows; the MoE experts on their
+# expert axis and the router on its columns; a vocab-sharded table); None =
 # replicated. The first pattern that matches decides; a spec that differs
-# is a layout this port does not have.
+# is a layout this port does not have. In the sequence-parallel mode
+# (``_SEQ_LAYOUT`` first) q, k and v may be cut on their blocks' output
+# columns too: their slices are joined into whole heads there.
 _TP_LAYOUT = (
     (r"embed\.tok$", {0}),
     (r"head\.w$", {1}),
     (r"\.moe\.router$", {1}),
     (r"\.moe\.w[gud](\.(blocks|U|V|gamma))?$", {0}),
-    (r"\.(wg|wu)\.blocks$", {0, 3}),
+    (r"\.(wg|wu|wo|wd)\.blocks$", {0, 3}),
     (r"\.(blocks|V|b)$", {0}),
     (r"\.(wq|wk|wv|wg|wu)\.w$", {1}),
     (r"\.(wo|wd)\.w$", {0}),
     (r"\.(U|gamma|scale|q_norm|k_norm)$", {None}),
 )
+_SEQ_LAYOUT = ((r"\.(wq|wk|wv)\.blocks$", {0, 3}),)
 
 
 def check_tp_layout(cfg: ModelConfig, st: sharding.Strategy, shapes: dict) -> dict:
     """Refuse (``ValueError``) any configuration ``sharding.check_tp``
-    refuses and any tensor whose tensor-parallel spec is not the layout the
-    shard-local forms compute (a q, k or v projection cut on its blocks'
-    output columns would split heads: the heads mode takes whole heads; an
-    o or down projection so cut is in no configuration the port runs).
+    refuses in serving and any tensor whose tensor-parallel spec is not
+    the layout the shard-local forms compute:
+    in the heads mode a q, k or v projection cut on its blocks' output
+    columns would split heads, which the heads mode takes whole; in the
+    sequence-parallel mode (serving where tp does not divide the kv heads)
+    the shards join q, k and v whole, so those cuts are taken.
     ``shapes``: a state dict (or anything with shapes). Returns the
     specs."""
     tp = st.tp_size
     sharding.check_tp(cfg, tp)
+    layout = (_SEQ_LAYOUT if L.seq_mode(cfg, tp) else ()) + _TP_LAYOUT
     specs = sharding.param_specs(st, shapes)
     for name, spec in specs.items():
-        want = next((d for pat, d in _TP_LAYOUT if re.search(pat, name)), set())
+        want = next((d for pat, d in layout if re.search(pat, name)), set())
         got = sharding.model_dim(st, spec)
         if got not in want:
             raise ValueError(
-                f"{cfg.name} at tp={tp}: {name} {tuple(shapes[name].shape)} has spec {spec}, not the "
-                f"layout of the port's tensor-parallel forms (of the blocks cut on their output columns they "
-                f"take an MLP's gate and up only); ROADMAP Queue 1 item 16"
+                f"{cfg.name} at tp={tp}: {name} {tuple(shapes[name].shape)} has spec {spec}, not a layout "
+                f"the port's tensor-parallel forms take; ROADMAP Queue 1 item 16"
             )
     return specs
 
@@ -346,9 +355,9 @@ def shard_model(cfg: ModelConfig, mesh: Mesh, state_dict: dict[str, torch.Tensor
     tp)`` mesh by ``distributed.sharding``'s tensor-parallel specs; shard r
     goes to the mesh's device r (a slice of dim 0 stays a view where the
     device and dtype already match, so shards on the state dict's own
-    device share its memory). Refuses what ``check_tp_layout`` refuses.
-    The mesh trainer builds its trainable shards with ``build_shards``
-    from tensors it gathers over the data axes."""
+    device share its memory). Refuses what ``check_tp_layout`` refuses in
+    serving. The mesh trainer builds its trainable shards with
+    ``build_shards`` from tensors it gathers over the data axes."""
     st = sharding.Strategy(mesh, "tp")
     check_tp_layout(cfg, st, state_dict)
     parts = sharding.shard_state_dict(st, mesh, state_dict)
@@ -477,15 +486,17 @@ def init_mesh_cache(cfg: ModelConfig, state, batch: int, max_len: int, *, replic
     ``training.loop.MeshState``): one entry a data replica (every replica,
     or replica ``replica`` alone), ``init_cache`` of its rows on its first
     position's device; under tp one cache a model shard, each with its kv
-    heads (the heads mode). The JAX decode layout
-    (``sharding.cache_specs(layout="decode")``) puts the model axis on
-    ``head_dim`` where the port cuts the kv heads: a position holds the
-    same bytes. A layout that cuts the sequence (a batch of one row on a
-    mesh with data axes) needs sequence-parallel attention and is refused
-    (ROADMAP Queue 1 item 16); so is anything ``sharding.check_tp``
-    refuses, by the ``MeshState``. An SSM group's state stays whole in each
-    replica where the JAX layout cuts its longest dimension over the data
-    axes (ROADMAP Queue 3)."""
+    heads (the heads mode) or, where tp does not divide the kv heads (the
+    sequence-parallel mode), its slice of ``head_dim``. The JAX decode
+    layout (``sharding.cache_specs(layout="decode")``) puts the model axis
+    on ``head_dim`` in both: in the heads mode, where the port cuts the kv
+    heads, a position holds the same bytes. A layout that cuts the
+    sequence (a batch of one row on a mesh with data axes) needs
+    sequence-parallel decode attention and is refused (ROADMAP Queue 1
+    item 16); so is anything ``sharding.check_tp`` refuses, by the
+    ``MeshState``. An SSM group's state stays whole in each replica where
+    the JAX layout cuts its longest dimension over the data axes (ROADMAP
+    Queue 3)."""
     check_mesh_cache(cfg, state.st, batch, max_len)
     reps = state.replicas(batch)
     out = []
@@ -494,7 +505,10 @@ def init_mesh_cache(cfg: ModelConfig, state, batch: int, max_len: int, *, replic
         if state.tp == 1:
             out.append(init_cache(cfg, rows, max_len, device=state.devices[ps[0]]))
             continue
-        shape = (rows, max_len, cfg.num_kv_heads // state.tp, cfg.head_dim)
+        if L.seq_mode(cfg, state.tp):
+            shape = (rows, max_len, cfg.num_kv_heads, cfg.head_dim // state.tp)
+        else:
+            shape = (rows, max_len, cfg.num_kv_heads // state.tp, cfg.head_dim)
         out.append([[{name: torch.zeros((g.count, *shape), dtype=cfg.torch_dtype, device=state.devices[p])
                       for name in ("k", "v")} for g in cfg.layer_groups()] for p in ps])
     return out
@@ -509,7 +523,8 @@ def check_mesh_cache(cfg: ModelConfig, st: sharding.Strategy, batch: int, max_le
         if g.kind != "ssm" and sharding.axes_size(st.mesh, spec["k"][2]) > 1:
             raise ValueError(
                 f"{cfg.name}: a decode cache of {batch} row(s) x {max_len} on mesh {st.mesh.shape} is cut along "
-                f"the sequence ({spec['k']}), which needs sequence-parallel attention; {sharding.REFUSED['attention']}"
+                f"the sequence ({spec['k']}), which needs decode attention over a sequence-cut cache; "
+                f"{sharding.REFUSED['attention']}"
             )
 
 
@@ -572,9 +587,10 @@ def prefill(
     Hk, D), the prompt's K/V in the first S rows and zeros after, so
     ``decode_step`` continues from position S.
 
-    ``model`` may also be a ``ShardedLM`` (the heads mode: each shard's
-    heads and SwiGLU slice, joined as in ``prefill_paged``; the caches one
-    list a shard, each with its kv heads) or a ``training.loop.MeshState``
+    ``model`` may also be a ``ShardedLM`` (each shard's heads, or its query
+    rows in the sequence-parallel mode, and its SwiGLU slice, joined as in
+    ``prefill_paged``; the caches one list a shard, each with its kv heads
+    or its head_dim slice) or a ``training.loop.MeshState``
     (the JAX ``prefill`` on a mesh under fsdp or tp): each data replica
     (``sharding.batch_specs``'s distinct rows) gathers its parameters
     (``MeshState.model_for``) and runs its rows; the caches are one entry a
@@ -726,21 +742,30 @@ def _tp_block(
     """One ``dense`` or ``moe`` block on every shard: its heads
     (``attention_heads`` with its ``kws``, on its ``pools`` with the fresh
     K/V scattered into them at ``rows`` when given, and appended to
-    ``fresh`` when it is a list), ``tp_project`` of ``o``, then its SwiGLU
-    slice (``layers.tp_mlp``) or its experts (``moe.apply_moe_tp``).
-    Returns each shard's residual stream and the block's load-balance loss
-    (None for a dense block)."""
-    heads = []
-    for r, blk in enumerate(blks):
-        h = L.rmsnorm(blk.attn_norm.scale, x[r], cfg.norm_eps)
-        o, kv = L.attention_heads(cfg, blk.attn, h, cos[r], sin[r],
-                                  cache=None if pools is None else pools[r], **kws[r])
+    ``fresh`` when it is a list) and ``tp_project`` of ``o``, or, where tp
+    does not divide the kv heads, the sequence-parallel attention
+    (``layers.attention_seq``: the same pools and fresh K/V, each a
+    head_dim slice) and ``o`` on its whole rows; then its SwiGLU slice
+    (``layers.tp_mlp``) or its experts (``moe.apply_moe_tp``). Returns each
+    shard's residual stream and the block's load-balance loss (None for a
+    dense block)."""
+    hs = [L.rmsnorm(blk.attn_norm.scale, a, cfg.norm_eps) for blk, a in zip(blks, x)]
+    seq = L.seq_mode(cfg, len(blks))
+    if seq:
+        heads, kvs = L.attention_seq(cfg, [blk.attn for blk in blks], hs, cos, sin, kws, pools)
+    else:
+        heads, kvs = [], []
+        for r, blk in enumerate(blks):
+            o, kv = L.attention_heads(cfg, blk.attn, hs[r], cos[r], sin[r],
+                                      cache=None if pools is None else pools[r], **kws[r])
+            heads.append(o)
+            kvs.append(kv)
+    for r, kv in enumerate(kvs):
         if rows is not None and rows[r] is not None:
             _scatter_pages(pools[r], kv, rows[r])
         if fresh is not None:
             fresh.append(kv)
-        heads.append(o)
-    y = L.tp_project([blk.attn.wo for blk in blks], heads)
+    y = L.tp_project([blk.attn.wo for blk in blks], heads, whole=seq)
     x = [a + b for a, b in zip(x, y)]
     h = [L.rmsnorm(blk.mlp_norm.scale, a, cfg.norm_eps) for blk, a in zip(blks, x)]
     lb = None

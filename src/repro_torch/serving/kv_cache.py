@@ -305,8 +305,10 @@ def _shard_pools(cfg: ModelConfig, mesh, n_pages: int, page: int) -> list[list[d
     """One list of zero pools a shard of ``mesh``: the full pools' shapes
     (``init_paged_cache`` on the meta device) with the dimension that
     ``cache_specs(layout="paged")`` puts on the model axis divided by tp,
-    on each shard's device. A layout that shards head_dim (kv heads the
-    mesh does not divide) is refused by ``sharding.check_tp`` first."""
+    on each shard's device: the kv heads, or ``head_dim`` where the mesh
+    does not divide the kv heads (each shard then holds every page's slice
+    of each head, and copy on write and swap move those slices). What
+    ``sharding.check_tp`` refuses in serving is refused first."""
     st = sharding.Strategy(mesh, "tp")
     sharding.check_tp(cfg, st.tp_size)
     full = T.init_paged_cache(cfg, n_pages, page, device="meta")

@@ -11,7 +11,10 @@ qwen3-1.7b and musicgen-large ``train_4k`` on 16 x 16 equal the sum of
 JAX's ``NamedSharding.shard_shape`` bytes; (iv) smoke qwen3-1.7b on (2, 2)
 and (1, 2) under both strategies: the counted FLOPs of one position equal
 the JAX walker's of ``lower_cell(...).compile()`` up to named terms that
-the test computes, and the argument bytes equal XLA's exactly; (v) one
+the test computes, and the argument bytes equal XLA's exactly, and so
+do smoke deepseek-moe-16b's under expert parallelism and smoke
+qwen3-1.7b's prefill and decode at tp 4 (1, 4), the sequence-parallel
+mode, whose collective bytes are printed beside the walker's; (v) one
 position's count times the positions equals the whole mesh's; (vi) a
 meta count equals a CPU count; (vii) the fsdp step's all-gather and
 reduce-scatter bytes equal the walker's rule over the parameters; (viii)
@@ -132,7 +135,8 @@ def lowrank_flops(text):
                                            for l in text.splitlines())).flops
 
 devs = jax.devices()
-for group, arch in (("cells", "qwen3-1.7b"), ("moe_cells", "deepseek-moe-16b")):
+out["collectives"] = {}
+for group, arch in (("cells", "qwen3-1.7b"), ("moe_cells", "deepseek-moe-16b"), ("seq_cells", "qwen3-1.7b")):
     out[group] = {}
     for key, (shape, strat, cell) in req[group].items():
         n = shape[0] * shape[1]
@@ -142,8 +146,9 @@ for group, arch in (("cells", "qwen3-1.7b"), ("moe_cells", "deepseek-moe-16b")):
             cfg = cfg.replace(remat=False)
         c = D.lower_cell(cfg, SHAPES[cell], m, strategy=strat).compile()
         text = c.as_text()
-        out[group][key] = [roofline.analyze_hlo(text).flops, c.memory_analysis().argument_size_in_bytes,
-                           lowrank_flops(text)]
+        walked = roofline.analyze_hlo(text)
+        out[group][key] = [walked.flops, c.memory_analysis().argument_size_in_bytes, lowrank_flops(text)]
+        out["collectives"][f"{group} {key}"] = dict(walked.collective_bytes)
 
 import jax.numpy as jnp
 from repro.serving import Engine, EngineConfig
@@ -166,6 +171,8 @@ def _cells() -> dict:
 
 # (iv) smoke deepseek-moe-16b under expert parallelism, one cell a mesh
 MOE_CELLS = {"2x2 tp prefill_32k": [[2, 2], "tp", "prefill_32k"], "1x2 tp decode_32k": [[1, 2], "tp", "decode_32k"]}
+# (iv) smoke qwen3-1.7b (2 kv heads) at tp 4: the sequence-parallel mode
+SEQ_CELLS = {"1x4 tp prefill_32k": [[1, 4], "tp", "prefill_32k"], "1x4 tp decode_32k": [[1, 4], "tp", "decode_32k"]}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -177,7 +184,8 @@ def _jax_proc():
     err = tempfile.TemporaryFile(mode="w+")
     proc = subprocess.Popen([sys.executable, "-c", _JAX], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                             stderr=err, text=True, env=env)
-    proc.stdin.write(json.dumps({"cells": _cells(), "moe_cells": MOE_CELLS, "engine": ENGINE}))
+    proc.stdin.write(json.dumps({"cells": _cells(), "moe_cells": MOE_CELLS, "seq_cells": SEQ_CELLS,
+                                 "engine": ENGINE}))
     proc.stdin.close()
     _JAX_STATE.update(proc=proc, err=err)
     yield
@@ -378,20 +386,25 @@ def test_dryrun_cli_full_width_cell_and_refusals(tmp_path, monkeypatch, capsys):
     assert set(row) == JAX_ROW_KEYS and row["ok"] and row["mesh"] == "16x16" and row["strategy"] == "fsdp"
     assert row["xla_cost_flops_per_device"] is None and row["bottleneck"] in ("compute", "memory", "collective")
     assert row["collective_breakdown"]["all-gather"] > 0 and 0 < row["useful_flops_ratio"] < 1
-    # --all over the refused archs: a row each, naming its item; exit 1
+    # --all over the refused cells: a row each, naming its item; exit 1
+    # (deepseek-67b's and kimi-k2's prefill and decode cells count in the
+    # sequence-parallel mode; their train cells are refused)
     monkeypatch.setattr(registry, "ARCH_NAMES", ["deepseek-67b", "kimi-k2-1t-a32b", "zamba2-2.7b"])
+    shapes_for = registry.shapes_for
+    monkeypatch.setattr(registry, "shapes_for", lambda name, sparse=False: [
+        s for s in shapes_for(name, sparse=sparse) if name == "zamba2-2.7b" or s.kind == "train"])
     refused = tmp_path / "refused.json"
     assert D.main(["--all", "--json", str(refused)]) == 1
     rows = json.loads(refused.read_text())
     items = {"deepseek-67b": "item 16", "kimi-k2-1t-a32b": "item 16", "zamba2-2.7b": "item 18"}
-    assert len(rows) == 10 and all(not r["ok"] and items[r["arch"]] in r["error"] for r in rows)
+    assert len(rows) == 6 and all(not r["ok"] and items[r["arch"]] in r["error"] for r in rows)
     table = report.render(str(refused))
-    assert table.count("FAILED") == 10
+    assert table.count("FAILED") == 6
     both = tmp_path / "both.json"
     both.write_text(json.dumps([row] + rows))
     assert "| qwen3-1.7b | train_4k | 16x16 | fsdp |" in report.render(str(both))
     names = [n for n, _, _ in roofline_report.rows(both)]
-    assert names[0] == "roofline/qwen3-1.7b/train_4k/16x16" and len(names) == 11
+    assert names[0] == "roofline/qwen3-1.7b/train_4k/16x16" and len(names) == 7
     assert roofline_report.DEFAULT.name == "dryrun_baseline_torch.json"
 
 
@@ -701,6 +714,30 @@ def test_moe_counted_flops_equal_jax_walker_up_to_named_terms(key):
     assert c["cost"].flops + sum(terms.values()) == jflops, terms
     assert terms["split_lowrank"] < 0 and c["argument_bytes"] == jargs
     assert c["cost"].collective_bytes["all-gather"] > 0 and c["cost"].collective_bytes["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("key", list(SEQ_CELLS))
+def test_seq_parallel_counted_flops_equal_jax_walker_up_to_named_terms(key):
+    """Smoke qwen3-1.7b at tp 4, whose 2 kv heads the mesh does not divide:
+    the JAX rules' sequence-parallel mode (each shard's query rows against
+    the whole K/V in prefill; the caches on head_dim and the scores' partial
+    sums in decode). The counted FLOPs equal the walker's up to (iv)'s
+    inference terms (the attention's masked pairs, the low-rank ``x @ U``
+    GSPMD splits), and the argument bytes equal XLA's. The collective bytes
+    by class are printed beside the walker's: GSPMD moves the activations
+    between the layouts by all-to-alls and permutes, the port by
+    all-gathers and the scores' all-reduce."""
+    m, strategy, cell = key.split()
+    shape = SEQ_CELLS[key][0]
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    c = D.count_by_microbatches(cfg, SHAPES[cell], meta(tuple(shape)), strategy=strategy)
+    jflops, jargs, jlowrank = jax_side()["seq_cells"][key]
+    terms = _named_terms(cfg, tuple(shape), strategy, cell, jlowrank)
+    assert c["cost"].flops + sum(terms.values()) == jflops, terms
+    assert terms["split_lowrank"] < 0 and c["argument_bytes"] == jargs
+    ours, walker = dict(c["cost"].collective_bytes), jax_side()["collectives"][f"seq_cells {key}"]
+    print(f"{key}: collective bytes of a position, port {ours}, JAX walker {walker}")
+    assert ours["all-gather"] > 0 and (cell != "decode_32k" or ours["all-reduce"] > 0)
 
 
 # ----------------------------------------------------------------------

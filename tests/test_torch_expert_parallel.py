@@ -23,9 +23,10 @@ device's grid;
 (2, 2), and at (1, 4) with the column-sliced dense layer, equals the JAX
 ``Trainer``'s step (``test_torch_training.
 _check_step``'s tolerances; nll and lb_loss within 1e-5);
-(e) the dry-run's sweep splits 38 cells that count and 28 refused,
-deepseek-moe-16b's six among the first and kimi-k2's six refused naming
-item 16 (``launch.dryrun.sweep_split``)."""
+(e) the dry-run's sweep splits 50 cells that count and 16 refused,
+deepseek-moe-16b's six among the first, kimi-k2's prefill and decode
+cells counting (the sequence-parallel mode serves) and its two training
+cells refused naming item 16 (``launch.dryrun.sweep_split``)."""
 
 import json
 import os
@@ -345,20 +346,32 @@ def test_linear_on_every_shard_is_a_pixelfly_linear():
 @pytest.mark.parametrize("tp", [2, 4])
 def test_column_sliced_o_and_down_are_refused(tp):
     """A model whose o and down projections have 3 block rows (d_model 192
-    at block 64): the JAX rules cut their blocks on the output columns,
-    which the port takes for an MLP's gate and up only, so the layout is
-    refused naming ROADMAP item 16, by the engine and the dry-run's
-    check alike."""
-    cfg = registry.get_smoke("deepseek-moe-16b", sparse=True).replace(d_model=192)
-    sd = T.skeleton(cfg).state_dict()
+    at block 64): the JAX rules cut their blocks on the output columns.
+    They were refused until the port took that cut for o, down and the
+    shared experts' down as it takes it for gate and up (each shard the
+    whole input row, its strided output columns gathered back into
+    feature order); now the layout is accepted, by the engine and the
+    dry-run's check alike, and the tp engine's greedy streams equal the
+    single-device engine's."""
+    cfg = registry.get_smoke("deepseek-moe-16b", sparse=True).replace(d_model=192, num_layers=2)
+    sd = T.init_model(cfg, seed=0, device="cpu").state_dict()
     st = sharding.Strategy(make_tp_mesh(tp, ["cpu"] * tp), "tp")
     specs = sharding.param_specs(st, sd)
     assert sharding.model_dim(st, specs["layers.0.attn.wo.blocks"]) == 3
     assert sharding.model_dim(st, specs["layers.1.moe.shared.wd.blocks"]) == 3
-    with pytest.raises(ValueError, match=r"wo\.blocks .*output columns.*item 16"):
-        T.check_tp_layout(cfg, st, sd)
-    with pytest.raises(ValueError, match="item 16"):
-        T.shard_model(cfg, make_tp_mesh(tp, ["cpu"] * tp), sd)
+    assert T.check_tp_layout(cfg, st, sd) == specs
+    ecfg = EngineConfig(max_slots=2, max_len=128)
+    one = Engine(cfg, engine_cfg=ecfg, params=sd, device="cpu")
+    eng = Engine(cfg, engine_cfg=ecfg, params=sd, mesh=make_tp_mesh(tp, ["cpu"] * tp))
+    wo = eng.model.shards[1].layers[0].attn.wo
+    assert wo.cols == (64 // tp, 2 * 64 // tp) and eng.model.shards[1].layers[1].moe.shared.wd.cols == wo.cols
+
+    def serve_all(e):
+        for p in _prompts()[:2]:
+            e.submit(p, 6)
+        return [f.tokens.tolist() for f in sorted(e.drain(max_steps=60), key=lambda f: f.uid)]
+
+    assert serve_all(eng) == serve_all(one)
 
 
 # ----------------------------------------------------------------------
@@ -367,14 +380,19 @@ def test_column_sliced_o_and_down_are_refused(tp):
 
 
 def test_sweep_splits_38_ok_and_28_refused():
+    """The sweep's split: 50 cells count and 16 are refused (38 and 28
+    before the sequence-parallel mode served the prefill and decode cells
+    where tp does not divide the kv heads)."""
     sweep = dryrun.sweep_split()
     ok = [k for k, v in sweep.items() if v is None]
     refused = {k: v for k, v in sweep.items() if v is not None}
-    assert (len(sweep), len(ok), len(refused)) == (66, 38, 28)
+    assert (len(sweep), len(ok), len(refused)) == (66, 50, 16)
     assert sum(k.startswith("deepseek-moe-16b ") for k in ok) == 6
+    assert sum(k.startswith("kimi-k2-1t-a32b ") for k in ok) == 4
     kimi = [v for k, v in refused.items() if k.startswith("kimi-k2-1t-a32b ")]
-    assert len(kimi) == 6 and all("8 kv heads do not divide over 16" in v and "item 16" in v for v in kimi)
+    assert len(kimi) == 2 and all("8 kv heads do not divide over 16" in v and "item 16" in v for v in kimi)
     assert all(("item 18" if k.startswith("zamba2") else "item 16") in v for k, v in refused.items())
+    assert [sum(f"item {n}" in v for v in refused.values()) for n in (16, 18)] == [8, 8]
 
 
 def test_serve_cli_tp_serves_the_moe_family(capsys):

@@ -1312,3 +1312,158 @@ def test_moe_tp_engine_on_card_equals_tp1(cuda, tp):
     assert all(k.launches > 0 for k in kernels)
     by_block = bsr_matmul.KERNEL.launches_by
     assert sum(by_block.values()) == bsr_matmul.KERNEL.launches and by_block[64 // tp] > 0
+
+
+# ----------------------------------------------------------------------
+# the sequence-parallel mode: the query-slice attention and the decode
+# read on pools cut along head_dim
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d,block,s", [(128, 128, 2048), (64, 64, 1024)])
+@pytest.mark.parametrize("g", [2, 6])
+@pytest.mark.parametrize("tp", [4, 8])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+def test_block_sparse_attention_query_slice(cuda, d, block, s, g, tp, dtype, tol):
+    """Each shard's query slice (whole blocks, ``layers.query_slices``)
+    against the whole K/V: the kernel's rows equal the same rows of the
+    kernel on the whole sequence bit for bit, and the plain version's
+    slice within the attention tolerance."""
+    b, hk = 1, 2
+    q, k, v, kv_index, valid = _attention_inputs(b, s, hk, g, d, block, dtype, cuda, seed=tp + g + d)
+    kw = dict(block=block, causal=True, sm_scale=d ** -0.5)
+    whole = block_sparse_attention_cuda(q, k, v, kv_index, valid, **kw)
+    for a0, a1 in L.query_slices(s, tp, block):
+        qs = q[:, a0:a1].contiguous()
+        got = block_sparse_attention_cuda(qs, k, v, kv_index, valid, q_block0=a0 // block, **kw)
+        want = ref.sparse_attention(qs.reshape(b, a1 - a0, hk, g, d), k, v, kv_index, valid,
+                                    q_block0=a0 // block, **kw)
+        assert torch.isfinite(got.float()).all()
+        assert torch.equal(got, whole[:, a0:a1])
+        assert _err(got, want.reshape(got.shape)) <= tol
+
+
+def _scores_check(got, q, k, sched):
+    """Partial scores against the plain version, each dot product within
+    1e-5 of the sum of its terms' magnitudes (the poisoned trash page's
+    keys of 1e4 make sums that cancel)."""
+    want = ref.paged_decode_scores_gather(q, k, *sched)
+    scale = ref.paged_decode_scores_gather(q.float().abs(), k.float().abs(), *sched)
+    assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all(), f"max abs err {_err(got, want):.3e}"
+
+
+@pytest.mark.parametrize("schedule", ["sparse", "dense"])
+@pytest.mark.parametrize("g", [2, 6])
+@pytest.mark.parametrize("tp", [2, 4, 8, 16])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_paged_decode_head_dim_kernels(cuda, schedule, g, tp, dtype, tol):
+    """The decode read on pools cut along head_dim at the main shape (D =
+    128, so slices of 64, 32, 16 and 8): each shard's partial-scores kernel
+    against its plain version, the apply kernel on the scores summed in
+    rank order against its plain version, and the shards' outputs joined
+    along head_dim against ``ref.paged_decode_attention_gather`` of the
+    whole pools."""
+    from repro_torch.kernels.paged_partial import paged_decode_apply_cuda, paged_decode_scores_cuda
+
+    q, k, v, phys, logical, keep, pos = _paged_main(g, dtype, cuda, schedule=schedule, seed=tp + g)
+    d = q.shape[-1]
+    dc = d // tp
+    scale = d ** -0.5
+    sched = (phys, logical, keep, pos)
+    parts, slices = [], []
+    for r in range(tp):
+        sl = slice(r * dc, (r + 1) * dc)
+        ks, vs = k[..., sl].contiguous(), v[..., sl].contiguous()
+        qs = q[..., sl].contiguous()
+        part = paged_decode_scores_cuda(qs, ks, *sched)
+        _scores_check(part, qs, ks, sched)
+        parts.append(part)
+        slices.append(vs)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    outs = []
+    for vs in slices:
+        got = paged_decode_apply_cuda(total, vs, *sched, sm_scale=scale)
+        want = ref.paged_decode_apply_gather(total, vs, *sched, sm_scale=scale)
+        assert torch.isfinite(got.float()).all() and _err(got, want) <= tol
+        outs.append(got)
+    want = ref.paged_decode_attention_gather(q, k, v, *sched, sm_scale=scale)
+    assert _err(torch.cat(outs, dim=-1), want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_paged_decode_head_dim_kernels_strided_pool_and_idle_slots(cuda, dtype, tol):
+    """A head_dim slice read in place from the whole pools (strided rows),
+    and a table whose every slot sits at position 0 on the trash page: the
+    kernels equal their plain versions."""
+    from repro_torch.kernels.paged_partial import paged_decode_apply_cuda, paged_decode_scores_cuda
+
+    q, k, v, phys, logical, keep, pos = _paged_main(2, dtype, cuda, schedule="sparse", seed=3)
+    sl = slice(32, 64)
+    sched = (phys, logical, keep, pos)
+    got = paged_decode_scores_cuda(q[..., sl].contiguous(), k[..., sl], *sched)
+    _scores_check(got, q[..., sl], k[..., sl], sched)
+    out = paged_decode_apply_cuda(got, v[..., sl], *sched, sm_scale=0.1)
+    assert _err(out, ref.paged_decode_apply_gather(got, v[..., sl], *sched, sm_scale=0.1)) <= tol
+    b, page = q.shape[0], k.shape[1]
+    idle = _paged_main(2, dtype, cuda, schedule="dense", table=torch.zeros((b, 16), dtype=torch.int32),
+                       pos=torch.zeros(b, dtype=torch.int32), seed=4)
+    s = paged_decode_scores_cuda(idle[0][..., :16].contiguous(), idle[1][..., :16].contiguous(), *idle[3:])
+    assert s.shape == (b, q.shape[1], 2, 16 * page)
+    o = paged_decode_apply_cuda(s, idle[2][..., :16].contiguous(), *idle[3:], sm_scale=0.1)
+    want = ref.paged_decode_apply_gather(s, idle[2][..., :16].contiguous(), *idle[3:], sm_scale=0.1)
+    assert _err(o, want) <= tol
+
+
+@pytest.mark.parametrize("g,d", [(2, 128), (6, 128)])
+def test_dense_attention_flash_query_slice_equals_chunked(cuda, g, d):
+    """A dense model's prefill in the sequence-parallel mode: bf16 flash
+    attention of each tp 4 shard's query rows against the whole K/V
+    (``flash_attention(..., q_offset=)``, the causal mask aligned to the
+    lower right) equals the same rows of ``chunked_attention`` on the whole
+    sequence within 2e-2 (rtol = atol), also where S / 4 is not a chunk
+    multiple."""
+    b, s, hk = 1, 1000, 2
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    q = torch.randn((b, s, hk, g, d), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2))
+    kw = dict(sm_scale=d ** -0.5, chunk=256)
+    whole = L.chunked_attention(q, k, v, **kw)
+    for a0, a1 in L.query_slices(s, 4, 1):
+        got = L.flash_attention(q[:, a0:a1], k, v, q_offset=a0, **kw)
+        assert got.dtype == torch.bfloat16 and _allclose(got, whole[:, a0:a1], 2e-2)
+
+
+@pytest.mark.parametrize("tp", [4, 8])
+def test_seq_parallel_engine_on_card_equals_tp1(cuda, tp):
+    """Smoke qwen3-1.7b (2 kv heads, fp32) at tp 4 and 8 on the card, the
+    sequence-parallel mode: greedy streams (with a prefix hit) equal the tp
+    1 engine's, and the two head_dim decode kernels and the query-slice
+    attention launch."""
+    from repro_torch.kernels import bsr_attention, paged_partial
+    from repro_torch.launch.mesh import make_tp_mesh
+
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True).replace(num_layers=2)
+    ecfg = EngineConfig(max_slots=4, max_len=512, prefix_cache=True)
+    one = Engine(cfg, engine_cfg=ecfg, device=cuda)
+    eng = Engine(cfg, engine_cfg=ecfg, params=one.model.state_dict(), mesh=make_tp_mesh(tp, [cuda] * tp))
+    assert tuple(eng.kv.buffers[0][0]["k"].shape[-2:]) == (2, 64 // tp)
+    rng = np.random.default_rng(5)
+    work = [rng.integers(1, 500, int(n)).astype(np.int32) for n in (9, 200, 130, 30, 200)]
+    work[4][:128] = work[1][:128]  # a prefix hit on two pages
+
+    def serve_all(e):
+        out = []
+        for p in work:
+            e.submit(p, 10)
+            out += e.drain(max_steps=100)
+        return [f.tokens.tolist() for f in out]
+
+    want = serve_all(one)
+    kernels = (bsr_attention.KERNEL, paged_partial.SCORES_KERNEL, paged_partial.APPLY_KERNEL)
+    for k in kernels:
+        k.launches = 0
+    assert serve_all(eng) == want
+    assert all(k.launches > 0 for k in kernels)
+    assert eng.stats_summary()["prefix_cache"]["hit_tokens"] > 0

@@ -265,11 +265,12 @@ def test_families_under_fsdp_equal_one_device(arch, over):
     _check_step(cfg, opt, opt.lr, _jax_grads(jcfg, cfg, params, batch), jstate, jm, model, state, m)
 
 
-def test_refusals_name_their_roadmap_items():
+def test_refusals_name_their_roadmap_items(tmp_path):
     """One routing group does not split over two replicas: the MoE family
     refuses fsdp (2, 1) saying so. Under tp the SSM and hybrid families
     refuse (item 18), and so do kv heads tp does not divide (item 16:
-    kimi-k2 at tp 16, whose experts would shard)."""
+    kimi-k2 at tp 16, whose experts would shard); where they do not, the
+    ``Trainer`` refuses to train the sequence-parallel mode (item 16)."""
     moe = registry.get_smoke("deepseek-moe-16b", sparse=True).replace(num_layers=2)
     sd = T.init_model(moe, seed=0, device="cpu").state_dict()
     with pytest.raises(ValueError, match="routing group"):
@@ -281,9 +282,8 @@ def test_refusals_name_their_roadmap_items():
         ssm = registry.get_smoke(arch, sparse=True)
         with pytest.raises(ValueError, match="item 18"):
             MeshState(ssm, _mesh((1, 2)), "tp", T.skeleton(ssm).state_dict())
-    cfg = _small()
-    with pytest.raises(ValueError, match="item 16"):
-        MeshState(cfg, _mesh((1, 4)), "tp", T.init_model(cfg, seed=0, device="cpu").state_dict())
+    with pytest.raises(ValueError, match="serves but does not train.*item 16"):
+        _trainer(tmp_path, mesh=_mesh((1, 4)), strategy="tp")
 
 
 # ----------------------------------------------------------------------

@@ -63,7 +63,9 @@ def test_bench_smoke_runs_every_scenario_with_the_reference_keys(tmp_path, monke
     ref = json.loads((ROOT / "BENCH_serve.json").read_text())
     assert set(payload) == set(ref)
     mesh = payload["mesh"]  # bench.serve_mesh's payload on the same weights
-    assert mesh["streams_equal"] and mesh["router"]["streams_equal"] and set(mesh["by_tp"]) == {"1", "2"}
+    # every tp of the JAX list: 4 and 8 (2 kv heads) in the sequence-parallel mode
+    assert mesh["streams_equal"] and mesh["router"]["streams_equal"] and set(mesh["by_tp"]) == {"1", "2", "4", "8"}
+    assert mesh["refused"] == {}
     guard = payload["dispatch_guard"]  # enforced at --smoke: a trip raises
     assert guard["enforced"] and guard["clean"] and guard["explicit_syncs"] == guard["steps"]
     assert payload["paged_impl_default"] == "plain" and set(payload["decode_by_impl"]) == {"plain"}

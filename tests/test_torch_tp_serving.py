@@ -163,16 +163,19 @@ def test_refusals_name_their_roadmap_items():
     def tp_engine(c, tp, **kw):
         return Engine(c, engine_cfg=ecfg, mesh=make_tp_mesh(tp, ["cpu"] * tp), **kw)
 
-    # kv heads (2) that do not divide tp: the sequence-parallel mode
-    with pytest.raises(ValueError, match="item 16"):
-        tp_engine(cfg, 4)
+    # kv heads (2) and a head_dim (64) that do not divide tp: no axis of the
+    # pools shards (tp 4 and 8 serve in the sequence-parallel mode,
+    # tests/test_torch_seq_parallel.py)
+    with pytest.raises(ValueError, match="neither its 2 kv heads nor its head_dim 64.*item 16"):
+        tp_engine(cfg, 128)
     # nb_out that does not divide tp: 3 kv blocks of 64 over 2 shards
     odd = cfg.replace(num_heads=2, num_kv_heads=2, head_dim=96)
     with pytest.raises(ValueError, match="item 16"):
         tp_engine(odd, 2)
-    # the MoE family's experts shard (expert parallelism); kimi-k2's kv
-    # heads at tp 16 still need the sequence-parallel mode
-    with pytest.raises(ValueError, match="item 16"):
+    # the MoE family's experts shard (expert parallelism); smoke kimi-k2's
+    # 2 kv heads at tp 16 would serve in the sequence-parallel mode, but its
+    # 8 experts do not divide over 16 shards, so its router stays whole
+    with pytest.raises(ValueError, match=r"moe\.router .*item 16"):
         tp_engine(registry.get_smoke("kimi-k2-1t-a32b", sparse=True), 16)
     for arch in ("mamba2-130m", "zamba2-2.7b"):
         with pytest.raises(ValueError, match="item 18"):
@@ -211,15 +214,28 @@ def test_serve_cli_tp(capsys):
         serve.main(SMOKE + ["--tp", "2", "--strategy", "tp", "--legacy-server"])
 
 
+def test_serve_cli_tp4_sequence_parallel(capsys):
+    """``--tp 4 --strategy tp`` on smoke qwen3-1.7b (2 kv heads: the
+    sequence-parallel mode, pools on head_dim) prints one device's grid."""
+    tp = serve.main(SMOKE + ["--tp", "4", "--strategy", "tp"])
+    assert "tp 4 on 1 distinct device(s)" in capsys.readouterr().out and tp.engine.tp == 4
+    assert tuple(tp.engine.kv.buffers[0][0]["k"].shape[-2:]) == (2, 16)
+    one = serve.main(SMOKE)
+    assert [t.tolist() for t in tp.tokens] == [t.tolist() for t in one.tokens]
+
+
 def test_serve_mesh_bench_smoke(capsys):
+    """Every tp of the JAX script's list is served: 4 and 8, which the
+    smoke model's 2 kv heads do not divide, in the sequence-parallel mode
+    (they were refused, naming item 16, until that mode was ported); each
+    tp's streams equal tp 1's (the bench asserts it)."""
     payload = serve_mesh.main(["--smoke", "--device", "cpu"])
     last = capsys.readouterr().out.strip().splitlines()[-1]
     import json
 
     assert json.loads(last) == json.loads(json.dumps(payload))
     assert payload["streams_equal"] and payload["router"]["streams_equal"]
-    assert set(payload["by_tp"]) == {"1", "2"} and set(payload["refused"]) == {"4", "8"}
-    assert all("item 16" in why for why in payload["refused"].values())
+    assert set(payload["by_tp"]) == {"1", "2", "4", "8"} and payload["refused"] == {}
     assert payload["distinct_devices"] == 1 and payload["platform"] == "cpu"
     jax_keys = {"smoke", "devices", "platform", "batch", "prompt_len", "gen", "streams_equal", "by_tp", "router"}
     assert jax_keys <= set(payload)
