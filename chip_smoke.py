@@ -4420,14 +4420,16 @@ def seq_attention_row(timer, *, b, s, h, hk, d, block, tp, dtype, tol, seed):
     }
 
 
-def seq_decode_rows(timer, *, b, hk, g, d, page, pps, tp, dtype, tol, seed):
+def seq_decode_rows(timer, *, b, hk, g, d, page, pps, tp, dtype, tol, seed, schedule="sparse"):
     """The decode read on pools cut along head_dim at ``tp``: every shard's
     partial scores against the plain version, the apply kernel on the
     scores summed in rank order against its plain version, the joined
     outputs against ``ref.paged_decode_attention_gather`` of the whole
     pools (ragged positions, an idle slot, a poisoned trash page, the
-    sparse schedule); rank 0's two kernels timed beside their bounds, the
-    plain versions and a gathered ``torch.matmul`` formulation."""
+    sparse schedule or the dense one of all ``pps`` pages a slot); two
+    calls of each kernel bit-equal; rank 0's two kernels timed beside
+    their bounds, the plain versions and a gathered ``torch.matmul``
+    formulation."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import paged_decode_apply_cost, paged_decode_scores_cost
     from repro_torch.kernels.paged_partial import paged_decode_apply_cuda, paged_decode_scores_cuda
@@ -4446,7 +4448,10 @@ def seq_decode_rows(timer, *, b, hk, g, d, page, pps, tp, dtype, tol, seed):
     q = torch.randn((b, hk, g, d), generator=gen)
     q, k, v = (t.to("cuda", dtype) for t in (q, k, v))
     table, pos = table.to("cuda"), pos.to("cuda")
-    logical, phys, keep = L.paged_sparse_schedule(table, pos, page, local_blocks=2, global_blocks=1)
+    if schedule == "sparse":
+        logical, phys, keep = L.paged_sparse_schedule(table, pos, page, local_blocks=2, global_blocks=1)
+    else:
+        logical, phys, keep = L.paged_dense_schedule(table)
     sched = (phys, logical, keep, pos)
     dc, scale = d // tp, d ** -0.5
     qs = [q[..., r * dc:(r + 1) * dc].contiguous() for r in range(tp)]
@@ -4474,6 +4479,9 @@ def seq_decode_rows(timer, *, b, hk, g, d, page, pps, tp, dtype, tol, seed):
         outs.append(got)
     err = check_close(f"head_dim decode read tp {tp} {dtype}", torch.cat(outs, dim=-1),
                       ref.paged_decode_attention_gather(q, k, v, *sched, sm_scale=scale), tol)
+    if not (torch.equal(paged_decode_scores_cuda(qs[0], ks[0], *sched), parts[0])
+            and torch.equal(paged_decode_apply_cuda(total, vs[0], *sched, sm_scale=scale), outs[0])):
+        raise AssertionError(f"18d: a second call of a head_dim kernel (tp {tp}, {dtype}) gave other bits")
     w = phys.shape[1]
     kg = ks[0][phys.long()].reshape(b, w * page, hk, dc).permute(0, 2, 3, 1)  # (b, hk, dc, w·page)
     vg = vs[0][phys.long()].reshape(b, w * page, hk, dc).transpose(1, 2)      # (b, hk, w·page, dc)
@@ -4484,7 +4492,7 @@ def seq_decode_rows(timer, *, b, hk, g, d, page, pps, tp, dtype, tol, seed):
         p = torch.softmax((total * scale).masked_fill(~ok, float("-inf")), dim=-1)
         return torch.matmul(p.to(dtype), vg)
 
-    shape = f"B={b} Hk={hk} G={g} D={d} (slices of {dc} at tp {tp}) page={page} w={w}"
+    shape = f"B={b} Hk={hk} G={g} D={d} (slices of {dc} at tp {tp}) page={page} w={w} ({schedule} schedule)"
     rows = {}
     for name, fn, plain, lib, cost in (
         ("paged_decode_scores", lambda: paged_decode_scores_cuda(qs[0], ks[0], *sched),
@@ -4504,10 +4512,17 @@ def seq_decode_rows(timer, *, b, hk, g, d, page, pps, tp, dtype, tol, seed):
     return rows
 
 
+# the head_dim kernels' times at 18d's first row before their redesign for
+# Hopper (the first, simple kernels' last full run on the H100), logged
+# beside this run's
+SEQ_DECODE_BEFORE_MS = {"paged_decode_scores": 0.0111, "paged_decode_apply": 0.1179}
+
+
 def seq_kernels(timer, full, seed):
     """(d) The three kernel entries of the mode against their plain
     versions at this phase's shapes (qwen2-1.5b at tp 4: the longest
-    bucket's query slices; 8 decode slots on D = 128 pools cut into 32)
+    bucket's query slices; 8 decode slots on D = 128 pools cut into 32,
+    then into 16 at tp 8, then 256 pages a slot on the dense schedule)
     and at smoke qwen3-1.7b's at tp 8 (fp32, D = 64 cut into 8), timed as
     in phase 3."""
     from repro_torch.configs import registry
@@ -4521,16 +4536,21 @@ def seq_kernels(timer, full, seed):
     out["block_sparse_attention_query_slice"].append(seq_attention_row(
         timer, b=2, s=512, h=smoke.num_heads, hk=smoke.num_kv_heads, d=smoke.head_dim, block=smoke.attn_block, tp=8,
         dtype=torch.float32, tol=2e-4, seed=seed + 182))
-    for kw in (dict(b=8, hk=hk, g=g, d=d, page=full.attn_block, pps=16, tp=4, dtype=torch.bfloat16, tol=1e-2),
+    main = dict(b=8, hk=hk, g=g, d=d, page=full.attn_block, dtype=torch.bfloat16, tol=1e-2)
+    for kw in (dict(main, pps=16, tp=4),
                dict(b=4, hk=smoke.num_kv_heads, g=smoke.num_heads // smoke.num_kv_heads, d=smoke.head_dim,
-                    page=smoke.attn_block, pps=6, tp=8, dtype=torch.float32, tol=1e-5)):
+                    page=smoke.attn_block, pps=6, tp=8, dtype=torch.float32, tol=1e-5),
+               dict(main, pps=16, tp=8),
+               dict(main, pps=256, tp=4, schedule="dense")):
         for name, row in seq_decode_rows(timer, seed=seed + 183, **kw).items():
             out[name].append(row)
     for name, rows in out.items():
-        for row in rows:
+        for i, row in enumerate(rows):
+            before = (f" (before the redesign {SEQ_DECODE_BEFORE_MS[name]:.4f} ms)"
+                      if i == 0 and name in SEQ_DECODE_BEFORE_MS else "")
             log(f"[18d] {name} {row['dtype']} {row['shape']}: err {row['max_abs_err']:.2e} (tol {row['tol']}) "
-                f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms pytorch {row['library_ms']:.4f} ms "
-                f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+                f"kernel {row['ms']:.4f} ms{before} plain {row['plain_ms']:.4f} ms pytorch "
+                f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
     return out
 
 

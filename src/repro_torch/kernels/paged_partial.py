@@ -6,9 +6,12 @@ and the paged decode read is split over that slice
 (``src/repro/kernels/paged_attention.py``'s ``paged_decode_attention_pallas``
 under GSPMD). Its softmax needs whole dot products, so the port reads such
 pools in two kernels around an all-reduce of the scores
-(``csrc/paged_partial.cu``): ``paged_decode_scores_cuda`` gives a shard's
-partial scores, and ``paged_decode_apply_cuda`` the softmax of their sum
-times its slice of the values. The plain PyTorch versions are
+(``csrc/paged_partial.cu``, whose note gives the design):
+``paged_decode_scores_cuda`` gives a shard's partial scores, one block a
+(page, kv head, slot); ``paged_decode_apply_cuda`` the softmax of their sum
+times its slice of the values, as a split pass (one block a page, partial
+softmax statistics to an fp32 workspace) and a combine pass that folds the
+pages' partials in schedule order. The plain PyTorch versions are
 ``ref.paged_decode_scores_gather`` and ``ref.paged_decode_apply_gather``.
 """
 
@@ -30,11 +33,12 @@ SCORES_KERNEL = CudaKernel(
 APPLY_KERNEL = CudaKernel(
     "paged_partial.cu",
     "paged_decode_apply_launch",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_int],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_int],
 )
 
 _MAX_G = 8
 _MAX_D = 128
+_KEYS = 128  # keys of one split block: a page, or a chunk of a longer one (kKeys)
 
 
 def _check_schedule(name: str, dev, b: int, phys, logical, keep, pos) -> int:
@@ -127,10 +131,12 @@ def paged_decode_apply_cuda(
     out = torch.empty((b, hk, g, d), dtype=v_pages.dtype, device=dev)
     if b == 0 or w == 0:
         return out.zero_()
+    # the split pass's partials: acc (G, Dc), m and l for every chunk of every page
+    ws = torch.empty((b, hk, w * -(-page // _KEYS), g, d + 2), dtype=torch.float32, device=dev)
     APPLY_KERNEL.launch(
         dev,
         scores.data_ptr(), v_pages.data_ptr(), phys.data_ptr(), logical.data_ptr(), keep.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), b, hk, g, d, page, w, *strides, float(sm_scale),
+        pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, hk, g, d, page, w, *strides, float(sm_scale),
         dtype_code(v_pages.dtype),
     )
     return out

@@ -180,13 +180,14 @@ def test_paged_decode_kernel(cuda, g, dtype, tol):
 PAGED_MAIN = dict(b=8, hk=8, d=128, page=128, pps=16)  # qwen3-1.7b, 16 pages a slot
 
 
-def _paged_main(g, dtype, dev, *, schedule, seed=0, table=None, pos=None):
+def _paged_main(g, dtype, dev, *, schedule, seed=0, table=None, pos=None, **shape):
     """Inputs of the paged decode read at the main shape: a poisoned trash
     page 0, a random page table with an idle slot (1) and a partially
-    allocated row (2), ragged positions; ``table``/``pos`` override them.
-    ``schedule`` is "sparse" (the pixelfly pages, w = 7) or "dense" (every
-    page of the table, w = 16). Returns the kernel's positional arguments."""
-    b, hk, d, page, pps = (PAGED_MAIN[x] for x in ("b", "hk", "d", "page", "pps"))
+    allocated row (2), ragged positions; ``table``/``pos`` override them,
+    and ``shape`` entries of ``PAGED_MAIN``. ``schedule`` is "sparse" (the
+    pixelfly pages, w = 7) or "dense" (every page of the table, w = pps =
+    16). Returns the kernel's positional arguments."""
+    b, hk, d, page, pps = (shape.get(x, PAGED_MAIN[x]) for x in ("b", "hk", "d", "page", "pps"))
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_pages = b * pps + 1
     k = torch.randn((n_pages, page, hk, d), generator=gen, device=dev)
@@ -1352,24 +1353,19 @@ def _scores_check(got, q, k, sched):
     assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all(), f"max abs err {_err(got, want):.3e}"
 
 
-@pytest.mark.parametrize("schedule", ["sparse", "dense"])
-@pytest.mark.parametrize("g", [2, 6])
-@pytest.mark.parametrize("tp", [2, 4, 8, 16])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-def test_paged_decode_head_dim_kernels(cuda, schedule, g, tp, dtype, tol):
-    """The decode read on pools cut along head_dim at the main shape (D =
-    128, so slices of 64, 32, 16 and 8): each shard's partial-scores kernel
-    against its plain version, the apply kernel on the scores summed in
-    rank order against its plain version, and the shards' outputs joined
-    along head_dim against ``ref.paged_decode_attention_gather`` of the
-    whole pools."""
+def _head_dim_read(args, tp, tol):
+    """The decode read on pools cut along head_dim at ``tp`` (slices of D /
+    tp): each shard's partial-scores kernel against its plain version, the
+    apply kernel on the scores summed in rank order against its plain
+    version, and the shards' outputs joined along head_dim against
+    ``ref.paged_decode_attention_gather`` of the whole pools. Returns the
+    summed scores and the joined output."""
     from repro_torch.kernels.paged_partial import paged_decode_apply_cuda, paged_decode_scores_cuda
 
-    q, k, v, phys, logical, keep, pos = _paged_main(g, dtype, cuda, schedule=schedule, seed=tp + g)
+    q, k, v, *sched = args
     d = q.shape[-1]
     dc = d // tp
     scale = d ** -0.5
-    sched = (phys, logical, keep, pos)
     parts, slices = [], []
     for r in range(tp):
         sl = slice(r * dc, (r + 1) * dc)
@@ -1388,8 +1384,79 @@ def test_paged_decode_head_dim_kernels(cuda, schedule, g, tp, dtype, tol):
         want = ref.paged_decode_apply_gather(total, vs, *sched, sm_scale=scale)
         assert torch.isfinite(got.float()).all() and _err(got, want) <= tol
         outs.append(got)
+    joined = torch.cat(outs, dim=-1)
     want = ref.paged_decode_attention_gather(q, k, v, *sched, sm_scale=scale)
-    assert _err(torch.cat(outs, dim=-1), want) <= tol
+    assert _err(joined, want) <= tol
+    return total, joined
+
+
+@pytest.mark.parametrize("schedule", ["sparse", "dense"])
+@pytest.mark.parametrize("g", [1, 2, 6, 8])
+@pytest.mark.parametrize("tp", [2, 4, 8, 16])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_paged_decode_head_dim_kernels(cuda, schedule, g, tp, dtype, tol):
+    """The decode read on pools cut along head_dim at the main shape (D =
+    128, so slices of 64, 32, 16 and 8; G from musicgen's 1 to the
+    kernels' 8) through ``_head_dim_read``."""
+    _head_dim_read(_paged_main(g, dtype, cuda, schedule=schedule, seed=tp + g), tp, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_paged_decode_head_dim_kernels_long_dense_schedule(cuda, dtype, tol):
+    """A dense schedule of 64 pages a slot (w = 64: the combine folds its
+    partials in several rounds), ragged positions up to the last page, at
+    qwen2-1.5b's tp 4 shape (Hk = 2, G = 6, slices of 32)."""
+    args = _paged_main(6, dtype, cuda, schedule="dense", seed=11, b=4, hk=2, pps=64)
+    assert args[3].shape[1] == 64
+    _head_dim_read(args, 4, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_paged_decode_head_dim_kernels_hidden_page_mid_row(cuda, dtype, tol):
+    """Pages with no visible key in the middle of a schedule row: the dense
+    schedule reversed (the pages beyond pos first) with a dropped slot
+    (keep = 0) between visible ones, whose keys weigh exactly 0."""
+    q, k, v, phys, logical, keep, pos = _paged_main(2, dtype, cuda, schedule="dense", seed=12)
+    phys, logical, keep = (t.flip(1).contiguous() for t in (phys, logical, keep))
+    pos[0] = 9 * k.shape[1] + 17  # slot 0 sees pages 0 .. 9, at columns 6 .. 15
+    keep[0, 10] = 0  # logical page 5, between visible pages
+    total, joined = _head_dim_read((q, k, v, phys, logical, keep, pos), 4, tol)
+    page = k.shape[1]
+    assert (total[0, :, :, 10 * page:11 * page] == 0).all() and (total[0, :, :, :6 * page] == 0).all()
+    assert torch.isfinite(joined.float()).all()
+
+
+@pytest.mark.parametrize("page,sl", [(130, slice(3, 13)), (256, slice(8, 24))])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_paged_decode_head_dim_kernels_chunked_pages_and_scalar_reads(cuda, page, sl, dtype, tol):
+    """Pages longer than one block's 128 keys (each page in two chunks),
+    read in place from a slice of the whole pools: at page 130 and a slice
+    of 10 that is not whole 16-byte pieces the kernels read element by
+    element (the score rows too: 130 is not a multiple of 4), at page 256
+    and 16 aligned elements in 16-byte pieces."""
+    from repro_torch.kernels.paged_partial import paged_decode_apply_cuda, paged_decode_scores_cuda
+
+    q, k, v, *sched = _paged_main(6, dtype, cuda, schedule="dense", seed=13, b=4, hk=2, d=24, page=page, pps=4)
+    got = paged_decode_scores_cuda(q[..., sl].contiguous(), k[..., sl], *sched)
+    _scores_check(got, q[..., sl], k[..., sl], sched)
+    out = paged_decode_apply_cuda(got, v[..., sl], *sched, sm_scale=0.3)
+    want = ref.paged_decode_apply_gather(got, v[..., sl], *sched, sm_scale=0.3)
+    assert torch.isfinite(out.float()).all() and _err(out, want) <= tol
+
+
+@pytest.mark.parametrize("schedule,pps", [("sparse", 16), ("dense", 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_head_dim_kernels_bit_stable(cuda, schedule, pps, dtype):
+    """Two calls of each kernel on the same inputs give the same bits (no
+    atomics; the combine folds the pages in schedule order)."""
+    from repro_torch.kernels.paged_partial import paged_decode_apply_cuda, paged_decode_scores_cuda
+
+    q, k, v, *sched = _paged_main(6, dtype, cuda, schedule=schedule, seed=14, hk=2, pps=pps)
+    qs, ks, vs = q[..., 32:64].contiguous(), k[..., 32:64].contiguous(), v[..., 32:64].contiguous()
+    s1, s2 = (paged_decode_scores_cuda(qs, ks, *sched) for _ in range(2))
+    assert torch.equal(s1, s2)
+    o1, o2 = (paged_decode_apply_cuda(s1 * 4, vs, *sched, sm_scale=128 ** -0.5) for _ in range(2))
+    assert torch.equal(o1, o2)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
