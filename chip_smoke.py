@@ -225,10 +225,11 @@ Phases; any failure raises and the script exits non-zero:
    prefill and decode. (a) ``launch.dryrun.run_cell`` on the meta 16 x 16
    mesh (host only, in a helper process started with the script, so its
    host seconds overlap phases 3-15) for full-width qwen3-1.7b ``train_4k``, ``prefill_32k``
-   and ``decode_32k``, musicgen-large ``train_4k`` and deepseek-moe-16b
-   ``prefill_32k`` and ``decode_32k`` (expert parallel at tp 16), each
-   ``ok``, a refused cell that must name its ROADMAP item (kimi-k2 at tp
-   16, item 16), and the whole sweep's split into cells that count and
+   and ``decode_32k``, musicgen-large ``train_4k``, deepseek-moe-16b
+   ``prefill_32k`` and ``decode_32k`` (expert parallel at tp 16) and
+   qwen2-vl-7b ``train_4k`` (the sequence-parallel mode at tp 16), each
+   ``ok``, a refused cell that must name its ROADMAP item (smollm-360m
+   ``long_500k``, item 16), and the whole sweep's split into cells that count and
    cells refused (``DRYRUN_SPLIT``, from each cell's refusal checks):
    per-device bytes, argument bytes, the three roofline terms, the
    collective bytes by class, the bottleneck and the useful ratio (counts
@@ -289,11 +290,30 @@ Phases; any failure raises and the script exits non-zero:
    1, 2, 4 and 8 (``SEQ_BENCH``): every tp served, streams equal. The
    kernels' counts are set to 0 just before each run and read just after:
    at tp 4 the two head_dim kernels launch in place of the paged read.
-19. The kernels line (with each kernel's launches in phases 5 to 18, a
+19. Training where tp does not divide the kv heads (the sequence-parallel
+   mode): qwen2-1.5b sparse at published widths, ``DEPTH_CUTS`` depth
+   (14 of 28 layers), bf16. (b) first: ``block_sparse_attention`` on each
+   tp 4 shard's query slice at B = 4, S = 2048 (shard 3's timed, SDPA on
+   the slice beside it) and ``bsr_matmul`` dX on the transposed patterns
+   of the column-cut k/v and gate/up views at M = 8192 (``dy @ W_viewᵀ``
+   beside it), each against its plain version and timed as in phase 3;
+   the dense arm's bf16 flash attention at each shard's query offset
+   under autograd, its summed gradients within 2e-2 of the whole
+   sequence's. (a) ``Trainer(mesh=...)`` at B = 4, S = 2048 on (1, 1), tp
+   (1, 4) and tp (2, 4) (``SEQ_MESH_TRAIN``) from one state dict, 1
+   warm-up and 2 timed steps each: step ms, tokens/s, peak memory; each
+   step's loss and grad norm and the first step's gradient by parameter
+   kind within ``MESH_TOL`` of (1, 1)'s; two planted faults at tp (1, 4)
+   (``SEQ_TRAIN_FAULTS``: the attention norm's scale taking its gradient
+   from shard 0 alone, the query slices shifted by one block), one step
+   each, above it. The kernels' counts are set to 0 after each run's
+   warm-up step and read after its last: both training kernels launch,
+   the column-cut views among bsr_matmul's at tp 4.
+20. The kernels line (with each kernel's launches in phases 5 to 19, a
    row for the b = 32 tensor-core path at ViT-B/16's shapes, one for
-   attention at head dim 80, one for the column-sliced views and one for
-   each kernel entry of phase 18), the script's wall time, then the last
-   line
+   attention at head dim 80, one for the column-sliced views, one for
+   each kernel entry of phase 18 and one for each of phase 19b), the
+   script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -308,6 +328,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3260,19 +3281,20 @@ MESH_FAULTS = (("replicated grad", "tp", (1, 2)), ("global count", "fsdp", (2, 1
 
 
 @contextlib.contextmanager
-def planted_train_fault(kind):
+def planted_train_fault(kind, leaf=None):
     """A fault in the mesh trainer for the length of the block. "replicated
-    grad": a tensor every model shard holds (the norm scales, U, γ) takes
-    its gradient from shard 0 alone, where the sum over the shards is
-    right. "global count": the second data replica's rows are left out of
-    the global count of labels that divides every replica's NLL sum."""
+    grad": a tensor every model shard holds (the norm scales, U, γ; with
+    ``leaf``, a pattern, only those whose names it matches) takes its
+    gradient from shard 0 alone, where the sum over the shards is right.
+    "global count": the second data replica's rows are left out of the
+    global count of labels that divides every replica's NLL sum."""
     from repro_torch.training import loop
 
     if kind == "replicated grad":
         name, orig = "accumulate", loop.MeshState.accumulate
 
         def faulty(self, acc, param, m, grad, *rest):
-            if m and self.model_dim[param] is None:
+            if m and self.model_dim[param] is None and (leaf is None or re.search(leaf, param)):
                 return None
             return orig(self, acc, param, m, grad, *rest)
 
@@ -3295,9 +3317,11 @@ def _kind_of(name: str) -> str:
     return name.rsplit(".", 1)[-1]
 
 
-def mesh_run(full, sd, data, opt, strategy, shape, device, kernels, *, ref=None, fault=None, steps=3):
+def mesh_run(full, sd, data, opt, strategy, shape, device, kernels, *, ref=None, fault=None, steps=3,
+             planted=None):
     """One ``Trainer`` on a mesh of ``shape`` whose every position is
-    ``device``, from the state dict ``sd``: ``steps`` steps (the first a
+    ``device``, from the state dict ``sd`` (under ``planted_train_fault(fault)``,
+    or under the context manager ``planted`` when given): ``steps`` steps (the first a
     warm-up, the kernels' counts set to 0 after it and read after the
     last), each step's loss and grad norm; with ``ref`` (the (1, 1) run's)
     the comparison of ``MESH_TOL`` and each step's parameter difference
@@ -3324,7 +3348,9 @@ def mesh_run(full, sd, data, opt, strategy, shape, device, kernels, *, ref=None,
            "build_s": build_s, "fault": fault}
     snaps = [ms.state_dict(device)] if ref is None else None
     hist, param_rel, launches = [], [], {}
-    with planted_train_fault(fault) if fault else contextlib.nullcontext():
+    if planted is None:
+        planted = planted_train_fault(fault) if fault else contextlib.nullcontext()
+    with planted:
         for i in range(steps):
             if i == 1:
                 zero_launches(kernels)
@@ -3520,10 +3546,10 @@ def mesh_kernels(timer, full, seed):
 
 DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"), ("qwen3-1.7b", "decode_32k"),
                 ("musicgen-large", "train_4k"), ("deepseek-moe-16b", "prefill_32k"),
-                ("deepseek-moe-16b", "decode_32k"))
-DRYRUN_REFUSED = ("kimi-k2-1t-a32b", "train_4k", "item 16")
+                ("deepseek-moe-16b", "decode_32k"), ("qwen2-vl-7b", "train_4k"))
+DRYRUN_REFUSED = ("smollm-360m", "long_500k", "item 16")
 # the sweep's cells (``--all --both-meshes``): those that count, those refused
-DRYRUN_SPLIT = (50, 16)
+DRYRUN_SPLIT = (56, 10)
 DRYRUN_MEM_TOL = 0.10  # |predicted / max_memory_allocated - 1|
 SHARDED_MESHES = (("fsdp", (1, 1)), ("tp", (1, 2)), ("fsdp", (2, 1)))
 SHARDED_FP32_TOL = 1e-4
@@ -4361,7 +4387,7 @@ def seq_exact_streams(full, sd, work, smi, kernels):
     return out
 
 
-def seq_attention_row(timer, *, b, s, h, hk, d, block, tp, dtype, tol, seed):
+def seq_attention_row(timer, *, b, s, h, hk, d, block, tp, dtype, tol, seed, tag="18d"):
     """``block_sparse_attention`` on each of ``tp`` shards' query slices
     (``layers.query_slices``) against the whole K/V: every slice against
     the plain version and against the same rows of the whole call (equal
@@ -4395,7 +4421,7 @@ def seq_attention_row(timer, *, b, s, h, hk, d, block, tp, dtype, tol, seed):
         err = max(err, check_close(f"block_sparse_attention slice [{a0}, {a1}) of S={s} {dtype}", got,
                                    want.reshape(got.shape), tol))
         if not torch.equal(got, whole[:, a0:a1]):
-            raise AssertionError(f"18d: the slice [{a0}, {a1}) differs from the whole call's rows")
+            raise AssertionError(f"{tag}: the slice [{a0}, {a1}) differs from the whole call's rows")
     a0, a1 = L.query_slices(s, tp, block)[-1]
     qs = q[:, a0:a1].contiguous()
     flops, nbytes = block_sparse_attention_cost(qs.reshape(b, a1 - a0, hk, g, d), k, v, kv_index, valid,
@@ -4593,6 +4619,201 @@ def seq_parallel_phase(timer, seed, smi, kernels):
     # tp 4's runs: every block_sparse_attention launch there is a query slice
     out["query_slice_launches"] = sum(r["launches"]["block_sparse_attention"] for key, r in out["serving"].items()
                                       if key != "1" and not key.endswith(" 1"))
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 19: training where tp does not divide the kv heads
+# ----------------------------------------------------------------------
+
+# the meshes of 19a, every position the card: (1, 1) is the reference; tp 4
+# does not divide qwen2-1.5b's 2 kv heads, so both tp meshes train in the
+# sequence-parallel mode
+SEQ_MESH_TRAIN = (("fsdp", (1, 1)), ("tp", (1, 4)), ("tp", (2, 4)))
+# the faults 19a plants at tp (1, 4), one step each; each must read above
+# one of MESH_TOL's reads
+SEQ_TRAIN_FAULTS = ("replicated leaf", "query slice shifted")
+
+
+def seq_train_leaf(cfg) -> str:
+    """The leaves the "replicated leaf" fault reaches: ``k_norm`` where the
+    model has qk-norm, else the attention norm's scale (qwen2-1.5b has no
+    qk-norm). Every model shard holds them, and in the sequence-parallel
+    mode each shard's gradient of them is its query rows' part."""
+    return r"\.attn\.k_norm$" if cfg.qk_norm else r"\.attn_norm\.scale$"
+
+
+@contextlib.contextmanager
+def planted_seq_train_fault(cfg, tp, kind):
+    """A fault of training in the sequence-parallel mode at ``tp`` for the
+    length of the block. "replicated leaf": the leaves of ``seq_train_leaf``
+    take their gradient from shard 0 alone (``planted_train_fault``'s
+    "replicated grad"). "query slice shifted": ``planted_seq_fault``'s
+    (every shard after the first attends its query rows as the block
+    before them)."""
+    if kind == "replicated leaf":
+        planted = planted_train_fault("replicated grad", leaf=seq_train_leaf(cfg))
+    else:
+        planted = planted_seq_fault(tp, kind)
+    with planted:
+        yield
+
+
+def seq_training(full, seed, smi, kernels):
+    """(a) ``Trainer`` on the meshes of ``SEQ_MESH_TRAIN``, every position
+    the card, at B = 4, S = 2048 from one state dict: 1 warm-up and 2 timed
+    steps each (``mesh_run``), each mesh's losses, grad norms and
+    first-step gradient by parameter kind within ``MESH_TOL`` of (1, 1)'s,
+    its step ms, tokens/s and peak memory; then each of
+    ``SEQ_TRAIN_FAULTS`` at tp (1, 4) for one step, which must read above
+    ``MESH_TOL``. The kernels' counts are set to 0 after each run's warm-up
+    step and read after its last: both training kernels must launch, the
+    column-cut views (k/v, gate/up) among bsr_matmul's at tp 4, and no
+    decode read."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import OptConfig
+
+    t0 = time.perf_counter()
+    sd = T.init_model(full, seed=seed, device="cuda").state_dict()
+    log(f"[19a] {full.name} sparse, {full.num_layers} layers (DEPTH_CUTS), weights in "
+        f"{time.perf_counter() - t0:.1f} s (shared by every mesh)")
+    data = SyntheticLM(full.vocab_size, 2048, 4, seed=seed)
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    native = pattern_blocks(full)
+    runs, ref = {}, None
+    for strategy, shape in SEQ_MESH_TRAIN:
+        row = mesh_run(full, sd, data, opt, strategy, shape, "cuda", kernels, ref=ref)
+        key = f"{strategy} {tuple(shape)}"
+        if ref is None:
+            ref = row
+        for name in ("bsr_matmul", "block_sparse_attention"):
+            if row["launches"][name] <= 0:
+                raise AssertionError(f"19a: kernel {name} was never launched at {key}")
+        for name in ("paged_decode_attention", "paged_decode_scores", "paged_decode_apply"):
+            if row["launches"][name]:
+                raise AssertionError(f"19a: {name} launched in training at {key}")
+        by_block = row["bsr_launches_by_block"]
+        row["column_view_launches"] = view_launches(by_block, native)
+        if shape[1] > 1 and row["column_view_launches"] <= 0:
+            raise AssertionError(f"19a: no column-cut bsr_matmul view launched at {key}: {by_block}")
+        log(f"[19a] {key} ({row['positions']} position(s) on {row['distinct_devices']} device(s); {smi}): steps "
+            f"{', '.join(f'{x:.1f}' for x in row['step_ms'])} ms (median {row['step_ms_median']:.1f}, "
+            f"{row['train_tok_s']:.0f} train tokens/s), peak memory {row['max_memory_allocated_gb']:.2f} GB; losses "
+            f"{', '.join(f'{x:.6f}' for x in row['loss'])}, grad norms {', '.join(f'{x:.6f}' for x in row['grad_norm'])}"
+            f"; launches {row['launches']}, bsr_matmul by block {by_block}")
+        read = row.get("read")
+        if read:
+            log(f"[19a] {key} vs (1, 1): loss {read['loss']:.3e} (tol {MESH_TOL['loss']:g}), grad norm "
+                f"{read['grad_norm']:.3e} (tol {MESH_TOL['grad_norm']:g}), first-step gradient direction "
+                f"{read['grad_direction']:.3e} (tol {MESH_TOL['grad_direction']:g}; by kind "
+                + ", ".join(f"{k} {v:.2e}" for k, v in row["grad_direction"].items())
+                + "); parameters after each step vs (1, 1)'s, relative to its update: max "
+                + ", ".join(f"{x['max']:.3f}" for x in row["param_update_rel"]))
+            bad = {k: v for k, v in read.items() if v > MESH_TOL[k]}
+            if bad:
+                raise AssertionError(f"19a: {key} off (1, 1) by {bad} (tol {MESH_TOL})")
+        runs[key] = {k: v for k, v in row.items() if k not in ("snaps", "mu")}
+    faults = {}
+    for kind in SEQ_TRAIN_FAULTS:
+        row = mesh_run(full, sd, data, opt, "tp", (1, 4), "cuda", kernels, ref=ref, fault=kind, steps=1,
+                       planted=planted_seq_train_fault(full, 4, kind))
+        read = row["read"]
+        over = {k: v / MESH_TOL[k] for k, v in read.items()}
+        log(f"[19a] a planted {kind} fault at tp (1, 4): vs (1, 1) loss {read['loss']:.3e}, grad norm "
+            f"{read['grad_norm']:.3e}, gradient direction {read['grad_direction']:.3e} ("
+            + ", ".join(f"{k} {v:.1f}x" for k, v in over.items()) + " its tolerance)")
+        if max(over.values()) <= 1.0:
+            raise AssertionError(f"19a: a planted {kind} fault reads {read}, within {MESH_TOL}")
+        faults[kind] = {k: v for k, v in row.items() if k not in ("snaps", "mu")}
+    del ref, sd
+    gc_collect()
+    launches = {name: sum(r["launches"][name] for r in runs.values()) for name in kernels}
+    seq_runs = [r for r in runs.values() if r["mesh"][1] > 1]
+    return {"runs": runs, "faults": faults, "tol": MESH_TOL, "launches": launches, "card": smi,
+            "query_slice_launches": sum(r["launches"]["block_sparse_attention"] for r in seq_runs),
+            "column_view_launches": sum(r["column_view_launches"] for r in seq_runs)}
+
+
+def seq_train_kernels(timer, full, seed):
+    """(b) The kernels at the training shapes 19a adds, against their plain
+    versions and timed as phase 3 times them: ``block_sparse_attention`` on
+    each tp 4 shard's query slice at B = 4, S = 2048 (shard 3's timed; SDPA
+    on the slice with the dense mask beside it); ``bsr_matmul`` dX on the
+    transposed patterns of the column-cut k/v and gate/up views at tp 4, M
+    = 8192 (``dy @ W_viewᵀ`` beside it). Then the dense arm's gradient at a
+    query offset: bf16 flash attention of each tp 4 shard's rows
+    (``layers.flash_attention(..., q_offset=)``) under autograd, its dq
+    rows and summed dk, dv against ``chunked_attention`` of the whole
+    sequence within 2e-2 of their largest entry."""
+    from repro_torch.core.pixelfly import linear_tables
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.models import layers as L
+
+    tp, m = 4, 8192
+    hk, d = full.num_kv_heads, full.head_dim
+    out = {"block_sparse_attention": seq_attention_row(
+        timer, b=4, s=2048, h=full.num_heads, hk=hk, d=d, block=full.attn_block, tp=tp, dtype=torch.bfloat16,
+        tol=2e-2, seed=seed + 190, tag="19b")}
+    row = out["block_sparse_attention"]
+    log(f"[19b] block_sparse_attention {row['shape']}: err {row['max_abs_err']:.2e} (tol {row['tol']}) kernel "
+        f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    out["bsr_matmul_dx"] = []
+    for label, spec in (("k/v", L.linear_spec(full, full.d_model, full.kv_dim, full.qkv_bias)),
+                        ("gate/up", L.linear_spec(full, full.d_model, full.d_ff, False))):
+        pat = spec.pattern()
+        if pat.nb_out % tp == 0:
+            raise AssertionError(f"19b: {label} ({pat.nb_out} block rows) is row-cut at tp {tp}")
+        bc = pat.block // tp
+        tables = linear_tables(spec, torch.device("cuda"), None, (0, bc))
+        g = torch.Generator(device="cuda").manual_seed(seed + 191)
+        blocks = (torch.randn((pat.nb_out, pat.r, pat.block, bc), generator=g, device="cuda")
+                  / math.sqrt(pat.r * pat.block)).to(torch.bfloat16)
+        view = blocks.reshape(pat.nb_out, pat.r * tp, bc, bc)
+        bt = AG.transposed_blocks(view, tables)
+        dy = torch.randn((m, pat.nb_out * bc), generator=g, device="cuda").to(torch.bfloat16)
+        row = bsr_row(timer, dy, bt, tables.cols_t, pat.nb_out * bc, pat.nb_out * pat.r * tp, 2e-2,
+                      f"tp{tp} {label} column view dX")
+        real = float(tables.valid.float().mean())
+        row.update(tp=tp, linear=label, shard_blocks=[pat.nb_out, pat.r, pat.block, bc],
+                   transposed=list(tables.cols_t.shape), real_slot_share=real)
+        out["bsr_matmul_dx"].append(row)
+        log(f"[19b] bsr_matmul dX column view tp {tp} {label:7s} {row['shape']} (shard blocks "
+            f"{tuple(row['shard_blocks'])}, transposed {tuple(row['transposed'])}, {real:.0%} real slots): err "
+            f"{row['max_abs_err']:.2e} kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms dy@W_view^T "
+            f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    b, s, g_ = 1, 2048, full.num_heads // hk
+    gen = torch.Generator(device="cuda").manual_seed(seed + 192)
+    q = torch.randn((b, s, hk, g_, d), generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+            for _ in range(2))
+    do = torch.randn((b, s, hk, g_, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(sm_scale=d ** -0.5, chunk=full.attn_chunk)
+    want = torch.autograd.grad(L.chunked_attention(q, k, v, **kw), (q, k, v), do)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k, dtype=torch.float32), torch.zeros_like(v, dtype=torch.float32)
+    for a0, a1 in L.query_slices(s, tp, 1):
+        o = L.flash_attention(q[:, a0:a1], k, v, q_offset=a0, **kw)
+        gq, gk, gv = torch.autograd.grad(o, (q, k, v), do[:, a0:a1])
+        dq, dk, dv = dq + gq, dk + gk.float(), dv + gv.float()
+    rel = {name: float((got.float() - w.float()).abs().max() / w.float().abs().max())
+           for name, got, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2]))}
+    out["flash_query_slice_grads"] = {"shape": f"B={b} S={s} H={full.num_heads} Hk={hk} D={d} tp={tp}", "rel": rel,
+                                      "tol": 2e-2}
+    log(f"[19b] flash attention's gradient at each tp 4 query offset, summed, vs chunked_attention of the whole "
+        f"sequence (bf16, {out['flash_query_slice_grads']['shape']}): "
+        + ", ".join(f"{k} {x:.2e}" for k, x in rel.items()) + " of the largest entry (tol 2e-2)")
+    if max(rel.values()) > 2e-2:
+        raise AssertionError(f"19b: flash attention's query-offset gradient off the whole sequence's: {rel}")
+    return out
+
+
+def seq_training_phase(timer, seed, smi, kernels):
+    """Phase 19: (b) first (short kernel calls), then (a)."""
+    full = seq_config()
+    out = {"kernels": seq_train_kernels(timer, full, seed)}
+    out["training"] = seq_training(full, seed, smi, kernels)
+    out["launches"] = out["training"]["launches"]
     return out
 
 
@@ -4969,7 +5190,14 @@ def main(argv=None) -> int:
     report["seq_parallel"] = seq
     log(f"[18] phase 18 took {seq['wall_s']:.1f} s")
 
-    # ---- 19. report ------------------------------------------------
+    # ---- 19. training where tp does not divide the kv heads ---------
+    t19 = time.perf_counter()
+    seq_train = seq_training_phase(timer, args.seed, smi, seq_kernels_all)
+    seq_train["wall_s"] = time.perf_counter() - t19
+    report["seq_training"] = seq_train
+    log(f"[19] phase 19 took {seq_train['wall_s']:.1f} s")
+
+    # ---- 20. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -5069,6 +5297,8 @@ def main(argv=None) -> int:
         k["launches_phase16"] = dry["launches"][k["name"]]
         k["launches_phase17"] = ep["launches"][k["name"]]
         k["launches_phase18"] = seq["launches"][k["name"]]
+        if k["name"] != "paged_decode_attention":  # training in the sequence-parallel mode runs the other two
+            k["launches_phase19"] = seq_train["launches"][k["name"]]
     views = [r for r in ep["kernels"] if r["shape"].startswith("M=8 ")]
     line["kernels"].append({
         "name": "bsr_matmul_column_view",
@@ -5105,6 +5335,36 @@ def main(argv=None) -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
         })
+    attn_train = seq_train["kernels"]["block_sparse_attention"]
+    dx_views = seq_train["kernels"]["bsr_matmul_dx"]
+    line["kernels"] += [{
+        "name": "block_sparse_attention_query_slice_train",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/bsr_attention.cu",
+        "replaces": "src/repro/kernels/bsr_attention.py:100",
+        "shape": attn_train["shape"] + f", {attn_train['dtype']} (qwen2-1.5b training at tp 4, phase 19)",
+        "launches": seq_train["training"]["query_slice_launches"],
+        "max_abs_err": attn_train["max_abs_err"],
+        "ms": attn_train["ms"],
+        "plain_ms": attn_train["plain_ms"],
+        "bound_ms": attn_train["bound_ms"],
+        "bound_by": attn_train["bound_by"],
+        "library_ms": attn_train["library_ms"],
+    }, {
+        "name": "bsr_matmul_column_view_dx",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/bsr_matmul.cu",
+        "replaces": "src/repro/kernels/bsr_matmul.py:59",
+        "shape": "qwen2-1.5b's column-cut shards at tp 4, dX at M=8192, bf16, summed: " + "; ".join(
+            f"{r['linear']} blocks {tuple(r['shard_blocks'])} transposed as {r['shape']}" for r in dx_views),
+        "launches": seq_train["training"]["column_view_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in dx_views),
+        "ms": summed(dx_views, "ms"),
+        "plain_ms": summed(dx_views, "plain_ms"),
+        "bound_ms": summed(dx_views, "bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in dx_views) else "operations",
+        "library_ms": summed(dx_views, "library_ms"),
+    }]
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -5115,7 +5375,7 @@ def main(argv=None) -> int:
     report["wall_s"] = time.perf_counter() - T_START
     report["timeline"] = TIMELINE
     out.write_text(json.dumps(report, indent=1))
-    log(f"[19] chip_smoke.py took {report['wall_s']:.1f} s")
+    log(f"[20] chip_smoke.py took {report['wall_s']:.1f} s")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

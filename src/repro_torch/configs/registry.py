@@ -19,9 +19,8 @@ parallelism (``distributed.sharding``) does not change that on one card:
 its shards share the card. deepseek-67b would shard in the heads mode on
 cards of its own, and kimi-k2's experts and router shard on the model
 axis (expert parallelism); at tp 16, where their 8 kv heads do not
-divide, both serve in the sequence-parallel mode (the dry-run's prefill
-and decode cells), and their training at that tp waits (ROADMAP Queue 1
-item 16).
+divide, both serve and train in the sequence-parallel mode (the dry-run's
+prefill, decode and train cells).
 """
 
 from __future__ import annotations

@@ -30,9 +30,9 @@ state dict is the port's (one module a layer), so a spec has no leading
 layer entry: the JAX spec of a leaf stacked over a layer group, without its
 first entry, is the spec of each layer's tensor (``bridge.port_names``).
 
-``check_tp`` refuses what the port's shard-local forms do not cover in
-serving or in training, each refusal naming the ROADMAP item that would
-shard it.
+``check_tp`` refuses what the port's shard-local forms do not cover, in
+serving and in training alike, each refusal naming the ROADMAP item that
+would shard it.
 """
 
 from __future__ import annotations
@@ -66,8 +66,7 @@ __all__ = [
 
 # what the port's tensor parallelism leaves to later work, by ROADMAP item
 REFUSED = {
-    "attention": "ROADMAP Queue 1 item 16 (training in the sequence-parallel attention mode, and decode "
-                 "attention over a cache cut along the sequence)",
+    "attention": "ROADMAP Queue 1 item 16 (decode attention over a cache cut along the sequence)",
     "ssm": "ROADMAP Queue 1 item 18 (the SSM mixer and its state at tp > 1, and the fixed-batch Server)",
     "engine_fsdp": "ROADMAP Queue 1 item 20 (an Engine holding FSDP-sharded weights on a (data, model) mesh, "
                    "the JAX Engine's strategy=\"fsdp\" on such a mesh)",
@@ -418,32 +417,27 @@ def unshard_state_dict(
     return out
 
 
-def check_tp(cfg: ModelConfig, tp: int, *, training: bool = False) -> None:
+def check_tp(cfg: ModelConfig, tp: int) -> None:
     """Refuse, with a ``ValueError`` naming the ROADMAP item, every
-    configuration whose tensor-parallel layout the port does not have:
-    in serving (prefill, partial prefill and decode), or in training with
-    ``training``. The port shards attention in the JAX "heads" mode (kv
-    heads divisible by tp) and, in serving only, in the "seq" mode where
-    tp does not divide the kv heads: the query rows over the shards in
-    prefill, the pools and caches on ``head_dim`` (the JAX rules' fallback,
-    ``head_dim % tp == 0``). Dense and pixelfly linears shard on their
-    output or input features (a pixelfly linear whose block rows tp does
-    not divide on its blocks' output columns), the MoE family's experts
-    and router on their expert axis, and the vocabulary; SSM state
-    waits."""
+    configuration whose tensor-parallel layout the port does not have, in
+    serving (prefill, partial prefill and decode) and in training alike.
+    The port shards attention in the JAX "heads" mode (kv heads divisible
+    by tp) and in the "seq" mode where tp does not divide the kv heads:
+    the query rows over the shards in prefill and in training, the pools
+    and caches on ``head_dim`` (the JAX rules' fallback, ``head_dim % tp ==
+    0``). Dense and pixelfly linears shard on their output or input
+    features (a pixelfly linear whose block rows tp does not divide on its
+    blocks' output columns), the MoE family's experts and router on their
+    expert axis, and the vocabulary; SSM state waits."""
     if tp <= 1:
         return
     if cfg.has_ssm:
         raise ValueError(f"{cfg.name} at tp={tp}: SSM layers are not sharded; {REFUSED['ssm']}")
     if cfg.num_kv_heads % tp == 0:
         return
-    if training:
-        raise ValueError(
-            f"{cfg.name} at tp={tp}: {cfg.num_kv_heads} kv heads do not divide over {tp} shards, so the JAX "
-            f"rules shard attention by sequence, which the port serves but does not train; {REFUSED['attention']}"
-        )
     if cfg.head_dim % tp or cfg.head_dim < tp:
         raise ValueError(
             f"{cfg.name} at tp={tp}: neither its {cfg.num_kv_heads} kv heads nor its head_dim {cfg.head_dim} "
-            f"divide over {tp} shards, so the JAX rules leave the pools whole; {REFUSED['attention']}"
+            f"divide over {tp} shards, so the JAX rules leave the pools whole, a layout the port does not have; "
+            f"ROADMAP Queue 1 item 16"
         )

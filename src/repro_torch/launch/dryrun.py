@@ -185,14 +185,12 @@ class Cell:
 def check_cell(cfg: ModelConfig, shape: ShapeSpec, st: sharding.Strategy) -> None:
     """Raise the ``ValueError`` (naming the ROADMAP item) with which the
     cell's step would refuse ``cfg`` (``_prep_cfg``'s) on ``st``'s mesh,
-    from the specs alone: a train step in the sequence-parallel mode
-    (``sharding.check_tp(training=True)``, the ``Trainer``'s refusal), the
-    tensor-parallel layouts (``transformer.check_tp_layout``) and a decode
-    cache cut along the sequence (``transformer.init_mesh_cache``'s
-    refusal). The sweep's split of ok and refused cells costs no build
-    (``sweep_split``)."""
-    if shape.kind == "train":
-        sharding.check_tp(cfg, st.tp_size, training=True)
+    from the specs alone: the tensor-parallel layouts
+    (``transformer.check_tp_layout``, which applies ``sharding.check_tp``;
+    a train cell where tp does not divide the kv heads counts in the
+    sequence-parallel mode, as prefill does) and a decode cache cut along
+    the sequence (``transformer.init_mesh_cache``'s refusal). The sweep's
+    split of ok and refused cells costs no build (``sweep_split``)."""
     if st.tp_size > 1:
         T.check_tp_layout(cfg, st, specs_lib.params_specs(cfg))
     if shape.kind == "decode":

@@ -13,11 +13,12 @@ the two training kernels run through ``kernels.autograd``.
 
 Tensor-parallel shards run ``attention_heads`` on their own heads (the JAX
 "heads" mode) where tp divides the kv heads; where it does not, serving
-runs the JAX "seq" mode (``attention_seq``): every shard joins the whole
-q, k and v, attends its slice of the query rows against the whole K/V in
-prefill, and in decode reads its head_dim slice of the pools (the JAX
-rules' fallback pool layout) through partial scores that are summed over
-the shards (``kernels.ops.paged_decode_scores`` and ``paged_decode_apply``).
+and training run the JAX "seq" mode (``attention_seq``): every shard joins
+the whole q, k and v, attends its slice of the query rows against the
+whole K/V in prefill and in training, and in decode reads its head_dim
+slice of the pools (the JAX rules' fallback pool layout) through partial
+scores that are summed over the shards (``kernels.ops.paged_decode_scores``
+and ``paged_decode_apply``).
 """
 
 from __future__ import annotations
@@ -980,10 +981,10 @@ def attention_seq(
     caches: list | None = None,
 ) -> tuple[list[torch.Tensor], list]:
     """Attention on ``tp`` shards in the JAX "seq" mode (tp does not divide
-    the kv heads; serving only). Returns (each shard's whole heads' output
-    (B, S, H·D), ready for ``tp_project(..., whole=True)`` of ``o``; each
-    shard's fresh (k, v) head_dim slice (B, S, Hk, D/tp) in the prefill
-    modes, else None).
+    the kv heads). Returns (each shard's whole heads' output (B, S, H·D),
+    ready for ``tp_project(..., whole=True)`` of ``o``; each shard's fresh
+    (k, v) head_dim slice (B, S, Hk, D/tp) in the prefill modes, else
+    None).
 
     Every shard joins the whole q, k and v from the shards' slices of the
     projections (``tp_whole``), so qk-norm and RoPE run on whole heads.
@@ -997,6 +998,12 @@ def attention_seq(
       all-gathered back into the whole sequence.
     - ``prefill_prefix``: the same for a partial prefill; each shard reads
       its slice of the cached prefix pages, all-gathered along head_dim.
+    - ``train``: ``prefill`` without caches or fresh K/V. Every join is
+      differentiable: shard r's rows of dQ come from its own rows' output
+      gradient, and the whole dK and dV are the sum over the shards of
+      their rows' contributions (the backward of the gathers into whole
+      q, k and v sums each consumer's gradient, and slices it back to the
+      shard whose projection made it). A shard with no rows adds nothing.
     - ``decode_paged``: each slot's token's q, k and v are cut on head_dim;
       each shard writes its k and v slices into its pools and computes
       partial scores on them (``ops.paged_decode_scores``); the scores are
@@ -1008,15 +1015,12 @@ def attention_seq(
       ``sparse_decode_attention`` (whose block gather each shard takes on
       its slice).
 
-    Training in this mode is refused (ROADMAP Queue 1 item 16)."""
+    Any other mode raises ``ValueError``, as ``attention_heads`` does."""
     c = cfg
     tp = len(attns)
     mode = kws[0]["mode"]
-    if mode not in ("prefill", "prefill_prefix", "decode_paged", "decode"):
-        raise ValueError(
-            f"{c.name} at tp={tp}: attention in the {mode!r} mode on kv heads that tp does not divide; the "
-            f"sequence-parallel mode serves only: ROADMAP Queue 1 item 16 (training in the sequence-parallel mode)"
-        )
+    if mode not in ("prefill", "prefill_prefix", "train", "decode_paged", "decode"):
+        raise ValueError(f"unknown attention mode {mode!r}")
     b, s, _ = xs[0].shape
     d = c.head_dim
     dc = d // tp
@@ -1034,7 +1038,7 @@ def attention_seq(
         heads.append((q.reshape(b, s, k.shape[2], -1, d), k, v))
     hk, g = heads[0][0].shape[2:4]
     dsl = [slice(r * dc, (r + 1) * dc) for r in range(tp)]
-    if mode in ("prefill", "prefill_prefix"):
+    if mode in ("prefill", "prefill_prefix", "train"):
         sparse = c.sparse_attention and s >= c.attn_block and s % c.attn_block == 0
         rows = query_slices(s, tp, c.attn_block if sparse else 1)
         if mode == "prefill_prefix":
@@ -1062,9 +1066,10 @@ def attention_seq(
                                                      q_block0=a0 // c.attn_block))
             else:
                 outs.append(flash_attention(qg[:, a0:a1], k, v, sm_scale=scale, chunk=c.attn_chunk, q_offset=a0))
-        o = collectives.all_gather(outs, dim=1)
-        fresh = [(k[..., dsl[r]], v[..., dsl[r]]) for r, (_, k, v) in enumerate(heads)]
-        return [t.reshape(b, s, hk * g * d) for t in o], fresh
+        o = [t.reshape(b, s, hk * g * d) for t in collectives.all_gather(outs, dim=1)]
+        if mode == "train":
+            return o, [None] * tp
+        return o, [(k[..., dsl[r]], v[..., dsl[r]]) for r, (_, k, v) in enumerate(heads)]
     dots, values, oks = [], [], []
     for r, (qg, k, v) in enumerate(heads):
         kc, vc = caches[r]["k"], caches[r]["v"]

@@ -278,8 +278,9 @@ def check_tp_layout(cfg: ModelConfig, st: sharding.Strategy, shapes: dict) -> di
     the layout the shard-local forms compute:
     in the heads mode a q, k or v projection cut on its blocks' output
     columns would split heads, which the heads mode takes whole; in the
-    sequence-parallel mode (serving where tp does not divide the kv heads)
-    the shards join q, k and v whole, so those cuts are taken.
+    sequence-parallel mode (serving and training where tp does not divide
+    the kv heads) the shards join q, k and v whole, so those cuts are
+    taken.
     ``shapes``: a state dict (or anything with shapes). Returns the
     specs."""
     tp = st.tp_size
@@ -955,7 +956,8 @@ def forward_train(
     every layer's forward a third time.
 
     A ``ShardedLM`` (``build_shards(..., trainable=True)``: attention in the
-    heads mode, the MoE family's experts on the model axis) runs the
+    heads mode, or in the sequence-parallel mode where tp does not divide
+    the kv heads; the MoE family's experts on the model axis) runs the
     tensor-parallel forward: the vocab-sharded embedding (or the embeds on
     every shard), each layer's ``_tp_block`` (the MoE layers' load-balance
     losses summed, each taken once), then a vocab-sharded cross-entropy. Each

@@ -74,9 +74,9 @@ class MeshState:
     ``shards[name]``, one tensor a slice, on that first position's device
     (positions that hold the same slice read it there: one controller);
     ``model_dim[name]``, the dimension the model axis cuts (tp only).
-    ``tp`` > 1 runs the tensor-parallel forms, refused where
-    ``transformer.check_tp_layout`` refuses them (in serving: the
-    ``Trainer`` refuses what only serves). The shards own their
+    ``tp`` > 1 runs the tensor-parallel forms (the heads mode, or the
+    sequence-parallel mode where tp does not divide the kv heads), refused
+    where ``transformer.check_tp_layout`` refuses them. The shards own their
     memory: the state dict they are cut from is not changed by training.
     ``copy=False`` hands the state dict over: a slice that is a whole
     tensor already on its device is then taken as it is, not copied (a
@@ -447,8 +447,8 @@ class Trainer:
             raise ValueError("a mesh Trainer takes its devices from the mesh; pass device=None")
         if mesh.devices is None:
             raise ValueError(f"mesh {mesh.shape} is a descriptor without devices")
-        # the sequence-parallel attention mode serves but does not train
-        sharding.check_tp(model_cfg, sharding.Strategy(mesh, strategy).tp_size, training=True)
+        # what the MeshState would refuse, before any weights are drawn
+        sharding.check_tp(model_cfg, sharding.Strategy(mesh, strategy).tp_size)
         self.model_cfg, self.opt_cfg = model_cfg, opt_cfg
         self.data, self.cfg = data, train_cfg
         self.mesh = mesh

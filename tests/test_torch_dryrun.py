@@ -13,8 +13,9 @@ and (1, 2) under both strategies: the counted FLOPs of one position equal
 the JAX walker's of ``lower_cell(...).compile()`` up to named terms that
 the test computes, and the argument bytes equal XLA's exactly, and so
 do smoke deepseek-moe-16b's under expert parallelism and smoke
-qwen3-1.7b's prefill and decode at tp 4 (1, 4), the sequence-parallel
-mode, whose collective bytes are printed beside the walker's; (v) one
+qwen3-1.7b's prefill, decode and train cells at tp 4 (1, 4), the
+sequence-parallel mode, whose collective bytes are printed beside the
+walker's; (v) one
 position's count times the positions equals the whole mesh's; (vi) a
 meta count equals a CPU count; (vii) the fsdp step's all-gather and
 reduce-scatter bytes equal the walker's rule over the parameters; (viii)
@@ -172,7 +173,8 @@ def _cells() -> dict:
 # (iv) smoke deepseek-moe-16b under expert parallelism, one cell a mesh
 MOE_CELLS = {"2x2 tp prefill_32k": [[2, 2], "tp", "prefill_32k"], "1x2 tp decode_32k": [[1, 2], "tp", "decode_32k"]}
 # (iv) smoke qwen3-1.7b (2 kv heads) at tp 4: the sequence-parallel mode
-SEQ_CELLS = {"1x4 tp prefill_32k": [[1, 4], "tp", "prefill_32k"], "1x4 tp decode_32k": [[1, 4], "tp", "decode_32k"]}
+SEQ_CELLS = {"1x4 tp prefill_32k": [[1, 4], "tp", "prefill_32k"], "1x4 tp decode_32k": [[1, 4], "tp", "decode_32k"],
+             "1x4 tp train_4k": [[1, 4], "tp", "train_4k"]}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -387,24 +389,31 @@ def test_dryrun_cli_full_width_cell_and_refusals(tmp_path, monkeypatch, capsys):
     assert row["xla_cost_flops_per_device"] is None and row["bottleneck"] in ("compute", "memory", "collective")
     assert row["collective_breakdown"]["all-gather"] > 0 and 0 < row["useful_flops_ratio"] < 1
     # --all over the refused cells: a row each, naming its item; exit 1
-    # (deepseek-67b's and kimi-k2's prefill and decode cells count in the
-    # sequence-parallel mode; their train cells are refused)
-    monkeypatch.setattr(registry, "ARCH_NAMES", ["deepseek-67b", "kimi-k2-1t-a32b", "zamba2-2.7b"])
+    # (deepseek-67b's and kimi-k2's cells count in the sequence-parallel
+    # mode, their train cells too: what is left is smollm-360m's
+    # sequence-cut decode cache and zamba2-2.7b's SSM layers)
+    for arch in ("deepseek-67b", "kimi-k2-1t-a32b"):
+        train = next(s for s in registry.shapes_for(arch, sparse=True) if s.kind == "train")
+        mesh = D.meta_mesh()
+        st = sharding.Strategy(mesh, registry.DEFAULT_STRATEGY[arch])
+        assert st.tp_size == 16 and L.seq_mode(registry.get(arch), 16)
+        D.check_cell(D._prep_cfg(registry.get(arch, sparse=True), mesh, st), train, st)
+    monkeypatch.setattr(registry, "ARCH_NAMES", ["smollm-360m", "zamba2-2.7b"])
     shapes_for = registry.shapes_for
     monkeypatch.setattr(registry, "shapes_for", lambda name, sparse=False: [
-        s for s in shapes_for(name, sparse=sparse) if name == "zamba2-2.7b" or s.kind == "train"])
+        s for s in shapes_for(name, sparse=sparse) if name == "zamba2-2.7b" or s.name == "long_500k"])
     refused = tmp_path / "refused.json"
     assert D.main(["--all", "--json", str(refused)]) == 1
     rows = json.loads(refused.read_text())
-    items = {"deepseek-67b": "item 16", "kimi-k2-1t-a32b": "item 16", "zamba2-2.7b": "item 18"}
-    assert len(rows) == 6 and all(not r["ok"] and items[r["arch"]] in r["error"] for r in rows)
+    items = {"smollm-360m": "item 16", "zamba2-2.7b": "item 18"}
+    assert len(rows) == 5 and all(not r["ok"] and items[r["arch"]] in r["error"] for r in rows)
     table = report.render(str(refused))
-    assert table.count("FAILED") == 6
+    assert table.count("FAILED") == 5
     both = tmp_path / "both.json"
     both.write_text(json.dumps([row] + rows))
     assert "| qwen3-1.7b | train_4k | 16x16 | fsdp |" in report.render(str(both))
     names = [n for n, _, _ in roofline_report.rows(both)]
-    assert names[0] == "roofline/qwen3-1.7b/train_4k/16x16" and len(names) == 7
+    assert names[0] == "roofline/qwen3-1.7b/train_4k/16x16" and len(names) == 6
     assert roofline_report.DEFAULT.name == "dryrun_baseline_torch.json"
 
 
@@ -621,18 +630,25 @@ def _lowrank_flops(cfg, tokens: int, kind: str) -> float:
 
 def _padded_dx(cfg, tokens: int, tp: int) -> float:
     """The FLOPs of the padding slots that the port's dX kernel runs: a
-    position's shard of each linear (its block rows of the pattern, or the
-    whole pattern where the output does not split into tp whole blocks)
-    has its own transposed tables, padded to their largest fan-in."""
+    position's shard of each linear has its own transposed tables, padded
+    to their largest fan-in: those of its block rows of the pattern, or,
+    where the block rows do not split into tp, of its column view (every
+    block's b/tp output columns as tp square blocks of b/tp over
+    consecutive input sub-blocks, ``pixelfly.linear_tables``)."""
     pad = 0
     for din, dout in _linears(cfg):
         spec = L.linear_spec(cfg, din, dout, False)
-        cols = spec.pattern().cols
-        n = len(cols) // tp if dout % (tp * spec.block) == 0 else len(cols)
-        parts = [cols[r * n: (r + 1) * n] for r in range(tp)] if n < len(cols) else [cols] * tp
-        for part in parts:
-            src_i, _, valid = transpose_tables(part, din // spec.block)
-            pad += (src_i.size - int(valid.sum())) * spec.block ** 2
+        cols, b = spec.pattern().cols, spec.block
+        if tp == 1 or dout % (tp * b) == 0:
+            n = len(cols) // tp
+            parts = [(cols[r * n: (r + 1) * n], din // b, b) for r in range(tp)]
+        else:
+            bc = b // tp
+            view = (cols[:, :, None] * tp + np.arange(tp)).reshape(len(cols), -1)
+            parts = [(view, din // bc, bc)] * tp
+        for part, nb_in, blk in parts:
+            src_i, _, valid = transpose_tables(part, nb_in)
+            pad += (src_i.size - int(valid.sum())) * blk ** 2
     return 2.0 * tokens * pad * cfg.num_layers / tp
 
 
@@ -657,7 +673,14 @@ def _named_terms(cfg, mesh_shape, strategy, cell, jax_lowrank: float) -> dict:
       alone in decode at (1, 2), all seven at (2, 2); every dU in training
       at (2, 2)), so the term is the port's FLOPs
       of these products less the walker's, read from the HLO
-      (``lowrank_flops`` of the JAX side: the dots of their einsum).
+      (``lowrank_flops`` of the JAX side: the dots of their einsum);
+    - ``whole_block_k_dx`` (train in the sequence-parallel mode with
+      qk-norm, one data position): k's cotangent leaves ``k_norm``'s
+      backward cut on k's output features, and GSPMD computes k's dX over
+      the whole sequence on its shard of ``ceil(nb_out / tp)`` whole block
+      rows (padding included), where the port's column view holds
+      ``nb_out / tp`` block rows' worth of columns. At (2, 4), and without
+      qk-norm, the walker keeps the sequence cut and the term is 0.
 
     The train cells run with ``remat=False`` on both sides: the two remat
     schemes differ (``transformer.forward_train``'s docstring)."""
@@ -674,6 +697,10 @@ def _named_terms(cfg, mesh_shape, strategy, cell, jax_lowrank: float) -> dict:
         if shape.kind == "train":
             terms["recomputed_attention"] = -unit * full
             terms["padded_dx"] = -_padded_dx(cfg, tokens, tp)
+            if L.seq_mode(cfg, tp) and cfg.qk_norm and mesh_shape[0] == 1:
+                pat = L.linear_spec(cfg, cfg.d_model, cfg.kv_dim, False).pattern()
+                whole = -(-pat.nb_out // tp) - pat.nb_out / tp
+                terms["whole_block_k_dx"] = 2.0 * tokens * pat.r * pat.block ** 2 * whole * cfg.num_layers
     if tp > 1:
         terms["split_lowrank"] = jax_lowrank - _lowrank_flops(cfg, tokens, shape.kind)
     else:  # fsdp: every position computes the products whole, as the port
@@ -720,16 +747,21 @@ def test_moe_counted_flops_equal_jax_walker_up_to_named_terms(key):
 def test_seq_parallel_counted_flops_equal_jax_walker_up_to_named_terms(key):
     """Smoke qwen3-1.7b at tp 4, whose 2 kv heads the mesh does not divide:
     the JAX rules' sequence-parallel mode (each shard's query rows against
-    the whole K/V in prefill; the caches on head_dim and the scores' partial
-    sums in decode). The counted FLOPs equal the walker's up to (iv)'s
-    inference terms (the attention's masked pairs, the low-rank ``x @ U``
-    GSPMD splits), and the argument bytes equal XLA's. The collective bytes
-    by class are printed beside the walker's: GSPMD moves the activations
-    between the layouts by all-to-alls and permutes, the port by
-    all-gathers and the scores' all-reduce."""
+    the whole K/V in prefill and in training; the caches on head_dim and
+    the scores' partial sums in decode). The counted FLOPs equal the
+    walker's up to (iv)'s terms (the attention's masked pairs, the
+    low-rank ``x @ U`` GSPMD splits, and in training the recomputed
+    attention, the dX padded slots and k's dX on whole block rows; remat
+    off on both sides, as (iv)),
+    and the argument bytes equal XLA's. The collective bytes by class are
+    printed beside the walker's: GSPMD moves the activations between the
+    layouts by all-to-alls and permutes, the port by all-gathers and the
+    scores' all-reduce."""
     m, strategy, cell = key.split()
     shape = SEQ_CELLS[key][0]
     cfg = registry.get_smoke("qwen3-1.7b", sparse=True)
+    if cell == "train_4k":
+        cfg = cfg.replace(remat=False)
     c = D.count_by_microbatches(cfg, SHAPES[cell], meta(tuple(shape)), strategy=strategy)
     jflops, jargs, jlowrank = jax_side()["seq_cells"][key]
     terms = _named_terms(cfg, tuple(shape), strategy, cell, jlowrank)

@@ -23,10 +23,10 @@ device's grid;
 (2, 2), and at (1, 4) with the column-sliced dense layer, equals the JAX
 ``Trainer``'s step (``test_torch_training.
 _check_step``'s tolerances; nll and lb_loss within 1e-5);
-(e) the dry-run's sweep splits 50 cells that count and 16 refused,
-deepseek-moe-16b's six among the first, kimi-k2's prefill and decode
-cells counting (the sequence-parallel mode serves) and its two training
-cells refused naming item 16 (``launch.dryrun.sweep_split``)."""
+(e) the dry-run's sweep splits 56 cells that count and 10 refused,
+deepseek-moe-16b's six among the first, and kimi-k2's six, its two
+training cells among them (the sequence-parallel mode serves and trains;
+``launch.dryrun.sweep_split``)."""
 
 import json
 import os
@@ -380,19 +380,23 @@ def test_column_sliced_o_and_down_are_refused(tp):
 
 
 def test_sweep_splits_38_ok_and_28_refused():
-    """The sweep's split: 50 cells count and 16 are refused (38 and 28
+    """The sweep's split: 56 cells count and 10 are refused (38 and 28
     before the sequence-parallel mode served the prefill and decode cells
-    where tp does not divide the kv heads)."""
+    where tp does not divide the kv heads, 50 and 16 before it trained):
+    kimi-k2's six cells count, its two train cells at tp 16 among them, and
+    what is refused is smollm-360m's sequence-cut decode cache (item 16)
+    and zamba2-2.7b (item 18)."""
     sweep = dryrun.sweep_split()
     ok = [k for k, v in sweep.items() if v is None]
     refused = {k: v for k, v in sweep.items() if v is not None}
-    assert (len(sweep), len(ok), len(refused)) == (66, 50, 16)
+    assert (len(sweep), len(ok), len(refused)) == (66, 56, 10)
     assert sum(k.startswith("deepseek-moe-16b ") for k in ok) == 6
-    assert sum(k.startswith("kimi-k2-1t-a32b ") for k in ok) == 4
-    kimi = [v for k, v in refused.items() if k.startswith("kimi-k2-1t-a32b ")]
-    assert len(kimi) == 2 and all("8 kv heads do not divide over 16" in v and "item 16" in v for v in kimi)
+    assert sum(k.startswith("kimi-k2-1t-a32b ") for k in ok) == 6
+    assert {k for k in ok if k.startswith("kimi-k2-1t-a32b train_4k")} == {
+        "kimi-k2-1t-a32b train_4k 16x16", "kimi-k2-1t-a32b train_4k 2x16x16"}
     assert all(("item 18" if k.startswith("zamba2") else "item 16") in v for k, v in refused.items())
-    assert [sum(f"item {n}" in v for v in refused.values()) for n in (16, 18)] == [8, 8]
+    assert all(k.startswith(("zamba2-2.7b ", "smollm-360m long_500k ")) for k in refused)
+    assert [sum(f"item {n}" in v for v in refused.values()) for n in (16, 18)] == [2, 8]
 
 
 def test_serve_cli_tp_serves_the_moe_family(capsys):

@@ -1534,3 +1534,61 @@ def test_seq_parallel_engine_on_card_equals_tp1(cuda, tp):
     assert serve_all(eng) == want
     assert all(k.launches > 0 for k in kernels)
     assert eng.stats_summary()["prefix_cache"]["hit_tokens"] > 0
+
+
+@pytest.mark.parametrize("g", [2, 6])
+def test_dense_attention_flash_query_slice_gradient(cuda, g):
+    """Training's dense arm in the sequence-parallel mode: bf16 flash
+    attention of each tp 4 shard's query rows at its offset under
+    autograd; dq by rows and dk, dv summed over the shards equal
+    ``chunked_attention``'s gradient of the whole sequence within 2e-2 of
+    their largest entry, also where S / 4 is not a chunk multiple."""
+    b, s, hk, d = 1, 1000, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    q = torch.randn((b, s, hk, g, d), generator=gen, device=cuda).to(torch.bfloat16).requires_grad_()
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device=cuda).to(torch.bfloat16).requires_grad_()
+            for _ in range(2))
+    do = torch.randn((b, s, hk, g, d), generator=gen, device=cuda).to(torch.bfloat16)
+    kw = dict(sm_scale=d ** -0.5, chunk=256)
+    want = torch.autograd.grad(L.chunked_attention(q, k, v, **kw), (q, k, v), do)
+    got = [torch.zeros_like(t, dtype=torch.float32) for t in (q, k, v)]
+    for a0, a1 in L.query_slices(s, 4, 1):
+        parts = torch.autograd.grad(L.flash_attention(q[:, a0:a1], k, v, q_offset=a0, **kw), (q, k, v), do[:, a0:a1])
+        got = [a + p.float() for a, p in zip(got, parts)]
+    for a, w in zip(got, want):
+        assert _err(a, w) <= 2e-2 * w.float().abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 4)])
+def test_seq_parallel_training_on_card_equals_one_position(cuda, shape, tmp_path):
+    """Smoke qwen3-1.7b (2 kv heads, fp32, sparse) trained at tp 4 on the
+    card, the sequence-parallel mode: 2 ``Trainer`` steps' losses and grad
+    norms within 1e-4 (|a - b| / (1 + |b|)) of the (1, 1) mesh's on the
+    card, with the query-slice attention and the column-cut views (block
+    16) of ``bsr_matmul`` launched."""
+    from repro_torch.kernels import bsr_attention, bsr_matmul
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.loop import TrainConfig, Trainer
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = registry.get_smoke("qwen3-1.7b", sparse=True).replace(num_layers=2)
+    sd = T.init_model(cfg, seed=0, device=cuda).state_dict()
+
+    def run(mesh_shape, path):
+        n = mesh_shape[0] * mesh_shape[1]
+        tr = Trainer(cfg, OptConfig(lr=1e-3, warmup_steps=1, total_steps=10), SyntheticLM(cfg.vocab_size, 256, 4),
+                     TrainConfig(ckpt_dir=str(path), ckpt_every=10 ** 9, log_every=10 ** 9),
+                     mesh=make_local_mesh(*mesh_shape, devices=[cuda] * n), strategy="tp", params=sd)
+        return tr.run(2)
+
+    want = run((1, 1), tmp_path / "one")
+    for k in (bsr_attention.KERNEL, bsr_matmul.KERNEL):
+        k.launches = 0
+        k.launches_by.clear()
+    got = run(shape, tmp_path / "seq")
+    assert bsr_attention.KERNEL.launches > 0 and bsr_matmul.KERNEL.launches_by[16] > 0
+    for a, b in zip(got, want):
+        for key in ("loss", "grad_norm"):
+            assert abs(a[key] - b[key]) / (1 + abs(b[key])) <= 1e-4, (key, got, want)

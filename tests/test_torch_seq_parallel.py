@@ -13,8 +13,8 @@ JAX engine's, and contiguous prefill and decode on a ``MeshState`` at
 rows of the whole ``ref.sparse_attention`` and counts its own pairs, and
 the summed plain partial scores and the plain apply equal
 ``ref.paged_decode_attention_gather`` (d); column-cut o, down and biased
-k shards equal the unsharded ``Linear`` (e); training in the mode and a
-sequence-cut decode cache still raise naming item 16 (f)."""
+k shards equal the unsharded ``Linear`` (e); training in the mode runs,
+and a sequence-cut decode cache still raises naming item 16 (f)."""
 
 import jax
 import jax.numpy as jnp
@@ -351,13 +351,24 @@ def test_column_cut_o_down_and_biased_kv_equal_unsharded():
 
 
 def test_training_and_a_sequence_cut_cache_name_item_16(tmp_path):
+    """Training in the mode runs: a ``Trainer`` step at (1, 4) (S = 16, the
+    dense arm at each shard's row offset), the sharded forward's loss at S
+    = 128 (two attention blocks over four shards) equal to the unsharded
+    one's, and the dry-run's deepseek-67b train cell at tp 16. A decode
+    cache cut along the sequence still raises naming item 16, and so does
+    a tp that divides neither the kv heads nor head_dim."""
     cfg, _ = _cfgs()
-    with pytest.raises(ValueError, match="serves but does not train.*item 16"):
-        Trainer(cfg, OptConfig(), SyntheticLM(cfg.vocab_size, 16, 2), TrainConfig(ckpt_dir=str(tmp_path)),
-                mesh=make_local_mesh(1, 4, ["cpu"] * 4), strategy="tp")
-    model = T.shard_model(cfg, make_tp_mesh(4, ["cpu"] * 4), T.init_model(cfg, seed=0, device="cpu").state_dict())
-    with pytest.raises(ValueError, match="serves only.*item 16"):
-        T.forward_train(cfg, model, {"tokens": np.zeros((1, 64), np.int32), "labels": np.zeros((1, 64), np.int32)})
+    trainer = Trainer(cfg, OptConfig(), SyntheticLM(cfg.vocab_size, 16, 2), TrainConfig(ckpt_dir=str(tmp_path)),
+                      mesh=make_local_mesh(1, 4, ["cpu"] * 4), strategy="tp")
+    (h,) = trainer.run(1)
+    assert h["step"] == 1 and np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
+    whole = T.init_model(cfg, seed=0, device="cpu")
+    model = T.shard_model(cfg, make_tp_mesh(4, ["cpu"] * 4), whole.state_dict())
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 129)).astype(np.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    with torch.no_grad():
+        got, want = (float(T.forward_train(cfg, m, batch)[0]) for m in (model, whole))
+    assert abs(got - want) <= 1e-5 * (1 + abs(want)), (got, want)
     smol = registry.get("smollm-360m", sparse=True)
     shape = next(s for s in registry.shapes_for("smollm-360m", sparse=True) if s.name == "long_500k")
     mesh = dryrun.meta_mesh()
@@ -367,7 +378,7 @@ def test_training_and_a_sequence_cut_cache_name_item_16(tmp_path):
     big = registry.get("deepseek-67b", sparse=True)
     st = sharding.Strategy(mesh, registry.DEFAULT_STRATEGY.get("deepseek-67b", "tp"))
     train = next(s for s in registry.shapes_for("deepseek-67b", sparse=True) if s.kind == "train")
-    with pytest.raises(ValueError, match="serves but does not train.*item 16"):
-        dryrun.check_cell(dryrun._prep_cfg(big, mesh, st), train, st)
+    assert st.tp_size == 16 and L.seq_mode(big, 16)
+    dryrun.check_cell(dryrun._prep_cfg(big, mesh, st), train, st)
     with pytest.raises(ValueError, match="neither its 2 kv heads nor its head_dim 64"):
         sharding.check_tp(cfg, 128)
