@@ -227,7 +227,8 @@ Phases; any failure raises and the script exits non-zero:
    host seconds overlap phases 3-15) for full-width qwen3-1.7b ``train_4k``, ``prefill_32k``
    and ``decode_32k``, musicgen-large ``train_4k``, deepseek-moe-16b
    ``prefill_32k`` and ``decode_32k`` (expert parallel at tp 16) and
-   qwen2-vl-7b ``train_4k`` (the sequence-parallel mode at tp 16), each
+   qwen2-vl-7b ``train_4k`` (the sequence-parallel mode at tp 16) and
+   zamba2-2.7b ``decode_32k`` (its SSM heads at tp 16), each
    ``ok``, a refused cell that must name its ROADMAP item (smollm-360m
    ``long_500k``, item 16), and the whole sweep's split into cells that count and
    cells refused (``DRYRUN_SPLIT``, from each cell's refusal checks):
@@ -309,11 +310,34 @@ Phases; any failure raises and the script exits non-zero:
    each, above it. The kernels' counts are set to 0 after each run's
    warm-up step and read after its last: both training kernels launch,
    the column-cut views among bsr_matmul's at tp 4.
-20. The kernels line (with each kernel's launches in phases 5 to 19, a
+20. The SSM mixer and its state at tp > 1: zamba2-2.7b and mamba2-130m
+   sparse at published widths, ``DEPTH_CUTS`` depth (zamba2 6 of 54
+   layers, its shared attention block among them; mamba2 6 of 24), bf16
+   unless stated, every shard on the one card. (d) first: the shard shapes
+   against their plain versions, timed as in phase 3: ``bsr_matmul`` on
+   zamba2's ``out_proj`` block rows at tp 2 and 4 and on mamba2's
+   column-cut view at tp 4, forward at M = 8 and 8192 and dX at 8192;
+   ``block_sparse_attention`` at D = 80 on a tp 2 and a tp 4 shard's
+   heads, B = 4. (a) zamba2 through ``Server(mesh=make_tp_mesh(tp))`` at
+   tp 1, 2 and 4 (``SSM_DEGREES``), 8 prompts of 512 tokens and 32 greedy
+   tokens each: the first prefill's and decode step's logits within
+   ``TP_LOGIT_TOL`` of tp 1's, two planted mixer faults at tp 2
+   (``SSM_FAULTS``) above it, the streams tp 1's but at a tp 1 top-2 gap
+   under ``EP_GAP_TOL``, new tok/s and peak memory; then in fp32 on the
+   same weights (``SSM_EXACT_DTYPE``) every tp's streams equal to tp 1's.
+   (b) mamba2 the same way in fp32 (tp 4 takes ``out_proj``'s column
+   view). (c) zamba2 through ``Trainer(mesh=...)`` at B = 4, S = 2048 on
+   (1, 1), tp (1, 2) and (1, 4) (``SSM_MESH_TRAIN``), 1 warm-up and 2
+   timed steps each, within ``MESH_TOL`` of (1, 1)'s, and the SSM norm
+   taking its gradient from shard 0 alone at tp (1, 2) above it. The
+   kernels' counts are set to 0 just before each run and read just after:
+   ``bsr_matmul`` launches in every run, ``block_sparse_attention`` in
+   zamba2's, the column view at mamba2's tp 4.
+21. The kernels line (with each kernel's launches in phases 5 to 20, a
    row for the b = 32 tensor-core path at ViT-B/16's shapes, one for
    attention at head dim 80, one for the column-sliced views, one for
-   each kernel entry of phase 18 and one for each of phase 19b), the
-   script's wall time, then the last line
+   each kernel entry of phase 18, one for each of phase 19b and one for
+   each of phase 20d), the script's wall time, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -3546,10 +3570,10 @@ def mesh_kernels(timer, full, seed):
 
 DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"), ("qwen3-1.7b", "decode_32k"),
                 ("musicgen-large", "train_4k"), ("deepseek-moe-16b", "prefill_32k"),
-                ("deepseek-moe-16b", "decode_32k"), ("qwen2-vl-7b", "train_4k"))
+                ("deepseek-moe-16b", "decode_32k"), ("qwen2-vl-7b", "train_4k"), ("zamba2-2.7b", "decode_32k"))
 DRYRUN_REFUSED = ("smollm-360m", "long_500k", "item 16")
 # the sweep's cells (``--all --both-meshes``): those that count, those refused
-DRYRUN_SPLIT = (56, 10)
+DRYRUN_SPLIT = (62, 4)
 DRYRUN_MEM_TOL = 0.10  # |predicted / max_memory_allocated - 1|
 SHARDED_MESHES = (("fsdp", (1, 1)), ("tp", (1, 2)), ("fsdp", (2, 1)))
 SHARDED_FP32_TOL = 1e-4
@@ -4817,6 +4841,358 @@ def seq_training_phase(timer, seed, smi, kernels):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 20: the SSM mixer and its state at tp > 1
+# ----------------------------------------------------------------------
+
+# the mixer faults 20a plants at tp 2, each above TP_LOGIT_TOL: the gated
+# norm's mean square over the shard's own channels, and each shard's
+# A_log and dt_bias slices shifted by one head
+SSM_FAULTS = ("mean square on the shard", "head slices shifted")
+# the leaves 20c's training fault reaches: the gated norm's scale, which
+# every model shard holds whole and uses a slice of
+SSM_TRAIN_LEAF = r"\.ssm\.norm$"
+
+
+@contextlib.contextmanager
+def planted_ssm_fault(kind):
+    """A fault of the tensor-parallel mixer (``ssm.apply_ssm_tp``) for the
+    length of the block. "mean square on the shard": the gated norm's mean
+    square over each shard's own d_inner/tp channels, not the whole
+    d_inner. "head slices shifted": each shard reads ``A_log`` and
+    ``dt_bias`` of the heads one after its own (wrapping round)."""
+    from repro_torch.models import ssm as ssm_lib
+
+    if kind == "mean square on the shard":
+        name, orig = "_mean_squares", ssm_lib._mean_squares
+
+        def faulty(yfs, width):
+            return [(yf * yf).mean(dim=-1, keepdim=True) for yf in yfs]
+    elif kind == "head slices shifted":
+        name, orig = "_head_params", ssm_lib._head_params
+
+        def faulty(ssm, r, hl):
+            _, d, _ = orig(ssm, r, hl)
+            idx = (torch.arange(r * hl, (r + 1) * hl, device=ssm.A_log.device) + 1) % ssm.A_log.shape[0]
+            return ssm.A_log[idx], d, ssm.dt_bias[idx]
+    else:
+        raise ValueError(kind)
+    setattr(ssm_lib, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(ssm_lib, name, orig)
+
+
+SSM_DEGREES = (1, 2, 4)
+# the meshes of 20c, every position the card: (1, 1) is the reference
+SSM_MESH_TRAIN = (("fsdp", (1, 1)), ("tp", (1, 2)), ("tp", (1, 4)))
+# 20a's and 20b's witness dtype: the same weights in fp32 must serve tp 1's
+# streams token for token at every tp
+SSM_EXACT_DTYPE = "float32"
+
+
+def ssm_config(arch):
+    """``arch`` sparse at published widths, ``DEPTH_CUTS`` depth (zamba2: 5
+    SSM layers and the shared attention block, one cycle)."""
+    from repro_torch.configs import registry
+
+    return registry.get(arch, sparse=True).replace(num_layers=DEPTH_CUTS[arch])
+
+
+def ssm_first_logits(cfg, srv, fixed, nxt=None):
+    """The fp32 logits of the ``Server``'s model (its ``MeshState``) for
+    one ``transformer.prefill`` of ``fixed`` and for the decode step after
+    it on the tokens ``nxt`` (default: its own greedy tokens; pass tp 1's,
+    so that a near tie the prefill breaks otherwise does not feed the
+    step another token)."""
+    from repro_torch.models import transformer as T
+
+    lp, caches = T.prefill(cfg, srv.model, {"tokens": fixed}, max_len=fixed.shape[1] + 1)
+    if nxt is None:
+        nxt = lp[:, : cfg.vocab_size].argmax(-1)
+    ld, _ = T.decode_step(cfg, srv.model, caches, nxt, fixed.shape[1])
+    return lp.float(), ld.float()
+
+
+def server_gap(cfg, srv, prompt, prefix) -> float:
+    """The top-2 gap, in logits over the vocabulary, of the greedy decision
+    the ``Server`` ``srv`` makes after ``prompt + prefix``: one
+    ``transformer.prefill`` pass over the whole sequence."""
+    from repro_torch.models import transformer as T
+
+    seq = np.concatenate([prompt, np.asarray(prefix, np.int32)]).astype(np.int32)[None]
+    logits, _ = T.prefill(cfg, srv.model, {"tokens": seq})
+    top = np.sort(logits[0, : cfg.vocab_size].float().cpu().numpy())[-2:]
+    return float(top[1] - top[0])
+
+
+def ssm_generate(srv, prompts, gen, kernels, must, native, tag):
+    """``srv.generate(prompts, gen)`` after a short warm-up, the kernels'
+    counts set to 0 just before and read just after: each of ``must`` must
+    launch, and at tp > 1 where ``native`` is given the column-cut views
+    (``view_launches``) among ``bsr_matmul``'s. Tokens in the vocabulary."""
+    cfg = srv.cfg
+    tp = srv.model.tp
+    srv.generate(prompts[:, :128], 2)  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts, gen)
+    wall = time.perf_counter() - t0
+    row = {"tp": tp, "wall_s": wall, "tok_s": toks.size / wall,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {name: k.launches for name, k in kernels.items()},
+           "bsr_launches_by_block": dict(sorted(kernels["bsr_matmul"].launches_by.items())),
+           "tokens": toks.tolist()}
+    row["column_view_launches"] = view_launches(row["bsr_launches_by_block"], native)
+    if toks.shape != (len(prompts), gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{tag}: tp {tp}: Server tokens of shape {toks.shape} or out of the vocabulary")
+    for name in must:
+        if row["launches"][name] <= 0:
+            raise AssertionError(f"{tag}: kernel {name} was never launched by the Server at tp {tp}")
+    return row
+
+
+def ssm_serving(arch, seed, smi, kernels, *, bf16=True):
+    """(a) / (b): ``Server(mesh=make_tp_mesh(tp))`` of ``arch``
+    (``ssm_config``) at each tp of ``SSM_DEGREES``, one state dict, 8
+    prompts of 512 tokens and 32 greedy tokens each (``ssm_generate``).
+    With ``bf16``: the first logits (``ssm_first_logits``, the decode step
+    on tp 1's tokens at every tp) within ``TP_LOGIT_TOL`` of tp 1's, each of ``SSM_FAULTS`` at tp 2 above it,
+    and each stream tp 1's but where tp 1's top-2 gap at the divergence is
+    under ``EP_GAP_TOL``. Then the same weights in ``SSM_EXACT_DTYPE`` at
+    every tp: streams equal to tp 1's token for token."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import transformer as T
+
+    tag = "20a" if bf16 else "20b"
+    full = ssm_config(arch)
+    sd = T.init_model(full, seed=seed, device="cuda").state_dict()
+    rng = np.random.default_rng(seed + 20)
+    prompts = rng.integers(0, full.vocab_size, (8, 512)).astype(np.int32)
+    fixed = torch.as_tensor(prompts, device="cuda")
+    native = pattern_blocks(full)
+    must = ("bsr_matmul", "block_sparse_attention") if full.num_heads else ("bsr_matmul",)
+    out = {"arch": arch, "layers": full.num_layers, "card": smi, "runs": {}}
+    if bf16:
+        ref, tp1 = None, None
+        for tp in SSM_DEGREES:
+            srv = Server(full, mesh=make_tp_mesh(tp), strategy="tp", params=sd)
+            lp, ld = ssm_first_logits(full, srv, fixed, None if ref is None else ref[2])
+            if not (torch.isfinite(lp).all() and torch.isfinite(ld).all()) or lp.shape != (8, full.padded_vocab):
+                raise AssertionError(f"{tag}: {arch} tp {tp} logits not finite or of the wrong shape")
+            if ref is None:
+                ref = (lp, ld, lp[:, : full.vocab_size].argmax(-1))
+            err = {"prefill": (lp - ref[0]).abs().max().item(), "decode": (ld - ref[1]).abs().max().item()}
+            if max(err.values()) > TP_LOGIT_TOL:
+                raise AssertionError(f"{tag}: {arch} tp {tp} logits off tp 1's by {err} (tol {TP_LOGIT_TOL})")
+            faults = {}
+            for kind in SSM_FAULTS if tp == 2 else ():
+                with planted_ssm_fault(kind):
+                    fp, fd = ssm_first_logits(full, srv, fixed, ref[2])
+                faults[kind] = {"prefill": (fp - ref[0]).abs().max().item(), "decode": (fd - ref[1]).abs().max().item()}
+                log(f"[{tag}] {arch} tp 2 with a planted {kind} fault: logits vs tp 1 prefill "
+                    f"{faults[kind]['prefill']:.4g} decode {faults[kind]['decode']:.4g} (tol {TP_LOGIT_TOL})")
+                if max(faults[kind].values()) <= TP_LOGIT_TOL:
+                    raise AssertionError(f"{tag}: a planted {kind} fault reads {faults[kind]}, within {TP_LOGIT_TOL}")
+            row = ssm_generate(srv, prompts, 32, kernels, must, native, tag)
+            row.update(logit_max_abs_err=err, planted_faults=faults, distinct_devices=srv.mesh.distinct_devices)
+            row["divergences"] = []
+            for i in range(len(prompts)) if tp > 1 else ():
+                a, b = tp1["tokens"][i], row["tokens"][i]
+                if a == b:
+                    continue
+                j = next(j for j in range(len(a)) if a[j] != b[j])
+                gap = server_gap(full, tp1["server"], prompts[i], a[:j])
+                row["divergences"].append({"request": i, "step": j, "tp1": a[j], "tp": b[j], "top2_gap": gap})
+                log(f"[{tag}] {arch} tp {tp} request {i} diverges from tp 1 at token {j} ({a[j]} vs {b[j]}): "
+                    f"tp 1's top-2 gap there {gap:.4f} (accepted under {EP_GAP_TOL})")
+            wide = [d for d in row["divergences"] if d["top2_gap"] >= EP_GAP_TOL]
+            if wide:
+                raise AssertionError(f"{tag}: {arch} tp {tp} streams leave tp 1's at a top-2 gap of "
+                                     f"{EP_GAP_TOL} or more: {wide}")
+            log(f"[{tag}] {arch} sparse, {full.num_layers} layers, bf16, tp {tp} ({tp} shard(s) on "
+                f"{srv.mesh.distinct_devices} device(s); {smi}): logits vs tp 1 prefill {err['prefill']:.4g} decode "
+                f"{err['decode']:.4g} (tol {TP_LOGIT_TOL}); the Server served 8 x 512 + 32 greedy in "
+                f"{row['wall_s']:.2f} s ({row['tok_s']:.1f} new tok/s with the prefill), peak memory "
+                f"{row['max_memory_allocated_gb']:.2f} GB; {len(row['divergences'])} divergence(s) from tp 1; "
+                f"launches {row['launches']}, bsr_matmul by block {row['bsr_launches_by_block']}")
+            if tp == 1:
+                tp1 = dict(row, server=srv)
+            out["runs"][f"bfloat16 {tp}"] = {k: v for k, v in row.items() if k != "tokens"}
+            del srv
+        del tp1
+        gc_collect()
+    exact_cfg = full.replace(dtype=SSM_EXACT_DTYPE)
+    exact = {k: v.float() if v.is_floating_point() else v for k, v in sd.items()}
+    del sd
+    ref = None
+    for tp in SSM_DEGREES:
+        srv = Server(exact_cfg, mesh=make_tp_mesh(tp), strategy="tp", params=exact)
+        row = ssm_generate(srv, prompts, 32, kernels, must, native, f"{tag} {SSM_EXACT_DTYPE}")
+        del srv
+        if ref is None:
+            ref = row["tokens"]
+        diff = [(i, next(j for j in range(32) if a[j] != b[j])) for i, (a, b) in enumerate(zip(ref, row["tokens"]))
+                if a != b]
+        log(f"[{tag}] {arch} {SSM_EXACT_DTYPE} tp {tp} ({smi}): 8 x 512 + 32 greedy in {row['wall_s']:.2f} s "
+            f"({row['tok_s']:.1f} new tok/s), peak memory {row['max_memory_allocated_gb']:.2f} GB, streams equal to "
+            f"tp 1's: {not diff}; launches {row['launches']}, bsr_matmul by block {row['bsr_launches_by_block']}")
+        if diff:
+            raise AssertionError(f"{tag}: {arch} {SSM_EXACT_DTYPE} tp {tp} streams leave tp 1's at (request, token) "
+                                 f"{diff}")
+        out["runs"][f"{SSM_EXACT_DTYPE} {tp}"] = {k: v for k, v in row.items() if k != "tokens"} | {"streams_equal": True}
+    del exact
+    gc_collect()
+    return out
+
+
+def ssm_training(seed, smi, kernels):
+    """(c) ``Trainer`` of zamba2-2.7b (``ssm_config``) on the meshes of
+    ``SSM_MESH_TRAIN``, every position the card, at B = 4, S = 2048 from one
+    state dict: 1 warm-up and 2 timed steps each (``mesh_run``), step ms,
+    tokens/s, peak memory; each mesh's losses, grad norms and first-step
+    gradient by parameter kind within ``MESH_TOL`` of (1, 1)'s; then the
+    SSM ``norm`` taking its gradient from shard 0 alone at tp (1, 2) for
+    one step, which must read above it. The kernels' counts are set to 0
+    after each run's warm-up step and read after its last: both training
+    kernels launch."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import OptConfig
+
+    full = ssm_config("zamba2-2.7b")
+    sd = T.init_model(full, seed=seed, device="cuda").state_dict()
+    data = SyntheticLM(full.vocab_size, 2048, 4, seed=seed)
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    runs, ref = {}, None
+    for strategy, shape in SSM_MESH_TRAIN:
+        row = mesh_run(full, sd, data, opt, strategy, shape, "cuda", kernels, ref=ref)
+        key = f"{strategy} {tuple(shape)}"
+        if ref is None:
+            ref = row
+        for name in ("bsr_matmul", "block_sparse_attention"):
+            if row["launches"][name] <= 0:
+                raise AssertionError(f"20c: kernel {name} was never launched at {key}")
+        log(f"[20c] zamba2-2.7b {key} ({row['positions']} position(s) on {row['distinct_devices']} device(s); "
+            f"{smi}): steps {', '.join(f'{x:.1f}' for x in row['step_ms'])} ms (median {row['step_ms_median']:.1f}, "
+            f"{row['train_tok_s']:.0f} train tokens/s), peak memory {row['max_memory_allocated_gb']:.2f} GB; losses "
+            f"{', '.join(f'{x:.6f}' for x in row['loss'])}, grad norms {', '.join(f'{x:.6f}' for x in row['grad_norm'])}"
+            f"; launches {row['launches']}")
+        read = row.get("read")
+        if read:
+            log(f"[20c] {key} vs (1, 1): loss {read['loss']:.3e} (tol {MESH_TOL['loss']:g}), grad norm "
+                f"{read['grad_norm']:.3e} (tol {MESH_TOL['grad_norm']:g}), first-step gradient direction "
+                f"{read['grad_direction']:.3e} (tol {MESH_TOL['grad_direction']:g}; by kind "
+                + ", ".join(f"{k} {v:.2e}" for k, v in row["grad_direction"].items()) + ")")
+            bad = {k: v for k, v in read.items() if v > MESH_TOL[k]}
+            if bad:
+                raise AssertionError(f"20c: {key} off (1, 1) by {bad} (tol {MESH_TOL})")
+        runs[key] = {k: v for k, v in row.items() if k not in ("snaps", "mu")}
+    row = mesh_run(full, sd, data, opt, "tp", (1, 2), "cuda", kernels, ref=ref, fault="norm gradient", steps=1,
+                   planted=planted_train_fault("replicated grad", leaf=SSM_TRAIN_LEAF))
+    read = row["read"]
+    over = {k: v / MESH_TOL[k] for k, v in read.items()}
+    log(f"[20c] a planted fault at tp (1, 2), the SSM norm's gradient from shard 0 alone: vs (1, 1) loss "
+        f"{read['loss']:.3e}, grad norm {read['grad_norm']:.3e}, gradient direction {read['grad_direction']:.3e} ("
+        + ", ".join(f"{k} {v:.1f}x" for k, v in over.items()) + " its tolerance)")
+    if max(over.values()) <= 1.0:
+        raise AssertionError(f"20c: the planted norm gradient fault reads {read}, within {MESH_TOL}")
+    fault = {k: v for k, v in row.items() if k not in ("snaps", "mu")}
+    del ref, sd
+    gc_collect()
+    launches = {name: sum(r["launches"][name] for r in runs.values()) for name in kernels}
+    return {"runs": runs, "fault": fault, "tol": MESH_TOL, "launches": launches, "card": smi}
+
+
+def ssm_kernels(timer, seed):
+    """(d) The shard shapes the SSM mixer adds, each against its plain
+    version and timed as phase 3 times them (rank 0 timed, the others
+    checked): ``bsr_matmul`` on zamba2-2.7b's ``out_proj`` block rows at tp
+    2 and 4 and on mamba2-130m's column-cut view at tp 4 (6 block rows),
+    forward at M = 8 and 8192 and dX at M = 8192 (``x @ bsr_to_dense``,
+    ``dy @ W_denseᵀ`` beside them); ``block_sparse_attention`` at
+    zamba2-2.7b's head dim 80 on a tp 2 and a tp 4 shard's heads (16 and 8),
+    B = 4, S = 2048 (SDPA beside it)."""
+    from repro_torch.core.pixelfly import linear_tables
+    from repro_torch.kernels import autograd as AG
+    from repro_torch.models import ssm as ssm_lib
+
+    out = {"bsr_matmul": [], "block_sparse_attention": []}
+    cases = (("zamba2-2.7b", 2), ("zamba2-2.7b", 4), ("mamba2-130m", 4))
+    for arch, tp in cases:
+        spec = ssm_lib.SsmSpec(ssm_config(arch)).out_proj
+        pat = spec.pattern()
+        nb_in = spec.in_features // pat.block
+        rows = pat.nb_out % tp == 0
+        g = torch.Generator(device="cuda").manual_seed(seed + 200 + tp)
+        for r in range(tp):
+            if rows:
+                nb = pat.nb_out // tp
+                blocks = (torch.randn((nb, pat.r, pat.block, pat.block), generator=g, device="cuda")
+                          / math.sqrt(pat.r * pat.block)).to(torch.bfloat16)
+                tables = AG.bsr_tables(pat.cols[r * nb : (r + 1) * nb], nb_in, "cuda")
+                shard = [nb, pat.r, pat.block, pat.block]
+                n_out, slots = nb * pat.block, nb * pat.r
+            else:
+                bc = pat.block // tp
+                blocks = (torch.randn((pat.nb_out, pat.r, pat.block, bc), generator=g, device="cuda")
+                          / math.sqrt(pat.r * pat.block)).to(torch.bfloat16).reshape(pat.nb_out, pat.r * tp, bc, bc)
+                tables = linear_tables(spec, torch.device("cuda"), None, (r * bc, (r + 1) * bc))
+                shard = [pat.nb_out, pat.r, pat.block, bc]
+                n_out, slots = pat.nb_out * bc, pat.nb_out * pat.r * tp
+            label = f"{arch} out_proj tp {tp} {'rows' if rows else 'columns'}"
+            for m in (8, 8192):
+                x = torch.randn((m, spec.in_features), generator=g, device="cuda").to(torch.bfloat16)
+                fwd = bsr_row(timer, x, blocks, tables.cols, spec.in_features, slots, 2e-2, f"{label} rank {r}",
+                              timed=r == 0)
+                fwd.update({"arch": arch, "tp": tp, "linear": "out_proj", "shard_blocks": shard, "pass": "forward"})
+                if r == 0:
+                    out["bsr_matmul"].append(fwd)
+            dy = torch.randn((8192, n_out), generator=g, device="cuda").to(torch.bfloat16)
+            bt = AG.transposed_blocks(blocks, tables)
+            dx = bsr_row(timer, dy, bt, tables.cols_t, n_out, slots, 2e-2, f"{label} dX rank {r}", timed=r == 0)
+            dx.update({"arch": arch, "tp": tp, "linear": "out_proj", "shard_blocks": shard, "pass": "dX",
+                       "transposed": list(tables.cols_t.shape), "real_slot_share": float(tables.valid.float().mean())})
+            if r == 0:
+                out["bsr_matmul"].append(dx)
+    for row in out["bsr_matmul"]:
+        log(f"[20d] bsr_matmul {row['case']} {row['pass']:7s} {row['shape']} (shard blocks "
+            f"{tuple(row['shard_blocks'])}; every rank checked): err {row['max_abs_err']:.2e} kernel {row['ms']:.4f} ms "
+            f"plain {row['plain_ms']:.4f} ms library {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+    zamba = ssm_config("zamba2-2.7b")
+    for tp in (2, 4):
+        h = zamba.num_heads // tp
+        row = attention_case(timer, b=4, s=2048, h=h, hk=zamba.num_kv_heads // tp, d=zamba.head_dim,
+                             block=zamba.attn_block, dtype=torch.bfloat16, seed=seed + 210 + tp, tol=2e-2)
+        row["tp"] = tp
+        out["block_sparse_attention"].append(row)
+        log(f"[20d] block_sparse_attention zamba2-2.7b tp {tp} shard {row['shape']}: err {row['max_abs_err']:.2e} "
+            f"(tol {row['tol']:g}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
+            f"{row['library_ms']:.4f} ms bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return out
+
+
+def ssm_tp_phase(timer, seed, smi, kernels):
+    """Phase 20: (d) first (the new shard shapes' first calls are short
+    ones), then (a), (b), (c)."""
+    out = {"kernels": ssm_kernels(timer, seed)}
+    out["zamba2"] = ssm_serving("zamba2-2.7b", seed, smi, kernels)
+    out["mamba2"] = ssm_serving("mamba2-130m", seed, smi, kernels, bf16=False)
+    out["training"] = ssm_training(seed, smi, kernels)
+    parts = [r for arch in ("zamba2", "mamba2") for r in out[arch]["runs"].values()]
+    out["launches"] = {name: sum(r["launches"][name] for r in parts) + out["training"]["launches"][name]
+                       for name in kernels}
+    out["column_view_launches"] = sum(r["column_view_launches"] for r in parts)
+    if out["column_view_launches"] <= 0:
+        raise AssertionError("20b: mamba2-130m's column-cut out_proj view never launched at tp 4")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5197,7 +5573,14 @@ def main(argv=None) -> int:
     report["seq_training"] = seq_train
     log(f"[19] phase 19 took {seq_train['wall_s']:.1f} s")
 
-    # ---- 20. report ------------------------------------------------
+    # ---- 20. the SSM mixer and its state at tp > 1 ------------------
+    t20 = time.perf_counter()
+    ssm_tp = ssm_tp_phase(timer, args.seed, smi, seq_kernels_all)
+    ssm_tp["wall_s"] = time.perf_counter() - t20
+    report["ssm_tp"] = ssm_tp
+    log(f"[20] phase 20 took {ssm_tp['wall_s']:.1f} s")
+
+    # ---- 21. report ------------------------------------------------
     def summed(rows, key):
         return sum(r[key] for r in rows)
 
@@ -5299,6 +5682,7 @@ def main(argv=None) -> int:
         k["launches_phase18"] = seq["launches"][k["name"]]
         if k["name"] != "paged_decode_attention":  # training in the sequence-parallel mode runs the other two
             k["launches_phase19"] = seq_train["launches"][k["name"]]
+            k["launches_phase20"] = ssm_tp["launches"][k["name"]]  # so do the Server and Trainer of phase 20
     views = [r for r in ep["kernels"] if r["shape"].startswith("M=8 ")]
     line["kernels"].append({
         "name": "bsr_matmul_column_view",
@@ -5365,6 +5749,41 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in dx_views) else "operations",
         "library_ms": summed(dx_views, "library_ms"),
     }]
+    out_proj = [r for r in ssm_tp["kernels"]["bsr_matmul"] if r["pass"] == "forward" and r["shape"].startswith("M=8 ")]
+    attn_shard = ssm_tp["kernels"]["block_sparse_attention"][0]
+    line["kernels"] += [{
+        "name": "bsr_matmul_ssm_out_proj_shards",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/bsr_matmul.cu",
+        "replaces": "src/repro/kernels/bsr_matmul.py:59",
+        "shape": "the SSM out_proj's shards at M=8, bf16, summed: " + "; ".join(
+            f"{r['case']} blocks {tuple(r['shard_blocks'])} as {r['shape']}" for r in out_proj) + " (phase 20)",
+        "launches": ssm_tp["launches"]["bsr_matmul"],
+        "launches_of": "every bsr_matmul launch of phase 20's Servers and Trainers (tp 1 and (1, 1) included, "
+                       "every linear); the kernel's counts are by block, which these shards share with the others",
+        "max_abs_err": max(r["max_abs_err"] for r in ssm_tp["kernels"]["bsr_matmul"]),
+        "ms": summed(out_proj, "ms"),
+        "plain_ms": summed(out_proj, "plain_ms"),
+        "bound_ms": summed(out_proj, "bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in out_proj) else "operations",
+        "library_ms": summed(out_proj, "library_ms"),
+    }, {
+        "name": "block_sparse_attention_d80_shard",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/bsr_attention.cu",
+        "replaces": "src/repro/kernels/bsr_attention.py:100",
+        "shape": attn_shard["shape"] + f", {attn_shard['dtype']} (zamba2-2.7b's shared attention on a tp 2 shard's "
+                                       "heads, phase 20)",
+        "launches": ssm_tp["launches"]["block_sparse_attention"],
+        "launches_of": "every block_sparse_attention launch of phase 20's Servers and Trainers (tp 1 and (1, 1) "
+                       "included), not only those on a shard's heads",
+        "max_abs_err": max(r["max_abs_err"] for r in ssm_tp["kernels"]["block_sparse_attention"]),
+        "ms": attn_shard["ms"],
+        "plain_ms": attn_shard["plain_ms"],
+        "bound_ms": attn_shard["bound_ms"],
+        "bound_by": attn_shard["bound_by"],
+        "library_ms": attn_shard["library_ms"],
+    }]
     report["kernels"] = line["kernels"]
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -5375,7 +5794,7 @@ def main(argv=None) -> int:
     report["wall_s"] = time.perf_counter() - T_START
     report["timeline"] = TIMELINE
     out.write_text(json.dumps(report, indent=1))
-    log(f"[20] chip_smoke.py took {report['wall_s']:.1f} s")
+    log(f"[21] chip_smoke.py took {report['wall_s']:.1f} s")
     log(f"card: {smi}")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

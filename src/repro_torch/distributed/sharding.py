@@ -32,7 +32,7 @@ first entry, is the spec of each layer's tensor (``bridge.port_names``).
 
 ``check_tp`` refuses what the port's shard-local forms do not cover, in
 serving and in training alike, each refusal naming the ROADMAP item that
-would shard it.
+would shard it (``REFUSED``).
 """
 
 from __future__ import annotations
@@ -67,7 +67,8 @@ __all__ = [
 # what the port's tensor parallelism leaves to later work, by ROADMAP item
 REFUSED = {
     "attention": "ROADMAP Queue 1 item 16 (decode attention over a cache cut along the sequence)",
-    "ssm": "ROADMAP Queue 1 item 18 (the SSM mixer and its state at tp > 1, and the fixed-batch Server)",
+    "ssm_heads": "ROADMAP Queue 1 item 24 (an SSM mixer whose heads tp does not divide, or with more than one "
+                 "group of B and C)",
     "engine_fsdp": "ROADMAP Queue 1 item 20 (an Engine holding FSDP-sharded weights on a (data, model) mesh, "
                    "the JAX Engine's strategy=\"fsdp\" on such a mesh)",
 }
@@ -428,11 +429,16 @@ def check_tp(cfg: ModelConfig, tp: int) -> None:
     0``). Dense and pixelfly linears shard on their output or input
     features (a pixelfly linear whose block rows tp does not divide on its
     blocks' output columns), the MoE family's experts and router on their
-    expert axis, and the vocabulary; SSM state waits."""
+    expert axis, and the vocabulary. The Mamba2 mixer shards by its heads
+    (``ssm.apply_ssm_tp``): tp must divide ``ssm_heads``, and B and C must
+    be one group, which every shard takes whole."""
     if tp <= 1:
         return
-    if cfg.has_ssm:
-        raise ValueError(f"{cfg.name} at tp={tp}: SSM layers are not sharded; {REFUSED['ssm']}")
+    if cfg.has_ssm and (cfg.ssm_groups != 1 or cfg.ssm_heads % tp):
+        raise ValueError(
+            f"{cfg.name} at tp={tp}: its SSM mixer has {cfg.ssm_heads} heads and {cfg.ssm_groups} group(s) of B "
+            f"and C, and the port shards it by whole heads of one group; {REFUSED['ssm_heads']}"
+        )
     if cfg.num_kv_heads % tp == 0:
         return
     if cfg.head_dim % tp or cfg.head_dim < tp:

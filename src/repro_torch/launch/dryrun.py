@@ -20,8 +20,9 @@ meta and report their own cost (``kernels.ops``).
   - decode: ``transformer.decode_step`` over ``init_mesh_cache``'s caches
     for that replica, at the last position of the cache.
 
-A row counts the model cut to two layers and to three and extends the
-counts to the model's depth (``count_by_layers``): on one controller a
+A row counts the model cut to two layers and to three (the hybrid: two
+and three of its cycles) and extends the counts to the model's depth
+(``count_by_layers``): on one controller a
 tensor-parallel replica runs each of its shards' ops in turn, and a
 48-layer model at tp 16 takes many minutes of meta ops, where two and
 three layers take seconds. A training step of k > 3 microbatches is
@@ -346,25 +347,38 @@ def _repeated_group(cfg: ModelConfig) -> int | None:
     return head
 
 
+def _repeated_cycle(cfg: ModelConfig) -> int | None:
+    """The hybrid's layers outside its whole cycles (``attn_every`` - 1 SSM
+    layers and the shared attention block, repeated; the shared block's
+    parameters are one set at every cycle); None for the other families."""
+    if cfg.family != "hybrid":
+        return None
+    return cfg.num_layers % cfg.attn_every
+
+
 def count_by_layers(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, **kw) -> dict:
     """``count_by_microbatches`` of the model cut to two layers of its last
     layer group and to three (the groups ahead of it whole), extended to
     ``cfg.num_layers``: the layers of one group run the same program, so
     every count is the two-layer count plus ``num_layers - head - 2`` times
     what the third layer adds (the JAX walker multiplies a scanned layer's
-    body by its trip count the same way). The memory is extended the same
-    way, which holds while the same phase of the step has the peak at every
-    depth: from two layers on, not from one (a one-layer prefill of
-    musicgen-large peaks elsewhere), and the tests hold it equal to a count
-    of every layer. A model whose depth changes more than its last group
-    (``_repeated_group``), or with no more than three layers in that group,
-    is counted whole."""
+    body by its trip count the same way). The hybrid is cut the same way
+    to two and three of its cycles (``_repeated_cycle``). The memory is
+    extended the same way, which holds while the same phase of the step
+    has the peak at every depth: from two layers on, not from one (a
+    one-layer prefill of musicgen-large peaks elsewhere), and the tests
+    hold it equal to a count of every layer. A model whose depth changes
+    anything else (``_repeated_group``), or with no more than three
+    repeated units, is counted whole."""
     n = cfg.num_layers
-    head = _repeated_group(cfg)
-    if head is None or n - head <= 3:
+    head, unit = _repeated_group(cfg), 1
+    if head is None and _repeated_cycle(cfg) is not None:
+        head, unit = _repeated_cycle(cfg), cfg.attn_every
+    if head is None or (n - head) // unit <= 3:
         return count_by_microbatches(cfg, shape, mesh, **kw)
-    two, three = (count_by_microbatches(cfg.replace(num_layers=head + j), shape, mesh, **kw) for j in (2, 3))
-    return _extended(two, three, n - head - 2, memory="linear")
+    two, three = (count_by_microbatches(cfg.replace(num_layers=head + j * unit), shape, mesh, **kw)
+                  for j in (2, 3))
+    return _extended(two, three, (n - head) // unit - 2, memory="linear")
 
 
 def run_cell(

@@ -29,7 +29,9 @@ least-loaded router, one fleet summary and one scrape endpoint.
 
 ``--tp N --strategy tp`` serves tensor-parallel: the engine holds N shards
 of the model and of the KV pools on a ``(1, N)`` mesh (``launch.mesh``),
-by default the card N times. On one card that measures what sharding
+by default the card N times; with ``--legacy-server``, and for the SSM and
+hybrid families, the ``Server`` holds the N shards on that mesh, the SSM
+mixer and its state by heads. On one card that measures what sharding
 costs, not a speedup: the shards share the card's SMs and the host
 launches each shard's kernels in turn. ``--tp`` composes with
 ``--replicas`` (``replicas * tp`` devices). ``--production-mesh`` builds
@@ -57,6 +59,7 @@ from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.request import ScheduleParams
 from repro_torch.serving.router import ReplicaRouter
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.training.loop import MeshState
 
 __all__ = ["Server", "Served", "main"]
 
@@ -65,21 +68,40 @@ class Server:
     """Fixed-batch LM server (reference): prefill once, then step the
     decode cache. ``params`` is a state dict (``bridge.params_from_jax``
     or a model's ``state_dict()``); without it the weights are random from
-    ``seed``."""
+    ``seed``.
 
-    def __init__(self, cfg, *, seed: int = 0, params=None, device=None):
-        self.cfg = cfg
-        self.device = T.resolve_device(device)
-        self.model = T.init_model(cfg, seed=seed, device=self.device, params=params)
+    With ``mesh`` (``launch.mesh``; its devices say where the shards go, so
+    ``device`` must then be None) the server holds a
+    ``training.loop.MeshState``: the weights cut by the JAX rules under
+    ``strategy`` ("fsdp", the JAX ``Server``'s default, or "tp"), and
+    ``transformer.prefill`` and ``decode_step`` run on it, each data
+    replica on its rows and, under tp, each model shard on its heads, its
+    SSM heads and its slices (``sharding.check_tp`` refuses the rest). The
+    logits are gathered onto the first position's device."""
+
+    def __init__(self, cfg, *, mesh=None, strategy: str = "fsdp", seed: int = 0, params=None, device=None):
+        self.cfg, self.mesh = cfg, mesh
+        if mesh is None:
+            self.device = T.resolve_device(device)
+            self.model = T.init_model(cfg, seed=seed, device=self.device, params=params)
+            return
+        if device is not None:
+            raise ValueError("a mesh Server takes its devices from the mesh; pass device=None")
+        sharding.check_tp(cfg, sharding.Strategy(mesh, strategy).tp_size)
+        self.device = torch.device(mesh.devices.flat[0])
+        if params is None:
+            params = T.init_model(cfg, seed=seed, device=self.device).state_dict()
+        self.model = MeshState(cfg, mesh, strategy, params, copy=False)
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, gen_len: int) -> np.ndarray:
-        """prompts (B, P) int -> (B, gen_len) int32, greedy. An SSM or
-        hybrid config prefills in one ``transformer.prefill`` pass
-        (block-sparse attention and every linear at M = B x P); any other
-        goes through the decode step one token at a time, as the JAX
-        package's ``Server`` does. The tokens stay on the device until the
-        one fetch at the end."""
+        """prompts (B, P) int -> (B, gen_len) int32, greedy over the
+        vocabulary (the padded logits past ``vocab_size`` are never
+        chosen). An SSM or hybrid config prefills in one
+        ``transformer.prefill`` pass (block-sparse attention and every
+        linear at M = B x P); any other goes through the decode step one
+        token at a time, as the JAX package's ``Server`` does. The tokens
+        stay on the device until the one fetch at the end."""
         cfg, model = self.cfg, self.model
         b, plen = prompts.shape
         max_len = plen + gen_len + 1
@@ -87,15 +109,18 @@ class Server:
         if cfg.has_ssm:
             logits, caches = T.prefill(cfg, model, {"tokens": toks}, max_len=max_len)
         else:
-            caches = T.init_cache(cfg, b, max_len, device=self.device)
+            if self.mesh is None:
+                caches = T.init_cache(cfg, b, max_len, device=self.device)
+            else:
+                caches = T.init_mesh_cache(cfg, model, b, max_len)
             for i in range(plen):
                 logits, caches = T.decode_step(cfg, model, caches, toks[:, i], i)
         out = []
-        tok = torch.argmax(logits, dim=-1)
+        tok = torch.argmax(logits[:, : cfg.vocab_size], dim=-1)
         for j in range(gen_len):
             out.append(tok)
             logits, caches = T.decode_step(cfg, model, caches, tok, plen + j)
-            tok = torch.argmax(logits, dim=-1)
+            tok = torch.argmax(logits[:, : cfg.vocab_size], dim=-1)
         return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
 
 
@@ -299,16 +324,15 @@ def main(argv=None) -> Served:
                 "Server path is plain greedy only"
             )
         if args.tp > 1:
-            raise SystemExit(
-                f"the fixed-batch Server at --tp {args.tp}: its contiguous caches and the SSM state "
-                f"are not sharded; {sharding.REFUSED['ssm']}"
-            )
-        server = Server(cfg, device=args.device)
+            devices = None if args.device is None else [args.device] * args.tp
+            server = Server(cfg, mesh=make_tp_mesh(args.tp, devices), strategy=args.strategy)
+        else:
+            server = Server(cfg, device=args.device)
         t0 = time.perf_counter()
         out = server.generate(prompts, args.gen)
         dt = time.perf_counter() - t0
         print(f"generated {out.shape} tokens in {dt:.2f}s "
-              f"({args.batch * args.gen / dt:.1f} tok/s)")
+              f"({args.batch * args.gen / dt:.1f} tok/s), tp {args.tp}")
         print(out[:2])
         return Served(list(out), None, dt)
 

@@ -750,12 +750,15 @@ def attention_heads(
     index: DecodeIndex | None = None,
     pos: torch.Tensor | int | None = None,
     prefix_rows: torch.Tensor | None = None,
+    proj: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
     """Returns (the heads' output before ``o``, (B, S, H·D), fresh K/V).
     x (B, S, d_model); cos/sin from ``rope_angles`` of the tokens'
     positions. The head counts are read off the q and k projections, so a
     tensor-parallel shard (its q and kv heads, the JAX "heads" mode) runs
-    this unchanged on its own heads and its own pools.
+    this unchanged on its own heads and its own pools. ``proj``: the q, k
+    and v projections' outputs (B, S, features) when the caller has them
+    (``tp_heads_qkv``), else they are computed from x.
 
     ``mode="prefill"``: causal attention over the S tokens (pixelfly
     block-sparse when the model has sparse attention and S is a multiple
@@ -790,9 +793,9 @@ def attention_heads(
     b, s, _ = x.shape
     d = c.head_dim
     scale = d ** -0.5
-    q = attn.wq(x).reshape(b, s, -1, d)
-    k = attn.wk(x).reshape(b, s, -1, d)
-    v = attn.wv(x).reshape(b, s, -1, d)
+    if proj is None:
+        proj = (attn.wq(x), attn.wk(x), attn.wv(x))
+    q, k, v = (t.reshape(b, s, -1, d) for t in proj)
     hk = k.shape[2]
     g = q.shape[2] // hk
     if c.qk_norm:
@@ -912,6 +915,30 @@ def in_feature_order(lin: Linear, ys: list[torch.Tensor]) -> list[torch.Tensor]:
             done[id(y)] = y.reshape(*y.shape[:-1], tp, nb, bc).transpose(-3, -2).reshape(y.shape)
         out.append(done[id(y)])
     return out
+
+
+def tp_heads_qkv(attns: list[Attention], xs: list[torch.Tensor]) -> list[tuple | None]:
+    """The heads mode's q, k and v projections of each shard, for
+    ``attention_heads(..., proj=)``, where one of them is cut on its
+    blocks' output columns (``Linear.cols``, a pixelfly projection whose
+    block rows tp does not divide): its slices are joined whole on every
+    shard (``tp_whole``) and shard r takes the features of its heads, [r·F/tp,
+    (r+1)·F/tp) of the F; a projection cut on its block rows or its output
+    features gives each shard those features as it is. None for every shard
+    where no projection is cut on columns (``attention_heads`` computes
+    them)."""
+    lins = [[getattr(a, n) for a in attns] for n in ("wq", "wk", "wv")]
+    if all(ls[0].cols is None for ls in lins):
+        return [None] * len(attns)
+    tp = len(attns)
+    outs = []
+    for ls in lins:
+        if ls[0].cols is None:
+            outs.append(tp_linear(ls, xs))
+            continue
+        f = ls[0].spec.out_features // tp
+        outs.append([t[..., r * f : (r + 1) * f] for r, t in enumerate(tp_whole(ls, xs))])
+    return [tuple(o[r] for o in outs) for r in range(tp)]
 
 
 def tp_mlp(mlps: list[Mlp], xs: list[torch.Tensor]) -> list[torch.Tensor]:

@@ -62,7 +62,8 @@ One process drives every shard, layer by layer: each shard runs its heads
 and its slice of the MLP (its block rows of each pixelfly linear, or its
 output columns of every block where tp does not divide the block rows),
 or, in an MoE layer, its experts and router columns (``moe.apply_moe_tp``)
-and its slice of the shared experts; ``layers.tp_project``, the MoE joins
+and its slice of the shared experts, or, in an SSM layer, its SSM heads
+(``ssm.apply_ssm_tp``); ``layers.tp_project``, the MoE joins
 and the vocab-sharded embedding and logits join them
 (``distributed.collectives``); the residual stream and the norms are
 replicated. Where tp does not divide the kv heads, serving runs attention
@@ -75,10 +76,12 @@ onto the first shard's device, where the fused sampler runs once.
 trainable=True)``, the mesh trainer's, ``training.loop``): the same layers
 in training mode, and a vocab-sharded cross-entropy. So do the
 contiguous ``prefill`` and ``decode_step`` (one contiguous cache a shard,
-with its kv heads), and both take a ``training.loop.MeshState`` too: the
+with its kv heads and its SSM heads' state), and both take a
+``training.loop.MeshState`` too: the
 JAX ``prefill``/``decode_step`` on a mesh under fsdp or tp, each data
 replica gathering its parameters and running its rows (the dry-run's
-prefill and decode cells, ``launch.dryrun``).
+prefill and decode cells, ``launch.dryrun``, and the fixed-batch
+``launch.serve.Server`` on a mesh).
 """
 
 from __future__ import annotations
@@ -253,47 +256,47 @@ class ShardedLM(nn.Module):
 # compute (pixelfly and dense linears on their natural axis; a pixelfly
 # gate, up, o or down (dense or shared experts') on its blocks' output
 # columns where tp does not divide its block rows; the MoE experts on their
-# expert axis and the router on its columns; a vocab-sharded table); None =
-# replicated. The first pattern that matches decides; a spec that differs
-# is a layout this port does not have. In the sequence-parallel mode
-# (``_SEQ_LAYOUT`` first) q, k and v may be cut on their blocks' output
-# columns too: their slices are joined into whole heads there.
+# expert axis and the router on its columns; a vocab-sharded table; the SSM
+# mixer's ``in_proj`` on its output features, ``out_proj`` as ``o`` and
+# ``down``, ``conv_w`` on its channels, its per-head and per-channel
+# vectors whole); None = replicated. The first pattern that matches
+# decides; a spec that differs is a layout this port does not have. A q,
+# k or v projection cut on its blocks' output columns is joined whole on
+# every shard: in the sequence-parallel mode (``layers.attention_seq``) and
+# in the heads mode alike, where each shard then takes its heads' features
+# (``layers.tp_heads_qkv``).
 _TP_LAYOUT = (
     (r"embed\.tok$", {0}),
     (r"head\.w$", {1}),
     (r"\.moe\.router$", {1}),
     (r"\.moe\.w[gud](\.(blocks|U|V|gamma))?$", {0}),
-    (r"\.(wg|wu|wo|wd)\.blocks$", {0, 3}),
+    (r"\.(wq|wk|wv|wg|wu|wo|wd|out_proj)\.blocks$", {0, 3}),
     (r"\.(blocks|V|b)$", {0}),
-    (r"\.(wq|wk|wv|wg|wu)\.w$", {1}),
-    (r"\.(wo|wd)\.w$", {0}),
+    (r"\.(wq|wk|wv|wg|wu|in_proj)\.w$", {1}),
+    (r"\.(wo|wd|out_proj)\.w$", {0}),
+    (r"\.ssm\.conv_w$", {1}),
+    (r"\.ssm\.(A_log|D|dt_bias|norm|conv_b)$", {None}),
     (r"\.(U|gamma|scale|q_norm|k_norm)$", {None}),
 )
-_SEQ_LAYOUT = ((r"\.(wq|wk|wv)\.blocks$", {0, 3}),)
 
 
 def check_tp_layout(cfg: ModelConfig, st: sharding.Strategy, shapes: dict) -> dict:
     """Refuse (``ValueError``) any configuration ``sharding.check_tp``
     refuses in serving and any tensor whose tensor-parallel spec is not
-    the layout the shard-local forms compute:
-    in the heads mode a q, k or v projection cut on its blocks' output
-    columns would split heads, which the heads mode takes whole; in the
-    sequence-parallel mode (serving and training where tp does not divide
-    the kv heads) the shards join q, k and v whole, so those cuts are
-    taken.
+    the layout the shard-local forms compute (``_TP_LAYOUT``).
     ``shapes``: a state dict (or anything with shapes). Returns the
     specs."""
     tp = st.tp_size
     sharding.check_tp(cfg, tp)
-    layout = (_SEQ_LAYOUT if L.seq_mode(cfg, tp) else ()) + _TP_LAYOUT
     specs = sharding.param_specs(st, shapes)
     for name, spec in specs.items():
-        want = next((d for pat, d in layout if re.search(pat, name)), set())
+        want = next((d for pat, d in _TP_LAYOUT if re.search(pat, name)), set())
         got = sharding.model_dim(st, spec)
         if got not in want:
+            item = sharding.REFUSED["ssm_heads"] if ".ssm." in name else "ROADMAP Queue 1 item 16"
             raise ValueError(
                 f"{cfg.name} at tp={tp}: {name} {tuple(shapes[name].shape)} has spec {spec}, not a layout "
-                f"the port's tensor-parallel forms take; ROADMAP Queue 1 item 16"
+                f"the port's tensor-parallel forms take; {item}"
             )
     return specs
 
@@ -495,7 +498,10 @@ def init_mesh_cache(cfg: ModelConfig, state, batch: int, max_len: int, *, replic
     sequence (a batch of one row on a mesh with data axes) needs
     sequence-parallel decode attention and is refused (ROADMAP Queue 1
     item 16); so is anything ``sharding.check_tp`` refuses, by the
-    ``MeshState``. An SSM group's state stays whole in each replica where
+    ``MeshState``. An SSM group's caches are ``ssm.init_ssm_cache``'s: under
+    tp each shard's heads' state and the conv window of its channels and of
+    B and C (``ssm.apply_ssm_tp``), where the JAX layout cuts conv_dim
+    evenly and the state on N; the state stays whole in each replica where
     the JAX layout cuts its longest dimension over the data axes (ROADMAP
     Queue 3)."""
     check_mesh_cache(cfg, state.st, batch, max_len)
@@ -510,8 +516,10 @@ def init_mesh_cache(cfg: ModelConfig, state, batch: int, max_len: int, *, replic
             shape = (rows, max_len, cfg.num_kv_heads, cfg.head_dim // state.tp)
         else:
             shape = (rows, max_len, cfg.num_kv_heads // state.tp, cfg.head_dim)
-        out.append([[{name: torch.zeros((g.count, *shape), dtype=cfg.torch_dtype, device=state.devices[p])
-                      for name in ("k", "v")} for g in cfg.layer_groups()] for p in ps])
+        out.append([[ssm_lib.init_ssm_cache(cfg, rows, device=state.devices[p], count=g.count, tp=state.tp)
+                      if g.kind == "ssm" else
+                      {name: torch.zeros((g.count, *shape), dtype=cfg.torch_dtype, device=state.devices[p])
+                       for name in ("k", "v")} for g in cfg.layer_groups()] for p in ps])
     return out
 
 
@@ -550,7 +558,8 @@ def _join_rows(logits: list[torch.Tensor], device: torch.device) -> torch.Tensor
 
 
 def _prefill_tp(cfg: ModelConfig, model: ShardedLM, batch: dict, max_len: int | None) -> tuple[torch.Tensor, list]:
-    """``prefill`` on a ``ShardedLM``: each shard's heads and caches."""
+    """``prefill`` on a ``ShardedLM``: each shard's heads and caches (an
+    SSM layer's its heads' state and its channels' conv window)."""
     dev = model.devices[0]
     tokens = embeds = None
     if "embeds" in batch:
@@ -567,6 +576,9 @@ def _prefill_tp(cfg: ModelConfig, model: ShardedLM, batch: dict, max_len: int | 
     for r in range(len(model.shards)):
         per_layer = []
         for layer in fresh:
+            if isinstance(layer[r], dict):  # an SSM layer's {"conv", "state"}
+                per_layer.append(layer[r])
+                continue
             k, v = layer[r]
             if max_len is not None:
                 k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, max_len - s)) for t in (k, v))
@@ -705,7 +717,8 @@ def _layers_tp(
 ) -> list[torch.Tensor]:
     """The layers of the inference entry points on a ``ShardedLM``: the
     vocab-sharded embedding of ``tokens`` (or ``embeds`` on every shard),
-    then for each layer every shard's heads (``attention_heads``, on its
+    then for each layer ``_tp_block``: every shard's SSM heads in an SSM
+    layer, else every shard's heads (``attention_heads``, on its
     pools or contiguous caches when ``caches`` is given, its fresh K/V
     scattered into the pools when ``rows`` is given and appended to
     ``fresh``, one list of the shards' (k, v) a layer, when that is a
@@ -740,7 +753,11 @@ def _tp_block(
     cfg: ModelConfig, kind: str, blks: list[Block], x: list, cos: list, sin: list, kws: list,
     pools: list | None = None, rows: list | None = None, fresh: list | None = None,
 ) -> tuple[list[torch.Tensor], torch.Tensor | None]:
-    """One ``dense`` or ``moe`` block on every shard: its heads
+    """One block on every shard. An ``ssm`` block: the pre-norm and
+    ``ssm.apply_ssm_tp`` in the mode of ``kws`` ("train", "prefill" with
+    each shard's cache appended to ``fresh``, or "decode" on ``pools``,
+    each shard's SSM cache row, written in place). A ``dense``,
+    ``shared_attn`` or ``moe`` block: its heads
     (``attention_heads`` with its ``kws``, on its ``pools`` with the fresh
     K/V scattered into them at ``rows`` when given, and appended to
     ``fresh`` when it is a list) and ``tp_project`` of ``o``, or, where tp
@@ -750,15 +767,26 @@ def _tp_block(
     (``layers.tp_mlp``) or its experts (``moe.apply_moe_tp``). Returns each
     shard's residual stream and the block's load-balance loss (None for a
     dense block)."""
+    if kind == "ssm":
+        hs = [L.rmsnorm(blk.norm.scale, a, cfg.norm_eps) for blk, a in zip(blks, x)]
+        y, new = ssm_lib.apply_ssm_tp([blk.ssm for blk in blks], hs, mode=kws[0]["mode"], caches=pools)
+        if kws[0]["mode"] == "decode":
+            for pool, cache in zip(pools, new):
+                for name, t in cache.items():
+                    pool[name].copy_(t)
+        elif fresh is not None:
+            fresh.extend(new)
+        return [a + b for a, b in zip(x, y)], None
     hs = [L.rmsnorm(blk.attn_norm.scale, a, cfg.norm_eps) for blk, a in zip(blks, x)]
     seq = L.seq_mode(cfg, len(blks))
     if seq:
         heads, kvs = L.attention_seq(cfg, [blk.attn for blk in blks], hs, cos, sin, kws, pools)
     else:
         heads, kvs = [], []
+        proj = L.tp_heads_qkv([blk.attn for blk in blks], hs)
         for r, blk in enumerate(blks):
             o, kv = L.attention_heads(cfg, blk.attn, hs[r], cos[r], sin[r],
-                                      cache=None if pools is None else pools[r], **kws[r])
+                                      cache=None if pools is None else pools[r], proj=proj[r], **kws[r])
             heads.append(o)
             kvs.append(kv)
     for r, kv in enumerate(kvs):

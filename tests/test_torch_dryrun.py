@@ -390,8 +390,9 @@ def test_dryrun_cli_full_width_cell_and_refusals(tmp_path, monkeypatch, capsys):
     assert row["collective_breakdown"]["all-gather"] > 0 and 0 < row["useful_flops_ratio"] < 1
     # --all over the refused cells: a row each, naming its item; exit 1
     # (deepseek-67b's and kimi-k2's cells count in the sequence-parallel
-    # mode, their train cells too: what is left is smollm-360m's
-    # sequence-cut decode cache and zamba2-2.7b's SSM layers)
+    # mode, their train cells too, and zamba2-2.7b's with its SSM mixer cut
+    # by heads: what is left is the sequence-cut decode cache of
+    # smollm-360m's and zamba2-2.7b's long_500k)
     for arch in ("deepseek-67b", "kimi-k2-1t-a32b"):
         train = next(s for s in registry.shapes_for(arch, sparse=True) if s.kind == "train")
         mesh = D.meta_mesh()
@@ -401,19 +402,23 @@ def test_dryrun_cli_full_width_cell_and_refusals(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(registry, "ARCH_NAMES", ["smollm-360m", "zamba2-2.7b"])
     shapes_for = registry.shapes_for
     monkeypatch.setattr(registry, "shapes_for", lambda name, sparse=False: [
-        s for s in shapes_for(name, sparse=sparse) if name == "zamba2-2.7b" or s.name == "long_500k"])
+        s for s in shapes_for(name, sparse=sparse) if s.name == "long_500k"])
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        mesh = D.meta_mesh()
+        st = sharding.Strategy(mesh, registry.DEFAULT_STRATEGY["zamba2-2.7b"])
+        assert st.tp_size == 16
+        D.check_cell(D._prep_cfg(registry.get("zamba2-2.7b", sparse=True), mesh, st), SHAPES[shape], st)
     refused = tmp_path / "refused.json"
     assert D.main(["--all", "--json", str(refused)]) == 1
     rows = json.loads(refused.read_text())
-    items = {"smollm-360m": "item 16", "zamba2-2.7b": "item 18"}
-    assert len(rows) == 5 and all(not r["ok"] and items[r["arch"]] in r["error"] for r in rows)
+    assert len(rows) == 2 and all(not r["ok"] and "item 16" in r["error"] for r in rows)
     table = report.render(str(refused))
-    assert table.count("FAILED") == 5
+    assert table.count("FAILED") == 2
     both = tmp_path / "both.json"
     both.write_text(json.dumps([row] + rows))
     assert "| qwen3-1.7b | train_4k | 16x16 | fsdp |" in report.render(str(both))
     names = [n for n, _, _ in roofline_report.rows(both)]
-    assert names[0] == "roofline/qwen3-1.7b/train_4k/16x16" and len(names) == 6
+    assert names[0] == "roofline/qwen3-1.7b/train_4k/16x16" and len(names) == 3
     assert roofline_report.DEFAULT.name == "dryrun_baseline_torch.json"
 
 

@@ -380,23 +380,25 @@ def test_column_sliced_o_and_down_are_refused(tp):
 
 
 def test_sweep_splits_38_ok_and_28_refused():
-    """The sweep's split: 56 cells count and 10 are refused (38 and 28
+    """The sweep's split: 62 cells count and 4 are refused (38 and 28
     before the sequence-parallel mode served the prefill and decode cells
-    where tp does not divide the kv heads, 50 and 16 before it trained):
-    kimi-k2's six cells count, its two train cells at tp 16 among them, and
-    what is refused is smollm-360m's sequence-cut decode cache (item 16)
-    and zamba2-2.7b (item 18)."""
+    where tp does not divide the kv heads, 50 and 16 before it trained, 56
+    and 10 before the SSM mixer sharded by heads): kimi-k2's six cells
+    count, its two train cells at tp 16 among them, and so do zamba2-2.7b's
+    train, prefill and decode cells; what is refused is the sequence-cut
+    decode cache of smollm-360m's and zamba2-2.7b's long_500k (item 16)."""
     sweep = dryrun.sweep_split()
     ok = [k for k, v in sweep.items() if v is None]
     refused = {k: v for k, v in sweep.items() if v is not None}
-    assert (len(sweep), len(ok), len(refused)) == (66, 56, 10)
+    assert (len(sweep), len(ok), len(refused)) == (66, 62, 4)
     assert sum(k.startswith("deepseek-moe-16b ") for k in ok) == 6
     assert sum(k.startswith("kimi-k2-1t-a32b ") for k in ok) == 6
     assert {k for k in ok if k.startswith("kimi-k2-1t-a32b train_4k")} == {
         "kimi-k2-1t-a32b train_4k 16x16", "kimi-k2-1t-a32b train_4k 2x16x16"}
-    assert all(("item 18" if k.startswith("zamba2") else "item 16") in v for k, v in refused.items())
-    assert all(k.startswith(("zamba2-2.7b ", "smollm-360m long_500k ")) for k in refused)
-    assert [sum(f"item {n}" in v for v in refused.values()) for n in (16, 18)] == [2, 8]
+    assert {k for k in ok if k.startswith("zamba2-2.7b ")} == {
+        f"zamba2-2.7b {s} {m}" for s in ("train_4k", "prefill_32k", "decode_32k") for m in ("16x16", "2x16x16")}
+    assert all("item 16" in v and "cut along the sequence" in v for v in refused.values())
+    assert set(refused) == {f"{a} long_500k {m}" for a in ("smollm-360m", "zamba2-2.7b") for m in ("16x16", "2x16x16")}
 
 
 def test_serve_cli_tp_serves_the_moe_family(capsys):

@@ -268,10 +268,11 @@ def test_families_under_fsdp_equal_one_device(arch, over):
 def test_refusals_name_their_roadmap_items(tmp_path):
     """One routing group does not split over two replicas: the MoE family
     refuses fsdp (2, 1) saying so. Under tp the SSM and hybrid families
-    refuse (item 18), and so do kv heads tp does not divide (item 16:
-    kimi-k2 at tp 16, whose experts would shard); where they do not, the
-    ``Trainer`` trains in the sequence-parallel mode: one step at (1, 4)
-    within 1e-5 of the single-device step."""
+    take tp 2, which divides their SSM heads, and refuse tp 3, which does
+    not (item 24); kv heads tp does not divide are refused where the router
+    cannot shard (item 16: kimi-k2 at tp 16, whose experts would shard);
+    where they can, the ``Trainer`` trains in the sequence-parallel mode:
+    one step at (1, 4) within 1e-5 of the single-device step."""
     moe = registry.get_smoke("deepseek-moe-16b", sparse=True).replace(num_layers=2)
     sd = T.init_model(moe, seed=0, device="cpu").state_dict()
     with pytest.raises(ValueError, match="routing group"):
@@ -281,8 +282,10 @@ def test_refusals_name_their_roadmap_items(tmp_path):
         MeshState(kimi, Mesh(("data", "model"), (1, 16), ["meta"] * 16), "tp", T.skeleton(kimi).state_dict())
     for arch in ("mamba2-130m", "zamba2-2.7b"):
         ssm = registry.get_smoke(arch, sparse=True)
-        with pytest.raises(ValueError, match="item 18"):
-            MeshState(ssm, _mesh((1, 2)), "tp", T.skeleton(ssm).state_dict())
+        sd = T.skeleton(ssm).state_dict()
+        assert MeshState(ssm, Mesh(("data", "model"), (1, 2), ["meta"] * 2), "tp", sd).tp == 2
+        with pytest.raises(ValueError, match="item 24"):
+            MeshState(ssm, Mesh(("data", "model"), (1, 3), ["meta"] * 3), "tp", sd)
     seq = _trainer(tmp_path, mesh=_mesh((1, 4)), strategy="tp")
     assert L.seq_mode(seq.model_cfg, 4)
     assert _history_gap(seq.run(1), _single_history()[:1]) <= 1e-5

@@ -209,11 +209,12 @@ def test_serve_cli_replicas(capsys, tmp_path):
 
 
 # each flag and why it exits: tp without the tp layout (as the JAX CLI),
-# the production mesh on a machine with fewer devices, the Server at tp 2
+# also for the Server, and the production mesh on a machine with fewer
+# devices
 CLI_EXITS = {
     ("--tp", "2"): "pass --strategy tp",
     ("--production-mesh",): "needs 256 devices",
-    ("--strategy", "tp", "--tp", "2", "--legacy-server"): "item 18",
+    ("--tp", "2", "--legacy-server"): "pass --strategy tp",
 }
 
 

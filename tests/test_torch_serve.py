@@ -162,20 +162,20 @@ def test_cli_observability_outputs(tmp_path, monkeypatch, capsys):
 
 
 # each flag and why it exits (tensor-parallel serving itself is
-# tests/test_torch_tp_serving.py's)
+# tests/test_torch_tp_serving.py's, the Server's tests/test_torch_ssm_tp.py's)
 CLI_EXITS = {
     ("--tp", "2"): "pass --strategy tp",
     ("--replicas", "2", "--tp", "2"): "pass --strategy tp",
     ("--production-mesh",): "needs 256 devices",
-    ("--strategy", "tp", "--tp", "2", "--legacy-server"): "item 18",
+    ("--tp", "2", "--legacy-server"): "pass --strategy tp",
 }
 
 
 @pytest.mark.parametrize("flag", [list(f) for f in CLI_EXITS])
 def test_cli_refuses_distribution(flag):
-    """``--tp`` needs ``--strategy tp`` (as the JAX CLI), alone or with
-    ``--replicas``; the production mesh needs 256 devices; the fixed-batch
-    Server is not sharded (ROADMAP Queue 1 item 18)."""
+    """``--tp`` needs ``--strategy tp`` (as the JAX CLI), alone, with
+    ``--replicas`` or with the fixed-batch Server (``--legacy-server``); the
+    production mesh needs 256 devices."""
     with pytest.raises(SystemExit, match=CLI_EXITS[tuple(flag)]):
         serve.main(SMOKE + flag)
 

@@ -168,17 +168,28 @@ def test_refusals_name_their_roadmap_items():
     # tests/test_torch_seq_parallel.py)
     with pytest.raises(ValueError, match="neither its 2 kv heads nor its head_dim 64.*item 16"):
         tp_engine(cfg, 128)
-    # nb_out that does not divide tp: 3 kv blocks of 64 over 2 shards
+    # nb_out that does not divide tp: 3 blocks of 64 in q, k, v and o over 2
+    # shards, cut on their blocks' output columns; the heads mode joins q, k
+    # and v whole and each shard takes its head: tp 1's streams
     odd = cfg.replace(num_heads=2, num_kv_heads=2, head_dim=96)
-    with pytest.raises(ValueError, match="item 16"):
-        tp_engine(odd, 2)
+    base = Engine(odd, engine_cfg=ecfg, device="cpu")
+    two = tp_engine(odd, 2, params=base.model.state_dict())
+    assert two.model.shards[1].layers[0].attn.wq.cols == (32, 64)
+
+    def streams(e):
+        for p in _prompts(2):
+            e.submit(p, 6)
+        return [f.tokens.tolist() for f in sorted(e.drain(max_steps=60), key=lambda f: f.uid)]
+
+    assert streams(two) == streams(base)
     # the MoE family's experts shard (expert parallelism); smoke kimi-k2's
     # 2 kv heads at tp 16 would serve in the sequence-parallel mode, but its
     # 8 experts do not divide over 16 shards, so its router stays whole
     with pytest.raises(ValueError, match=r"moe\.router .*item 16"):
         tp_engine(registry.get_smoke("kimi-k2-1t-a32b", sparse=True), 16)
+    # the paged engine refuses SSM state at every tp (the Server serves it)
     for arch in ("mamba2-130m", "zamba2-2.7b"):
-        with pytest.raises(ValueError, match="item 18"):
+        with pytest.raises(ValueError, match="serve it with launch.serve.Server"):
             tp_engine(registry.get_smoke(arch, sparse=True), 2)
     # positions off the model axis: serving does not shard by data
     with pytest.raises(ValueError, match="item 20"):
@@ -196,9 +207,10 @@ SMOKE = ["--arch", "qwen3-1.7b", "--sparse", "--smoke", "--device", "cpu", "--ba
 
 
 def test_serve_cli_tp(capsys):
-    """``--tp 2 --strategy tp`` serves the grid of one device; ``--tp 2``
-    alone exits as the JAX CLI does, and so do the production mesh on a
-    machine with fewer devices and the Server at tp 2."""
+    """``--tp 2 --strategy tp`` serves the grid of one device, through the
+    engine and through the Server (``--legacy-server``); ``--tp 2`` alone
+    exits as the JAX CLI does, and so does the production mesh on a
+    machine with fewer devices."""
     tp = serve.main(SMOKE + ["--tp", "2", "--strategy", "tp"])
     out = capsys.readouterr().out
     assert "tp 2 on 1 distinct device(s)" in out and tp.engine.tp == 2
@@ -210,8 +222,8 @@ def test_serve_cli_tp(capsys):
         serve.main(SMOKE + ["--tp", "2"])
     with pytest.raises(SystemExit, match="needs 256 devices, this machine has 1"):
         serve.main(SMOKE + ["--production-mesh"])
-    with pytest.raises(SystemExit, match="item 18"):
-        serve.main(SMOKE + ["--tp", "2", "--strategy", "tp", "--legacy-server"])
+    legacy = serve.main(SMOKE + ["--tp", "2", "--strategy", "tp", "--legacy-server"])
+    assert legacy.engine is None and [t.tolist() for t in legacy.tokens] == [t.tolist() for t in one.tokens]
 
 
 def test_serve_cli_tp4_sequence_parallel(capsys):
